@@ -1,0 +1,265 @@
+"""Smoke test of the PyTorch + CUDA port (`orbslam3_tpu_torch`) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the hand-written CUDA kernels from `orbslam3_tpu_torch/csrc/`, checks
+each against its plain PyTorch version at the shapes of the tracking slice
+(EuRoC: 752x480 image, 8 levels, 1024 features, 16384 map points), drives
+the slice's entry points for a run of frames and checks what comes out, and
+compares one whole frame run through the kernels with the same frame run
+through the plain versions. Every phase prints one line; any failure ends
+the run with a non-zero exit. Without a CUDA device it exits non-zero and
+prints no result.
+
+The line before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+import warnings
+
+import numpy as np
+import torch
+
+N_FRAMES = 24  # frames of the slice driven in phase 3
+# Of the 600 keypoints back-projected into the map, the final solve kept
+# 564-569 per noisy frame on the H100 (150 of 150 in the CPU parity test's
+# small scene); 500 leaves room for noise without hiding a broken stage.
+MIN_INLIERS = 500
+N_HIDDEN = 100  # points only the local-map stage can find in phase 4
+
+
+def _median_ms(fn, iters=20, warmup=3):
+    """Median device time of `fn()` in ms, CUDA events around each call."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _local_map_variant(args, ref_kf: int):
+    """The scene's tensors with map-point normals along the viewing rays
+    (the reference's scene points them at the camera, so no point passes the
+    frustum test) and the last N_HIDDEN back-projected points dropped from
+    the last frame but observed by the reference keyframe: only the
+    local-map stage, through its 16384x1024 windowed B1 search, finds them."""
+    img, state, local_mask, R, t, last_mp, last_octave = args
+    ids = last_mp[last_mp >= 0][-N_HIDDEN:]
+    octave = last_octave[last_mp >= 0][-N_HIDDEN:]
+    kf_mp = state.kf_mp.clone()
+    kf_mp[ref_kf, :N_HIDDEN] = ids
+    normal = state.mp_normal.clone()
+    normal[:, 2] = 1.0
+    # The scene's max_dist (5x the distance) predicts the top octave for every
+    # point; give the hidden points the octave of their keypoint instead,
+    # half a level from either rounding edge.
+    dist = torch.linalg.norm(state.mp_pos[ids.long()] + R.T @ t, dim=-1)
+    max_dist = state.mp_max_dist.clone()
+    max_dist[ids.long()] = dist * 1.2 ** (octave.to(torch.float32) - 0.5)
+    last_mp = torch.where(torch.isin(last_mp, ids), -1, last_mp)
+    state = state._replace(kf_mp=kf_mp, mp_normal=normal, mp_max_dist=max_dist)
+    return img, state, local_mask, R, t, last_mp, last_octave
+
+
+def check(ok, what: str) -> None:
+    """Fail the run (every phase's checks are hard failures)."""
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+
+    from orbslam3_tpu_torch import convert
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch.ops import _build, cuda_fast, cuda_match
+    from orbslam3_tpu_torch.ops import features as feat
+    from orbslam3_tpu_torch.pipeline import frame as fr
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    _build.library()
+    built = _build.build_seconds
+    print(f"build: {'%.1f s nvcc' % built if built is not None else 'cached'}, "
+          f"{time.perf_counter() - t0:.1f} s to load")
+
+    cfg = E.EUROC
+    orb = cfg.orb
+    step, args = E.entry(dev, cfg)
+    img, state, local_mask, R_pred, t_pred, last_mp, last_octave = args
+
+    # --- Phase 1: B2 on the EuRoC atlas ---------------------------------
+    atlas = feat.build_atlas(img, orb)
+    s_k, i_k = cuda_fast.fast_score_nms(atlas, orb.min_th, orb.ini_th)
+    with _build.force_plain():
+        s_p, i_p = cuda_fast.fast_score_nms(atlas, orb.min_th, orb.ini_th)
+    torch.cuda.synchronize()
+    b = 4  # the reference's border differs by design; the port's two agree everywhere
+    err_b2 = float((s_k - s_p)[b:-b, b:-b].abs().max())
+    check(torch.equal(s_k[b:-b, b:-b], s_p[b:-b, b:-b]), "B2 score differs from plain")
+    check(torch.equal(i_k[b:-b, b:-b], i_p[b:-b, b:-b]), "B2 pass_ini differs from plain")
+    check(int((s_k > 0).sum()) > 10000, "B2 found no corners")
+    ms_b2 = _median_ms(lambda: cuda_fast.fast_score_nms(atlas, orb.min_th, orb.ini_th))
+    with _build.force_plain():
+        ms_b2_plain = _median_ms(
+            lambda: cuda_fast.fast_score_nms(atlas, orb.min_th, orb.ini_th), iters=10)
+    print(f"phase 1 B2 fast_nms {tuple(atlas.shape)}: exact vs plain (tolerance 0) "
+          f"(corners {int((s_k > 0).sum())}, everywhere equal: {torch.equal(s_k, s_p)}); "
+          f"kernel {ms_b2:.4f} ms, plain {ms_b2_plain:.4f} ms")
+
+    # --- Phase 2: B1 at the slice's two shapes --------------------------
+    f = feat.extract(img, orb)
+    c = E._consts(cfg, dev)
+    uv, visible, lvl, vcos = fr.frustum_and_scale(
+        c.model, c.params, R_pred, t_pred, state.mp_pos, state.mp_valid, state.mp_normal,
+        state.mp_min_dist, state.mp_max_dist, c.img_wh, n_levels=orb.n_levels)
+    win = cuda_match.MatchWindow(uv, f.uv, fr.search_radius(vcos, lvl), f.octave,
+                                 torch.clamp(lvl - 1, min=0), lvl + 1)
+
+    def b1_local():
+        return cuda_match.hamming_top2(state.mp_desc, f.desc, f.valid, win)
+
+    out_k = b1_local()
+    with _build.force_plain():
+        out_p = b1_local()
+    torch.cuda.synchronize()
+    # Every row is compared: the kernel computes all 16384 queries whatever
+    # their validity (the synthetic map's normals face away, so the frustum
+    # test passes no point at this pose and validity would leave none).
+    for name, k_, p_ in zip(("d1", "d2", "j1"), out_k, out_p):
+        check(torch.equal(k_, p_), f"B1 windowed {name} differs from plain")
+    err_b1 = max(float((out_k[0] - out_p[0]).abs().max()),
+                 float((out_k[1] - out_p[1]).abs().max()))
+    n_in_window = int((out_k[0] < 1e9).sum())
+    ms_b1 = _median_ms(b1_local)
+    with _build.force_plain():
+        ms_b1_plain = _median_ms(b1_local, iters=10)
+
+    rk = cfg.ref_kf
+    kf_desc, kf_valid = state.kf_desc[rk], state.kf_feat_valid[rk]
+
+    def b1_cross():
+        fwd = cuda_match.hamming_top2(kf_desc, f.desc, f.valid)
+        back = cuda_match.hamming_top2(f.desc, kf_desc, kf_valid)
+        return fwd + back
+
+    out_k = b1_cross()
+    with _build.force_plain():
+        out_p = b1_cross()
+    torch.cuda.synchronize()
+    rows_c = [kf_valid] * 3 + [f.valid] * 3
+    for i, (k_, p_, r_) in enumerate(zip(out_k, out_p, rows_c)):
+        check(torch.equal(k_[r_], p_[r_]), f"B1 cross-check output {i} differs from plain")
+    ms_b1c = _median_ms(b1_cross)
+    with _build.force_plain():
+        ms_b1c_plain = _median_ms(b1_cross, iters=10)
+    print(f"phase 2 B1 hamming_top2: windowed {tuple(state.mp_desc.shape[:1])}x{f.desc.shape[0]} "
+          f"exact (tolerance 0) vs plain on all rows ({n_in_window} with a key in their window, "
+          f"{int(visible.sum())} visible), kernel {ms_b1:.4f} ms, "
+          f"plain {ms_b1_plain:.4f} ms; cross-checked 1024x1024 (2 launches) exact, "
+          f"kernel {ms_b1c:.4f} ms, plain {ms_b1c_plain:.4f} ms")
+
+    # --- Phase 3: the slice, through both entry points -------------------
+    rng = np.random.default_rng(1)
+    img_np = img.cpu().numpy()
+
+    def noisy():
+        return convert.tensor(img_np + rng.normal(0, 1.0, img_np.shape).astype(np.float32), dev)
+
+    R, t, n_inl = step(noisy(), *args[1:])
+    check(torch.isfinite(R).all() and torch.isfinite(t).all(), "entry() pose not finite")
+    check(int(n_inl) >= MIN_INLIERS, f"entry() n_inl {int(n_inl)} < {MIN_INLIERS}")
+    run = E.staged_pipeline(dev, cfg)
+    frames = [noisy() for _ in range(N_FRAMES)]
+    run(frames[0], *args[1:])  # first call: per-shape tables and caches
+    torch.cuda.synchronize()
+    cuda_fast.LAUNCHES = 0
+    cuda_match.LAUNCHES = 0
+    wall, bundles = [], []
+    for fimg in frames:
+        t0 = time.perf_counter()
+        bundles.append(run(fimg, *args[1:]))  # ends in the bundle fetch (synchronous)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    launches = {"fast_nms": cuda_fast.LAUNCHES, "hamming_top2": cuda_match.LAUNCHES}
+    check(launches["fast_nms"] >= N_FRAMES and launches["hamming_top2"] >= 2 * N_FRAMES, str(launches))
+    for bnd in bundles:
+        check(bool(bnd["used_a"]), "motion model not used")
+        check(np.isfinite(bnd["R"]).all() and np.isfinite(bnd["t"]).all(), "pose not finite")
+        check(int(bnd["n_inl"]) >= MIN_INLIERS, f"n_inl {int(bnd['n_inl'])} < {MIN_INLIERS}")
+    n_inls = [int(bnd["n_inl"]) for bnd in bundles]
+    med = statistics.median(wall)
+    print(f"phase 3 slice: {N_FRAMES} frames via staged_pipeline, launches {launches}, "
+          f"n_inl min {min(n_inls)} median {statistics.median(n_inls)}, used_a all, "
+          f"median {med:.2f} ms/frame ({1e3 / med:.1f} frames/s), "
+          f"entry() n_inl {int(n_inl)}")
+
+    # Host synchronisations in one frame: the read of the motion model's
+    # success and the bundle fetch (`_track_step`'s docstring).
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        run(frames[1], *args[1:])
+    torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+    check(len(syncs) == 2, f"{len(syncs)} host syncs in one frame, expected 2: {syncs}")
+    print(f"phase 3 host syncs per frame: {len(syncs)}")
+
+    # --- Phase 4: one frame through the kernels and through the plain versions,
+    # on the scene as built and on its variant where the local-map stage matches.
+    for name, a in (("as built", args), ("local map", _local_map_variant(args, cfg.ref_kf))):
+        got_k = run(frames[0], *a[1:])
+        with _build.force_plain():
+            got_p = run(frames[0], *a[1:])
+        check(np.array_equal(got_k["assoc"], got_p["assoc"]), f"{name}: assoc, kernels vs plain")
+        dR = float(np.abs(got_k["R"] - got_p["R"]).max())
+        dt = float(np.abs(got_k["t"] - got_p["t"]).max())
+        check(dR <= 1e-4 and dt <= 1e-4, f"{name}: |dR| {dR}, |dt| {dt}")
+        n_assoc = int((got_k["assoc"] >= 0).sum())
+        if name == "local map":
+            check(n_assoc >= int(got_k["n_a"]) + N_HIDDEN // 2,
+                  f"local-map stage found {n_assoc - int(got_k['n_a'])} of {N_HIDDEN} points")
+        print(f"phase 4 kernels vs plain frame ({name}): assoc equal ({n_assoc} associated, "
+              f"{int(got_k['n_a'])} by the motion model), n_inl {int(got_k['n_inl'])} vs "
+              f"{int(got_p['n_inl'])}, max |dR| {dR:.2e}, max |dt| {dt:.2e}")
+
+    record = {"kernels": [
+        {"name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",
+         "replaces": "orbslam3_tpu/ops/pallas_fast.py:141", "launches": launches["fast_nms"],
+         "max_abs_err": err_b2, "ms": ms_b2, "plain_ms": ms_b2_plain},
+        {"name": "hamming_top2", "route": "cuda",
+         "source": "orbslam3_tpu_torch/csrc/hamming_top2.cu",
+         "replaces": "orbslam3_tpu/ops/pallas_match.py:155",
+         "launches": launches["hamming_top2"], "max_abs_err": err_b1, "ms": ms_b1,
+         "plain_ms": ms_b1_plain},
+    ]}
+    print(json.dumps(record))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
