@@ -3,13 +3,17 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from `orbslam3_tpu_torch/csrc/`, checks
-each against its plain PyTorch version at the shapes of the tracking slice
+each against its plain PyTorch version at the shapes of the main path
 (EuRoC: 752x480 image, 8 levels, 1024 features, 16384 map points), drives
-the slice's entry points for a run of frames and checks what comes out, and
+the tracking entry points for a run of frames and checks what comes out, and
 compares one whole frame run through the kernels with the same frame run
-through the plain versions. Every phase prints one line; any failure ends
-the run with a non-zero exit. Without a CUDA device it exits non-zero and
-prints no result.
+through the plain versions (phases 1-4). Phase 5 does the same for the
+per-keyframe mapping pass (triangulate, fuse, local BA at full width), on
+the reference's scene and on a variant where triangulation and fuse find
+planted points, counts its host syncs, and times an amortized loop of
+tracked frames with a mapping pass every 14th. Every phase prints one line;
+any failure ends the run with a non-zero exit. Without a CUDA device it
+exits non-zero and prints no result.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -33,6 +37,9 @@ N_FRAMES = 24  # frames of the slice driven in phase 3
 # small scene); 500 leaves room for noise without hiding a broken stage.
 MIN_INLIERS = 500
 N_HIDDEN = 100  # points only the local-map stage can find in phase 4
+N_PASSES = 5  # timed mapping passes in phase 5
+KF_EVERY = 14  # a mapping pass every 14th frame (bench.py's amortized cadence)
+N_AMORTIZED = 2 * KF_EVERY  # frames of the amortized loop
 
 
 def _median_ms(fn, iters=20, warmup=3):
@@ -91,6 +98,7 @@ def main() -> int:
     from orbslam3_tpu_torch.ops import _build, cuda_fast, cuda_match
     from orbslam3_tpu_torch.ops import features as feat
     from orbslam3_tpu_torch.pipeline import frame as fr
+    from orbslam3_tpu_torch.pipeline import local_mapping as lmap
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -244,6 +252,122 @@ def main() -> int:
               f"{int(got_k['n_a'])} by the motion model), n_inl {int(got_k['n_inl'])} vs "
               f"{int(got_p['n_inl'])}, max |dR| {dR:.2e}, max |dt| {dt:.2e}")
 
+    # --- Phase 5: the mapping pass ----------------------------------------
+    mcfg = E.EUROC_MAPPING
+    mrun, (mstate,) = E.mapping_pass(dev, mcfg)
+    mscene = E.make_mapping_scene(mcfg)
+    variant = E.mapping_variant(mscene)
+    vstate = convert.to_torch(variant.state, dev)
+    n_nb = mcfg.n_nb
+    mc = E._consts(E.EUROC, dev)  # the mapping scene's camera and ORB levels
+
+    # B1 at the fuse shape (1024 candidates x 1024 keypoints, windowed), on
+    # the variant's first neighbour, where planted keypoints match.
+    nbk = int(mscene.nb_ids[0])
+    cand = convert.tensor(mscene.cand_ids, dev).long()
+    Rk, tk = vstate.kf_R[nbk], vstate.kf_t[nbk]
+    uv_c, vis_c, lvl_c, _ = fr.frustum_and_scale(
+        mc.model, mc.params, Rk, tk, vstate.mp_pos[cand], vstate.mp_valid[cand],
+        vstate.mp_normal[cand], vstate.mp_min_dist[cand], vstate.mp_max_dist[cand], mc.img_wh)
+    win_f = cuda_match.MatchWindow(uv_c, vstate.kf_uv[nbk], 3.0 * 1.2 ** lvl_c.float(),
+                                   vstate.kf_octave[nbk], torch.clamp(lvl_c - 1, min=0), lvl_c)
+
+    def b1_fuse():
+        return cuda_match.hamming_top2(vstate.mp_desc[cand], vstate.kf_desc[nbk],
+                                       vstate.kf_feat_valid[nbk], win_f)
+
+    out_k = b1_fuse()
+    with _build.force_plain():
+        out_p = b1_fuse()
+    torch.cuda.synchronize()
+    for name, k_, p_ in zip(("d1", "d2", "j1"), out_k, out_p):
+        check(torch.equal(k_, p_), f"B1 fuse-shape {name} differs from plain")
+    err_b1 = max(err_b1, float((out_k[0] - out_p[0]).abs().max()),
+                 float((out_k[1] - out_p[1]).abs().max()))
+    n_zero = int((out_k[0] == 0).sum())
+    ms_b1f = _median_ms(b1_fuse)
+    with _build.force_plain():
+        ms_b1f_plain = _median_ms(b1_fuse, iters=10)
+    print(f"phase 5 B1 fuse shape {cand.shape[0]}x{vstate.kf_desc.shape[1]} windowed: exact "
+          f"(tolerance 0) vs plain, {n_zero} queries at distance 0, kernel {ms_b1f:.4f} ms, "
+          f"plain {ms_b1f_plain:.4f} ms")
+
+    # The main path: one pass through the entry point, counts read around it.
+    E.fetch_mapping(mrun(mstate))  # first call: per-shape tables and caches
+    torch.cuda.synchronize()
+    cuda_fast.LAUNCHES = 0
+    cuda_match.LAUNCHES = 0
+    ref_k = E.fetch_mapping(mrun(mstate))
+    launches5 = {"fast_nms": cuda_fast.LAUNCHES, "hamming_top2": cuda_match.LAUNCHES}
+    check(launches5["hamming_top2"] >= n_nb, f"mapping pass launches {launches5}")
+    wall5 = []
+    for _ in range(N_PASSES):
+        t0 = time.perf_counter()
+        E.fetch_mapping(mrun(mstate))
+        wall5.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = mrun(mstate)
+        n_before = len(caught)
+        E.fetch_mapping(out)
+    torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+    check(n_before == 0, f"{n_before} host syncs before the mapping pass's fetch: {syncs}")
+    print(f"phase 5 mapping pass (Kmax {mcfg.Kmax}, {mcfg.n_kf} KFs, {n_nb} neighbours, "
+          f"{mcfg.n_cand} candidates, LBA window {mcfg.n_window} + fixed {mcfg.n_fixed}, "
+          f"{mcfg.iters} LM iterations): launches {launches5}, median "
+          f"{statistics.median(wall5):.2f} ms/pass over {N_PASSES} (min {min(wall5):.2f}), "
+          f"host syncs {n_before} before the fetch, {len(syncs)} with it")
+
+    window = convert.tensor(mscene.window_ids, dev)
+    fixed = convert.tensor(mscene.fixed_ids, dev)
+    for name, st0 in (("reference", mstate), ("variant", vstate)):
+        got_k = E.fetch_mapping(mrun(st0))
+        with _build.force_plain():
+            got_p = E.fetch_mapping(mrun(st0))
+        for k in ("good", "idx", "rows", "adds", "conflict", "n_bad"):
+            check(np.array_equal(got_k[k], got_p[k]), f"{name}: {k}, kernels vs plain")
+        g = got_k["good"]
+        check(np.array_equal(got_k["Xw"][g], got_p["Xw"][g]), f"{name}: Xw, kernels vs plain")
+        dR = float(np.abs(got_k["kf_R"] - got_p["kf_R"]).max())
+        dt = float(np.abs(got_k["kf_t"] - got_p["kf_t"]).max())
+        check(dR <= 1e-4 and dt <= 1e-4, f"{name}: |dR| {dR}, |dt| {dt}")
+        for k in ("Xw", "kf_R", "kf_t", "mp_pos", "cost"):
+            check(np.isfinite(got_k[k]).all(), f"{name}: {k} not finite")
+        cost0 = float(lmap.local_ba(mc.model, mc.params, st0, window, fixed, mc.sigma2,
+                                    iters=0)[1])
+        cost1 = float(got_k["cost"])
+        check(cost1 < cost0, f"{name}: LBA cost {cost1} not below the start {cost0}")
+        n_good = int(g.any(0).sum())
+        adds = got_k["adds"].tolist()
+        n_conf = int(got_k["conflict"].sum())
+        kf0_before = st0.kf_mp[0].cpu().numpy()
+        kf0_erased = int(((kf0_before >= 0) & (got_k["kf_mp"][0] < 0)).sum())
+        if name == "variant":
+            check(n_good >= 100, f"variant: {n_good} good triangulations < 100 of 200 planted")
+            check(min(adds) >= 50, f"variant: fuse adds {adds}, expected >= 50 of 100 each")
+            check(n_conf >= 1, "variant: fuse reported no conflict")
+            check(kf0_erased >= 1, "variant: keyframe 0's planted outlier was not erased")
+        print(f"phase 5 kernels vs plain pass ({name}): good/idx/rows/adds/conflicts/n_bad "
+              f"equal, max |dR| {dR:.2e}, max |dt| {dt:.2e}; good triangulations {n_good} "
+              f"({int(g.sum())} pairs), fuse adds per neighbour {adds}, conflicts {n_conf}, "
+              f"n_bad {int(got_k['n_bad'])} (keyframe 0: {kf0_erased} erased), "
+              f"LBA cost {cost0:.2f} -> {cost1:.2f}")
+
+    # Amortized: tracked frames with a mapping pass every KF_EVERY-th.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(N_AMORTIZED):
+        run(frames[i % N_FRAMES], *args[1:])
+        if i % KF_EVERY == KF_EVERY - 1:
+            mout = mrun(mstate)
+    E.fetch_mapping(mout)
+    amort_s = time.perf_counter() - t0
+    print(f"phase 5 amortized: {N_AMORTIZED} frames of staged_pipeline with a mapping pass "
+          f"every {KF_EVERY}th, {amort_s:.3f} s, {N_AMORTIZED / amort_s:.2f} frames/s")
+
+    launches["hamming_top2"] += launches5["hamming_top2"]
     record = {"kernels": [
         {"name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",
          "replaces": "orbslam3_tpu/ops/pallas_fast.py:141", "launches": launches["fast_nms"],

@@ -10,10 +10,10 @@ The package never imports `jax` or `orbslam3_tpu`: state crosses over as
 numpy arrays (`convert.py`).
 
 Precision: TF32 is switched off for float32 matmuls and convolutions, here at
-import. The pose solve's normal equations and the pyramid resize run as
-float32 matmuls; TF32 keeps about three decimal digits, which made the
-reference's reduced camera systems indefinite when its TPU matmuls ran at
-reduced precision. The port does not depend on PyTorch's defaults for this.
+import. The pose solve's normal equations, the local BA's reduced camera
+system and the pyramid resize run as float32 matmuls; TF32 keeps about three
+decimal digits, which made the reference's reduced camera systems indefinite
+when its TPU matmuls ran at reduced precision. The port does not depend on PyTorch's defaults for this.
 """
 
 import torch

@@ -1,8 +1,18 @@
-"""Structure-of-arrays map store on torch tensors — the tracking slice's
-subset of `orbslam3_tpu/atlas/store.py`: `MapState`, `empty_map` and the
-found/visible bookkeeping. Field names, shapes and dtypes are the
-reference's, so `convert.to_torch(np_state, device, MapState)` carries a
-JAX map across."""
+"""Structure-of-arrays map store on torch tensors — the main path's subset
+of `orbslam3_tpu/atlas/store.py`: `MapState`, `empty_map`, the
+found/visible bookkeeping and the BA write-back `update_poses_points`.
+Field names, shapes and dtypes are the reference's, so
+`convert.to_torch(np_state, device, MapState)` carries a JAX map across.
+
+Scatters with duplicate indices (fault C6). The reference writes
+``x.at[clip(idx, 0)].set(where(valid, v, x[clip(idx, 0)]))``: every invalid
+row clips to index 0 (or to the last slot) and writes the old value back,
+so on JAX's CPU backend a valid write there is lost unless it comes last,
+and on CUDA `index_put_` gives duplicate indices no order at all. The port
+scatters the valid rows only (`scatter_rows`, `flag`): invalid rows go to
+one extra slot that is dropped. Results therefore equal the reference's
+everywhere except, at most, at the slots the invalid rows clip to.
+"""
 
 from __future__ import annotations
 
@@ -53,6 +63,32 @@ class MapState(NamedTuple):
         return self.kf_uv.shape[1]
 
 
+def scatter_rows(base: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
+                 values: torch.Tensor) -> torch.Tensor:
+    """Copy of `base` with base[idx[r]] = values[r] for the valid rows r
+    only (valid idx are unique); invalid rows land in a dropped extra slot."""
+    n = base.shape[0]
+    buf = torch.cat([base, base[:1]])
+    slot = torch.where(valid, idx.to(torch.int64), n)
+    buf[slot] = values.to(base.dtype)
+    return buf[:n]
+
+
+def flag(n: int, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(n,) bool, True at idx[r] for every valid row r."""
+    buf = torch.zeros(n + 1, dtype=torch.bool, device=idx.device)
+    # index_fill_ takes the scalar as is; `buf[i] = True` would first copy
+    # it to the device, a host synchronisation.
+    buf.index_fill_(0, torch.where(valid, idx.to(torch.int64), n), True)
+    return buf[:n]
+
+
+def row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] for a 0-d device index, without a host read (indexing with a 0-d
+    tensor reads it on the host)."""
+    return x.index_select(0, i.reshape(1).to(torch.int64))[0]
+
+
 def empty_map(Kmax: int = 256, Pmax: int = 16384, Nf: int = 1024, device=None) -> MapState:
     f, i32 = torch.float32, torch.int32
 
@@ -97,3 +133,16 @@ def bump_found_visible_arrays(state: MapState, visible: torch.Tensor, assoc: tor
         0, torch.clamp(assoc, min=0).to(torch.int64), (assoc >= 0).to(torch.int32)
     )
     return fnd, vis
+
+
+def update_poses_points(state: MapState, kf_ids, kf_R, kf_t, kf_mask, mp_ids, mp_pos,
+                        mp_mask) -> MapState:
+    """Write back BA results: poses for kf_ids where kf_mask, positions for
+    mp_ids where mp_mask. Only the masked rows are written (C6: the
+    reference also writes the old value back through every unmasked row,
+    whose clipped ids collide with real ones)."""
+    return state._replace(
+        kf_R=scatter_rows(state.kf_R, kf_ids, kf_mask, kf_R),
+        kf_t=scatter_rows(state.kf_t, kf_ids, kf_mask, kf_t),
+        mp_pos=scatter_rows(state.mp_pos, mp_ids, mp_mask, mp_pos),
+    )

@@ -1,13 +1,22 @@
-"""Entry points of the port's tracking slice — the counterparts of
-`__graft_entry__.py::entry` and `::staged_pipeline`, at the same EuRoC
-shapes by default: 752x480 image, 8 levels, 1024 features, Kmax 64 keyframes,
-Pmax 16384 map points, an 8192-point local mask and 600 keypoints of the
-frame back-projected into the map, so the motion-model stage tracks.
+"""Entry points of the port's main path — the counterparts of
+`__graft_entry__.py::entry`, `::staged_pipeline` and `::mapping_pass`, at
+the same shapes by default.
 
-`staged_pipeline(device)` is the slice's normal entry point: extraction,
-then `_track_step` with the cached `compute_obs_count`, then one fetch of
-the decision bundle. The scene is built with numpy from a seed (`make_scene`
-draws from the generator in the reference's order), so a test can hand the
+Tracking (`entry`, `staged_pipeline`) runs at EuRoC shapes: 752x480 image,
+8 levels, 1024 features, Kmax 64 keyframes, Pmax 16384 map points, an
+8192-point local mask and 600 keypoints of the frame back-projected into the
+map, so the motion-model stage tracks. `staged_pipeline(device)` is the
+per-frame entry point: extraction, then `_track_step` with the cached
+`compute_obs_count`, then one fetch of the decision bundle.
+
+The mapping pass (`mapping_pass`) is what runs once per keyframe: two-view
+triangulation of keyframe 71 against 10 neighbours, the fuse of 1024
+candidate points into those neighbours, and the dense-Schur local BA over a
+48-keyframe window with a fixed bucket of 32 (24 valid), on a 128-keyframe
+map whose observations are consistent projections.
+
+Scenes are built with numpy from a seed (`make_scene`, `make_mapping_scene`
+draw from the generator in the reference's order), so a test can hand the
 same map to the JAX package and to the port.
 """
 
@@ -22,6 +31,7 @@ from orbslam3_tpu_torch import convert
 from orbslam3_tpu_torch.atlas import store as st
 from orbslam3_tpu_torch.ops import cameras as cam
 from orbslam3_tpu_torch.ops import features as feat
+from orbslam3_tpu_torch.pipeline import local_mapping as lmap
 from orbslam3_tpu_torch.pipeline import tracking as trk
 
 
@@ -54,9 +64,12 @@ EUROC = SceneConfig(H=480, W=752, fx=458.654, fy=457.296, cx=376.0, cy=240.0,
 
 
 def _synth_map(rng: np.random.Generator, Kmax=64, Pmax=16384, Nf=1024, n_kf=24,
-               n_mp=12288) -> st.MapState:
+               n_mp=12288, consistent=False, px_noise=0.5) -> st.MapState:
     """numpy MapState: n_mp random points over n_kf keyframes on a forward
-    trajectory; the reference's `_synth_map` (consistent=False), same draws."""
+    trajectory; the reference's `_synth_map`, same draws in the same order.
+    `consistent=True` also stores each keyframe's observation pixels as the
+    EuRoC-camera projections of its points plus `px_noise` pixels of noise,
+    so a bundle adjustment over the map is a near-converged problem."""
     s = convert.to_numpy(st.empty_map(Kmax=Kmax, Pmax=Pmax, Nf=Nf, device="cpu"))
     pos = np.stack(
         [rng.uniform(-4, 4, n_mp), rng.uniform(-3, 3, n_mp), rng.uniform(2, 12, n_mp)], -1
@@ -67,6 +80,7 @@ def _synth_map(rng: np.random.Generator, Kmax=64, Pmax=16384, Nf=1024, n_kf=24,
     dist = np.linalg.norm(pos, axis=1)
     valid = np.zeros(Pmax, bool)
     valid[:n_mp] = True
+    kf_R = np.tile(np.eye(3, dtype=np.float32), (Kmax, 1, 1))
     kf_t = np.zeros((Kmax, 3), np.float32)
     kf_t[:n_kf, 0] = np.linspace(0, 2.0, n_kf)
     kf_valid = np.zeros(Kmax, bool)
@@ -75,9 +89,20 @@ def _synth_map(rng: np.random.Generator, Kmax=64, Pmax=16384, Nf=1024, n_kf=24,
     for k in range(n_kf):
         ids = rng.choice(n_mp, size=min(Nf, 600), replace=False)
         kf_mp[k, : len(ids)] = ids
+    kf_uv = s.kf_uv
+    if consistent:
+        fx, fy, cx, cy = 458.654, 457.296, 376.0, 240.0
+        kf_uv = kf_uv.copy()
+        for k in range(n_kf):
+            ids = kf_mp[k][kf_mp[k] >= 0]
+            Xc = pos[ids] @ kf_R[k].T + kf_t[k]
+            u = fx * Xc[:, 0] / Xc[:, 2] + cx
+            v = fy * Xc[:, 1] / Xc[:, 2] + cy
+            uv = np.stack([u, v], -1) + rng.normal(0, px_noise, (len(ids), 2))
+            kf_uv[k, : len(ids)] = uv.astype(np.float32)
     pad = Pmax - n_mp
     return s._replace(
-        kf_R=np.tile(np.eye(3, dtype=np.float32), (Kmax, 1, 1)), kf_t=kf_t,
+        kf_R=kf_R, kf_t=kf_t, kf_uv=kf_uv,
         kf_valid=kf_valid, kf_mp=kf_mp, kf_feat_valid=kf_mp >= 0,
         mp_pos=np.pad(pos, ((0, pad), (0, 0))),
         mp_desc=np.pad(desc, ((0, pad), (0, 0))),
@@ -231,3 +256,215 @@ def staged_pipeline(device, cfg: SceneConfig = EUROC):
         return trk.fetch_bundle(bundle)
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# The per-keyframe mapping pass
+# ---------------------------------------------------------------------------
+
+
+class MappingConfig(NamedTuple):
+    """Shapes of the mapping scene (the camera and ORB levels of `EUROC`)."""
+
+    Kmax: int
+    Pmax: int
+    Nf: int
+    n_kf: int  # valid keyframes; the newest one is the current keyframe
+    n_mp: int
+    n_nb: int  # covisible neighbours: the n_nb keyframes before the current one
+    n_cand: int  # fuse candidates
+    n_window: int  # optimizable keyframes: the newest n_window
+    n_fixed: int  # fixed bucket, -1 padded
+    n_fixed_valid: int  # fixed keyframes 0 .. n_fixed_valid - 1
+    iters: int  # LM iterations of the local BA
+
+
+EUROC_MAPPING = MappingConfig(Kmax=128, Pmax=16384, Nf=1024, n_kf=72, n_mp=12288, n_nb=10,
+                              n_cand=1024, n_window=48, n_fixed=32, n_fixed_valid=24, iters=5)
+
+
+class MappingScene(NamedTuple):
+    """numpy inputs of one mapping pass."""
+
+    state: st.MapState  # of numpy arrays
+    kf: int  # the current keyframe
+    nb_ids: np.ndarray  # (n_nb,) int32
+    cand_ids: np.ndarray  # (n_cand,) int32
+    cand_valid: np.ndarray  # (n_cand,) bool
+    window_ids: np.ndarray  # (n_window,) int32
+    fixed_ids: np.ndarray  # (n_fixed,) int32, -1 padded
+
+
+def make_mapping_scene(cfg: MappingConfig = EUROC_MAPPING) -> MappingScene:
+    """The reference's mapping scene: a consistent map, every keyframe
+    translation perturbed by 4 mm and every point by 1 cm (the increment a
+    keyframe insertion leaves for the local BA), then the candidates."""
+    rng = np.random.default_rng(1)
+    s = _synth_map(rng, Kmax=cfg.Kmax, Pmax=cfg.Pmax, Nf=cfg.Nf, n_kf=cfg.n_kf,
+                   n_mp=cfg.n_mp, consistent=True)
+    kf_t = s.kf_t + rng.normal(0, 0.004, s.kf_t.shape).astype(np.float32)
+    mp_pos = s.mp_pos + rng.normal(0, 0.01, s.mp_pos.shape).astype(np.float32)
+    kf = cfg.n_kf - 1
+    cand_ids = rng.choice(cfg.n_mp, cfg.n_cand, replace=False).astype(np.int32)
+    fixed = np.full(cfg.n_fixed, -1, np.int32)
+    fixed[: cfg.n_fixed_valid] = np.arange(cfg.n_fixed_valid, dtype=np.int32)
+    return MappingScene(
+        state=s._replace(kf_t=kf_t, mp_pos=mp_pos), kf=kf,
+        nb_ids=np.arange(kf - cfg.n_nb, kf, dtype=np.int32), cand_ids=cand_ids,
+        cand_valid=np.ones(cfg.n_cand, bool),
+        window_ids=np.arange(cfg.n_kf - cfg.n_window, cfg.n_kf, dtype=np.int32),
+        fixed_ids=fixed,
+    )
+
+
+def _project_np(R, t, X, c: SceneConfig):
+    Xc = X @ R.T + t
+    return np.stack([c.fx * Xc[:, 0] / Xc[:, 2] + c.cx, c.fy * Xc[:, 1] / Xc[:, 2] + c.cy], -1), Xc
+
+
+def mapping_variant(scene: MappingScene, n_tri: int = 200, n_fuse: int = 100) -> MappingScene:
+    """The mapping scene with work for triangulation and fuse. The
+    reference's scene has none: its keyframe descriptors are zeros and its
+    normals face away from the cameras, so both stages find nothing. Here:
+
+    * normals point along the viewing rays and every observed slot carries
+      its point's descriptor;
+    * `n_tri` new points 2-4 m in front of the current keyframe are planted
+      in free slots of it and of up to 4 neighbours each (one shared random
+      descriptor per point, 0.5 px noise, octave 0);
+    * per neighbour, `n_fuse` candidates it does not observe are planted as
+      free keypoints at their projections, at their predicted octave;
+    * per neighbour, 3 observed slots are moved onto the
+      projection of another unobserved candidate, with its descriptor: fuse
+      reports them as conflicts (and the local BA as outliers);
+    * one observation of keyframe 0 (fixed, with the fixed list padded) is
+      moved by 30 px: the local BA must erase it.
+    """
+    rng = np.random.default_rng(7)
+    n_conflict = 3
+    c = EUROC
+    a = {k: np.array(v, copy=True) for k, v in scene.state._asdict().items()}
+    kf_mp, kf_uv, kf_oct, kf_desc = a["kf_mp"], a["kf_uv"], a["kf_octave"], a["kf_desc"]
+    kf_fv = a["kf_feat_valid"]
+    n_kf = int(a["kf_valid"].sum())
+    centers = np.stack([-a["kf_R"][k].T @ a["kf_t"][k] for k in range(n_kf)])
+    valid = a["mp_valid"]
+    nrm = a["mp_pos"] - centers.mean(0)
+    a["mp_normal"][valid] = (nrm / np.linalg.norm(nrm, axis=1, keepdims=True))[valid]
+    obs = kf_mp >= 0
+    kf_desc[obs] = a["mp_desc"][kf_mp[obs]]
+
+    free = {k: list(np.flatnonzero((kf_mp[k] < 0) & ~kf_fv[k]))
+            for k in [scene.kf, *scene.nb_ids.tolist()]}
+
+    def plant(k, uv, octave, desc):
+        j = free[k].pop(0)
+        kf_uv[k, j], kf_oct[k, j], kf_desc[k, j], kf_fv[k, j] = uv, octave, desc, True
+
+    def in_image(uv, Xc, margin=8.0):
+        return (Xc[:, 2] > 0.5) & (uv[:, 0] >= margin) & (uv[:, 0] < c.W - margin) \
+            & (uv[:, 1] >= margin) & (uv[:, 1] < c.H - margin)
+
+    # New points for triangulation.
+    R1, t1 = a["kf_R"][scene.kf], a["kf_t"][scene.kf]
+    uv0 = np.stack([rng.uniform(40, c.W - 40, n_tri), rng.uniform(40, c.H - 40, n_tri)], -1)
+    z = rng.uniform(2.0, 4.0, n_tri)
+    Xc = np.stack([(uv0[:, 0] - c.cx) / c.fx * z, (uv0[:, 1] - c.cy) / c.fy * z, z], -1)
+    Xw = ((Xc - t1) @ R1).astype(np.float32)
+    desc = rng.integers(0, 256, (n_tri, 32), dtype=np.uint8)
+    for i in range(n_tri):
+        nbs = rng.choice(scene.nb_ids, size=min(4, len(scene.nb_ids)), replace=False)
+        for k in [scene.kf, *nbs.tolist()]:
+            uv, Xc_k = _project_np(a["kf_R"][k], a["kf_t"][k], Xw[i : i + 1], c)
+            if in_image(uv, Xc_k)[0] and free[k]:
+                plant(k, uv[0] + rng.normal(0, 0.5, 2), 0, desc[i])
+
+    # Fuse candidates planted as keypoints, and conflicts.
+    scale = 1.2
+    for k in scene.nb_ids.tolist():
+        seen = set(kf_mp[k][kf_mp[k] >= 0].tolist())
+        cands = [int(p) for p in scene.cand_ids if int(p) not in seen]
+        R, t = a["kf_R"][k], a["kf_t"][k]
+        X = a["mp_pos"][cands]
+        uv, Xc_k = _project_np(R, t, X, c)
+        dist = np.linalg.norm(X - centers[k], axis=1)
+        q = np.log(a["mp_max_dist"][cands] / dist) / np.log(scale)
+        lvl = np.clip(np.ceil(q), 0, c.n_levels - 1).astype(np.int32)
+        # Keep clear of the rounding edges of the predicted octave.
+        saturated = q > c.n_levels - 2 + 0.05
+        safe = in_image(uv, Xc_k) & (saturated | (np.abs(q - np.round(q)) > 0.05))
+        pick = rng.permutation(np.flatnonzero(safe))
+        for i in pick[:n_fuse]:
+            if free[k]:
+                plant(k, uv[i] + rng.normal(0, 0.3, 2), lvl[i], a["mp_desc"][cands[i]])
+        occupied = np.flatnonzero(kf_mp[k] >= 0)
+        for i, j in zip(pick[n_fuse : n_fuse + n_conflict], occupied[:n_conflict]):
+            kf_uv[k, j], kf_oct[k, j] = uv[i], lvl[i]
+            kf_desc[k, j] = a["mp_desc"][cands[i]]
+
+    # An outlier observation in keyframe 0 of a point the local BA keeps
+    # (the window sees it, and it is among the first POINT_CAP such points).
+    win = np.zeros(len(valid), bool)
+    win_mp = kf_mp[scene.window_ids]
+    win[win_mp[win_mp >= 0]] = True
+    kept = set(np.flatnonzero(win & valid)[: lmap.POINT_CAP].tolist())
+    j = next(j for j in range(kf_mp.shape[1]) if kf_mp[0, j] in kept)
+    kf_uv[0, j] += 30.0
+    return scene._replace(state=st.MapState(**a))
+
+
+class MappingOut(NamedTuple):
+    """One mapping pass: triangulation and fuse per neighbour (leading axis),
+    and the map after the local BA."""
+
+    Xw: torch.Tensor  # (n_nb, Nf, 3) triangulated points per current-KF feature
+    good: torch.Tensor  # (n_nb, Nf) bool
+    idx: torch.Tensor  # (n_nb, Nf) int32 matched neighbour feature
+    rows: torch.Tensor  # (n_nb, Nf) int32 fused kf_mp rows
+    adds: torch.Tensor  # (n_nb,) int32
+    incumbent: torch.Tensor  # (n_nb, n_cand) int32
+    conflict: torch.Tensor  # (n_nb, n_cand) bool
+    state: st.MapState  # after the local BA write-back and outlier erase
+    cost: torch.Tensor  # local BA cost at the accepted state
+    n_bad: torch.Tensor  # erased outlier observations
+
+
+def mapping_pass(device, cfg: MappingConfig = EUROC_MAPPING):
+    """(run, (state,)): the device programs of one per-keyframe mapping pass
+    on `make_mapping_scene(cfg)`. `run(state)` returns a `MappingOut` of
+    device tensors; it reads nothing back to the host."""
+    scene = make_mapping_scene(cfg)
+    c = _consts(EUROC, device)
+    T = lambda x: convert.tensor(x, device)  # noqa: E731
+    kf = scene.kf
+    nb_ids, cand_ids, cand_valid = T(scene.nb_ids), T(scene.cand_ids), T(scene.cand_valid)
+    window_ids, fixed_ids = T(scene.window_ids), T(scene.fixed_ids)
+    nb = nb_ids.to(torch.int64)
+
+    def run(state: st.MapState) -> MappingOut:
+        Xw, good, idx = lmap.triangulate_batch(
+            c.model, c.params, state.kf_R[kf], state.kf_t[kf], state.kf_uv[kf],
+            state.kf_octave[kf], state.kf_desc[kf], state.kf_mp[kf] < 0,
+            state.kf_R[nb], state.kf_t[nb], state.kf_uv[nb], state.kf_octave[nb],
+            state.kf_desc[nb], state.kf_mp[nb] < 0, c.sigma2, c.scale_f, EUROC.fx,
+        )
+        rows, adds, incumbent, conflict = lmap._fuse_batch(
+            c.model, c.params, state, nb_ids, cand_ids, cand_valid, c.img_wh, c.sigma2,
+            n_levels=EUROC.n_levels,
+        )
+        new_state, cost, n_bad = lmap.local_ba(c.model, c.params, state, window_ids,
+                                               fixed_ids, c.sigma2, iters=cfg.iters)
+        return MappingOut(Xw, good, idx, rows, adds, incumbent, conflict, new_state, cost, n_bad)
+
+    return run, (convert.to_torch(scene.state, device),)
+
+
+def fetch_mapping(out: MappingOut) -> dict:
+    """The pass's results on the host as numpy, in one device-to-host copy
+    (`tracking.fetch_bundle`)."""
+    st_new = out.state
+    return trk.fetch_bundle(dict(
+        Xw=out.Xw, good=out.good, idx=out.idx, rows=out.rows, adds=out.adds,
+        conflict=out.conflict, cost=out.cost, n_bad=out.n_bad, kf_R=st_new.kf_R,
+        kf_t=st_new.kf_t, kf_mp=st_new.kf_mp, mp_pos=st_new.mp_pos,
+    ))

@@ -42,6 +42,19 @@ def pinhole_project(params: torch.Tensor, Xc: torch.Tensor) -> torch.Tensor:
     return torch.stack([fx * xd + cx, fy * yd + cy], dim=-1)
 
 
+def pinhole_unproject(params: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Pixels (..., 2) -> unit-depth rays (..., 3) (z = 1), undistorted by
+    8 fixed-point radtan steps, as the reference."""
+    fx, fy, cx, cy = params[0], params[1], params[2], params[3]
+    xd = (uv[..., 0] - cx) / fx
+    yd = (uv[..., 1] - cy) / fy
+    x, y = xd, yd
+    for _ in range(8):
+        dx, dy = _pinhole_distort(params, x, y)
+        x, y = x + (xd - dx), y + (yd - dy)
+    return torch.stack([x, y, torch.ones_like(x)], dim=-1)
+
+
 def pinhole_project_jac(params: torch.Tensor, Xc: torch.Tensor) -> torch.Tensor:
     """d(uv)/d(Xc): (..., 2, 3), distortion terms included."""
     fx, fy = params[0], params[1]
@@ -72,6 +85,12 @@ def project(model: CameraModel, params: torch.Tensor, Xc: torch.Tensor) -> torch
     if model != CameraModel.PINHOLE:
         raise NotImplementedError(f"camera model {model!r} is not ported yet")
     return pinhole_project(params, Xc)
+
+
+def unproject(model: CameraModel, params: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    if model != CameraModel.PINHOLE:
+        raise NotImplementedError(f"camera model {model!r} is not ported yet")
+    return pinhole_unproject(params, uv)
 
 
 def project_jac(model: CameraModel, params: torch.Tensor, Xc: torch.Tensor) -> torch.Tensor:

@@ -6,12 +6,9 @@
 
 Scatters with duplicate indices (fault C6). The reference writes
 ``assoc.at[clip(idx, 0)].set(where(valid, q, assoc[clip(idx, 0)]))``: every
-invalid row clips to index 0 and writes the old value back, so on JAX's CPU
-backend a valid write into index 0 is lost unless it comes last, and on
-CUDA `index_put_` gives duplicate indices no order at all. The port
-scatters the valid rows only (`_scatter_rows`, `_flag`): invalid rows go to
-one extra slot that is dropped. The results therefore equal the
-reference's everywhere except, at most, at index 0.
+invalid row clips to index 0 and writes the old value back. The port
+scatters the valid rows only (`atlas/store.py::scatter_rows`, `flag`), so
+the results equal the reference's everywhere except, at most, at index 0.
 """
 
 from __future__ import annotations
@@ -26,31 +23,6 @@ from orbslam3_tpu_torch.optim import pose_only
 from orbslam3_tpu_torch.pipeline import frame as fr
 
 N_LOCAL_KFS = 16  # local keyframes selected per frame (device top-k)
-
-
-def _scatter_rows(base: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
-                  values: torch.Tensor) -> torch.Tensor:
-    """Copy of `base` with base[idx[r]] = values[r] for the valid rows r
-    only (valid idx are unique); invalid rows land in a dropped extra slot."""
-    n = base.shape[0]
-    buf = torch.cat([base, base[:1]])
-    slot = torch.where(valid, idx.to(torch.int64), n)
-    buf[slot] = values.to(base.dtype)
-    return buf[:n]
-
-
-def _flag(n: int, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """(n,) bool, True at idx[r] for every valid row r."""
-    buf = torch.zeros(n + 1, dtype=torch.bool, device=idx.device)
-    # index_fill_ takes the scalar as is; `buf[i] = True` would first copy
-    # it to the device, a host synchronisation.
-    buf.index_fill_(0, torch.where(valid, idx.to(torch.int64), n), True)
-    return buf[:n]
-
-
-def _row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """x[i] for a 0-d device index, without a host read."""
-    return x.index_select(0, i.reshape(1).to(torch.int64))[0]
 
 
 def _track_last_frame(model, params, R_pred, t_pred, last_mp, mp_pos, mp_valid, mp_desc,
@@ -76,7 +48,7 @@ def _track_last_frame(model, params, R_pred, t_pred, last_mp, mp_pos, mp_valid, 
     Nf = f_cur.desc.shape[0]
     m = matching.assign_unique(m, Nf)
     base = torch.full((Nf,), -1, dtype=torch.int32, device=ids.device)
-    assoc = _scatter_rows(base, m.idx, m.valid, ids)
+    assoc = st.scatter_rows(base, m.idx, m.valid, ids)
     return assoc, m.valid.to(torch.int32).sum().to(torch.int32)
 
 
@@ -90,7 +62,7 @@ def _track_reference_kf(kf_desc, kf_feat_valid, kf_mp, mp_valid, f_cur: feat.Fea
     Nf = f_cur.desc.shape[0]
     m = matching.assign_unique(m, Nf)
     base = torch.full((Nf,), -1, dtype=torch.int32, device=kf_mp.device)
-    assoc = _scatter_rows(base, m.idx, m.valid, kf_ids)
+    assoc = st.scatter_rows(base, m.idx, m.valid, kf_ids)
     return assoc, m.valid.to(torch.int32).sum().to(torch.int32)
 
 
@@ -98,7 +70,7 @@ def _local_point_mask(state: st.MapState, kf_ids: torch.Tensor) -> torch.Tensor:
     """(P,) bool — valid points observed by any keyframe in kf_ids (-1 pads)."""
     mp = state.kf_mp.index_select(0, torch.clamp(kf_ids, min=0).to(torch.int64))  # (W, Nf)
     ok = (mp >= 0) & (kf_ids >= 0)[:, None]
-    return _flag(state.Pmax, mp.reshape(-1), ok.reshape(-1)) & state.mp_valid
+    return st.flag(state.Pmax, mp.reshape(-1), ok.reshape(-1)) & state.mp_valid
 
 
 def _track_local_map_match(model, params, R, t, state: st.MapState, local_mask,
@@ -109,7 +81,7 @@ def _track_local_map_match(model, params, R, t, state: st.MapState, local_mask,
         model, params, R, t, state.mp_pos, state.mp_valid & local_mask, state.mp_normal,
         state.mp_min_dist, state.mp_max_dist, img_wh, n_levels=n_levels,
     )
-    already = _flag(state.Pmax, torch.clamp(cur_assoc, min=0), cur_assoc >= 0)
+    already = st.flag(state.Pmax, torch.clamp(cur_assoc, min=0), cur_assoc >= 0)
     query_valid = visible & ~already
     r = fr.search_radius(vcos, lvl)
     kp_free = f_cur.valid & (cur_assoc < 0)
@@ -121,7 +93,7 @@ def _track_local_map_match(model, params, R, t, state: st.MapState, local_mask,
     )
     m = matching.assign_unique(m, f_cur.desc.shape[0])
     src = torch.arange(state.Pmax, dtype=torch.int32, device=cur_assoc.device)
-    return _scatter_rows(cur_assoc, m.idx, m.valid, src), visible
+    return st.scatter_rows(cur_assoc, m.idx, m.valid, src), visible
 
 
 def _pose_opt_from_assoc(model, params, R0, t0, assoc, f_cur: feat.Features, mp_pos,
@@ -196,7 +168,7 @@ def _track_step(model, params, state: st.MapState, f_cur: feat.Features,
         ok_b = torch.zeros((), dtype=torch.bool, device=dev)
     else:
         assoc_b, n_b = _track_reference_kf(
-            _row(state.kf_desc, rk), _row(state.kf_feat_valid, rk), _row(state.kf_mp, rk),
+            st.row(state.kf_desc, rk), st.row(state.kf_feat_valid, rk), st.row(state.kf_mp, rk),
             state.mp_valid, f_cur,
         )
         res_b = _pose_opt_from_assoc(model, params, R_last, t_last, assoc_b, f_cur,
@@ -214,7 +186,7 @@ def _track_step(model, params, state: st.MapState, f_cur: feat.Features,
     ok1 = ok_a | ok_b
 
     # --- Local keyframe selection (device top-k) ------------------------
-    ptset = _flag(state.Pmax, torch.clamp(assoc1, min=0), assoc1 >= 0)
+    ptset = st.flag(state.Pmax, torch.clamp(assoc1, min=0), assoc1 >= 0)
     kf_mp = state.kf_mp
     shares = (ptset[torch.clamp(kf_mp, min=0).to(torch.int64)] & (kf_mp >= 0)).to(
         torch.int32).sum(1, dtype=torch.int32) * state.kf_valid.to(torch.int32)
@@ -240,8 +212,8 @@ def _track_step(model, params, state: st.MapState, f_cur: feat.Features,
     new_ref = torch.where(local_pad[0] >= 0, local_pad[0], rk.to(torch.int32))
     if obs_count is None:
         obs_count = compute_obs_count(state)
-    row = _row(state.kf_mp, new_ref)
-    row_ok = (row >= 0) & _row(state.kf_feat_valid, new_ref)
+    row = st.row(state.kf_mp, new_ref)
+    row_ok = (row >= 0) & st.row(state.kf_feat_valid, new_ref)
     ref_matches = torch.sum(
         row_ok & (obs_count[torch.clamp(row, min=0).to(torch.int64)] >= min_obs)
     ).to(torch.int32)

@@ -1,12 +1,14 @@
-"""Where the time of the port's tracking slice goes on one GPU.
+"""Where the time of the port's main path goes on one GPU.
 
-    python -m orbslam3_tpu_torch.profile_slice [--frames 6] [--out TABLE.txt]
+    python -m orbslam3_tpu_torch.profile_slice [--frames 6] [--passes 3] [--out TABLE.txt]
 
 Runs `orbslam3_tpu_torch.entry.staged_pipeline` at the EuRoC shapes for a
-few frames under `torch.profiler` and prints: wall time per frame, the
-device's busy share (summed kernel time over wall time), kernel launches per
-frame, and the device time of the port's two CUDA kernels; with `--out`,
-the full per-kernel table goes to that file. Needs a CUDA device.
+few frames, then `entry.mapping_pass` at full width for a few passes, each
+under `torch.profiler`, and prints per frame (per pass): wall time, the
+device's busy share (summed kernel time over wall time), kernel launches,
+and the device time of the port's two CUDA kernels; then the stage split of
+each. With `--out`, the full per-kernel tables go to that file. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -60,10 +62,83 @@ def stage_split(E, dev, a, frames) -> dict:
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
+def mapping_split(E, dev, state, passes) -> dict:
+    """Median wall time of each stage of one mapping pass (triangulate,
+    fuse, local BA) and the local BA's ms per LM iteration: the marginal
+    cost of running 2x the pass's iterations (the port always runs all of
+    them; after the early stop the accepted state is frozen)."""
+    from orbslam3_tpu_torch import convert
+    from orbslam3_tpu_torch.pipeline import local_mapping as lmap
+
+    cfg = E.EUROC_MAPPING
+    sc = E.make_mapping_scene(cfg)
+    c = E._consts(E.EUROC, dev)
+    T = lambda x: convert.tensor(x, dev)  # noqa: E731
+    kf, nb = sc.kf, T(sc.nb_ids).long()
+    cand, cval, win, fix = T(sc.cand_ids), T(sc.cand_valid), T(sc.window_ids), T(sc.fixed_ids)
+    s = state
+
+    stages = {
+        "triangulate": lambda: lmap.triangulate_batch(
+            c.model, c.params, s.kf_R[kf], s.kf_t[kf], s.kf_uv[kf], s.kf_octave[kf],
+            s.kf_desc[kf], s.kf_mp[kf] < 0, s.kf_R[nb], s.kf_t[nb], s.kf_uv[nb],
+            s.kf_octave[nb], s.kf_desc[nb], s.kf_mp[nb] < 0, c.sigma2, c.scale_f, E.EUROC.fx),
+        "fuse": lambda: lmap._fuse_batch(c.model, c.params, s, nb, cand, cval, c.img_wh,
+                                         c.sigma2, n_levels=E.EUROC.n_levels),
+        "local_ba": lambda: lmap.local_ba(c.model, c.params, s, win, fix, c.sigma2,
+                                          iters=cfg.iters),
+        "local_ba_2x": lambda: lmap.local_ba(c.model, c.params, s, win, fix, c.sigma2,
+                                             iters=2 * cfg.iters),
+    }
+    times = {k: [] for k in stages}
+    for _ in range(passes):
+        for k, fn in stages.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    med["lba_ms_per_iter"] = (med.pop("local_ba_2x") - med["local_ba"]) / cfg.iters
+    return med
+
+
+def _profile(fn, n):
+    """(wall ms, profiler) of n calls of fn under the profiler."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return wall_ms, prof
+
+
+def _report(what, n, wall_ms, prof):
+    # Device-side events only (the aten ops that launch them carry the same
+    # device time again).
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    n_launch = sum(e.count for e in kernels)
+    ours = {name: (sum(e.self_device_time_total for e in kernels if name in e.key),
+                   sum(e.count for e in kernels if name in e.key))
+            for name in ("fast_score_kernel", "nms3_kernel", "hamming_top2_kernel")}
+    whats = "passes" if what == "pass" else what + "s"
+    print(f"{torch.cuda.get_device_name(0)}: {n} {whats}, wall {wall_ms / n:.2f} ms/{what}, "
+          f"device busy {dev_us / 1e3 / n:.3f} ms/{what} ({100 * dev_us / 1e3 / wall_ms:.1f}% of "
+          f"wall), {n_launch / n:.0f} kernels/{what}")
+    print(f"port kernels, device us/{what} (launches/{what}): "
+          + ", ".join(f"{k} {v / n:.1f} ({c / n:.0f})" for k, (v, c) in ours.items()))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"top kernels, us/{what} (launches/{what}): "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / n:.1f} ({e.count / n:.0f})"
+                      for e in top))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=6)
-    ap.add_argument("--out", help="write the full per-kernel table here")
+    ap.add_argument("--passes", type=int, default=3)
+    ap.add_argument("--out", help="write the full per-kernel tables here")
     args = ap.parse_args()
 
     from orbslam3_tpu_torch import convert
@@ -80,35 +155,28 @@ def main() -> int:
     run(frames[0], *a[1:])
     torch.cuda.synchronize()
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for f in frames:
-            run(f, *a[1:])
-        wall_ms = (time.perf_counter() - t0) * 1e3
-
-    # Device-side events only (the aten ops that launch them carry the same
-    # device time again).
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    n_launch = sum(e.count for e in kernels)
-    ours = {name: sum(e.self_device_time_total for e in kernels if name in e.key)
-            for name in ("fast_score_kernel", "nms3_kernel", "hamming_top2_kernel")}
-    n = args.frames
-    print(f"{torch.cuda.get_device_name(0)}: {n} frames, wall {wall_ms / n:.2f} ms/frame, "
-          f"device busy {dev_us / 1e3 / n:.3f} ms/frame ({100 * dev_us / 1e3 / wall_ms:.1f}% of "
-          f"wall), {n_launch / n:.0f} kernels/frame")
-    print("port kernels, device us/frame: "
-          + ", ".join(f"{k} {v / n:.1f}" for k, v in ours.items()))
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    print("top kernels, us/frame (launches/frame): "
-          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / n:.1f} ({e.count / n:.0f})"
-                      for e in top))
+    frame_iter = iter(frames)
+    wall_ms, prof = _profile(lambda: run(next(frame_iter), *a[1:]), args.frames)
+    _report("frame", args.frames, wall_ms, prof)
     print("stage split, median host ms (synchronised after each stage): "
           + ", ".join(f"{k} {v:.2f}" for k, v in stage_split(E, dev, a, frames).items()))
+
+    mrun, (mstate,) = E.mapping_pass(dev)
+    E.fetch_mapping(mrun(mstate))
+    torch.cuda.synchronize()
+    mwall, mprof = _profile(lambda: E.fetch_mapping(mrun(mstate)), args.passes)
+    _report("pass", args.passes, mwall, mprof)
+    print("mapping stage split, median host ms (synchronised after each stage): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in
+                      mapping_split(E, dev, mstate, args.passes).items()))
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+        out.write_text("tracking, per-kernel table\n"
+                       + prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)
+                       + "\n\nmapping pass, per-kernel table\n"
+                       + mprof.key_averages().table(sort_by="self_device_time_total",
+                                                    row_limit=60))
         print(f"table: {out}")
     return 0
 

@@ -113,3 +113,26 @@ def test_slice_on_card_equals_cpu_port(dev):
     np.testing.assert_allclose(b_dev["t"], b_plain["t"], atol=1e-4)
     assert bool(b_dev["used_a"]) and bool(b_cpu["used_a"])
     assert abs(int(b_dev["n_inl"]) - int(b_cpu["n_inl"])) <= 0.02 * int(b_cpu["n_inl"])
+
+
+def test_mapping_pass_on_card_equals_plain(dev):
+    """The small mapping pass (the CPU parity test's size) on the card on its
+    variant scene: through kernel B1 it equals the plain versions on the
+    card (triangulation, fused rows, adds, conflicts and n_bad equal; poses
+    within 1e-4: the segment sums are atomic adds in no fixed order), and
+    the fuse found the planted keypoints."""
+    cfg = E.MappingConfig(Kmax=16, Pmax=2048, Nf=768, n_kf=12, n_mp=1500, n_nb=3, n_cand=256,
+                          n_window=6, n_fixed=4, n_fixed_valid=3, iters=5)
+    run, _ = E.mapping_pass(dev, cfg)
+    state = convert.to_torch(
+        E.mapping_variant(E.make_mapping_scene(cfg), n_tri=60, n_fuse=40).state, dev)
+    n0 = cuda_match.LAUNCHES
+    got = E.fetch_mapping(run(state))
+    assert cuda_match.LAUNCHES == n0 + cfg.n_nb
+    with _build.force_plain():
+        ref = E.fetch_mapping(run(state))
+    for k in ("good", "idx", "rows", "adds", "conflict", "n_bad"):
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    np.testing.assert_allclose(got["kf_R"], ref["kf_R"], atol=1e-4)
+    np.testing.assert_allclose(got["kf_t"], ref["kf_t"], atol=1e-4)
+    assert (got["adds"] >= 20).all() and int(got["conflict"].sum()) >= 1
