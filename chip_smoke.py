@@ -11,7 +11,14 @@ through the plain versions (phases 1-4). Phase 5 does the same for the
 per-keyframe mapping pass (triangulate, fuse, local BA at full width), on
 the reference's scene and on a variant where triangulation and fuse find
 planted points, counts its host syncs, and times an amortized loop of
-tracked frames with a mapping pass every 14th. Every phase prints one line;
+tracked frames with a mapping pass every 14th. Phase 6 drives the
+monocular `System` end to end (`entry.mono_replay`: two-view
+initialization, tracking, keyframes and their mapping passes) over 120
+frames of the synthetic EuRoC sequence at 752x480 / 1000 features, checks
+the map, the states and the Sim3 ATE against its gate, the kernels'
+launches and the host syncs per frame, compares a 20-frame prefix through
+the kernels with the same through the plain versions, and times B1 at the
+fuse-into-keyframe shape (4096 candidates). Every phase prints its lines;
 any failure ends the run with a non-zero exit. Without a CUDA device it
 exits non-zero and prints no result.
 
@@ -40,6 +47,11 @@ N_HIDDEN = 100  # points only the local-map stage can find in phase 4
 N_PASSES = 5  # timed mapping passes in phase 5
 KF_EVERY = 14  # a mapping pass every 14th frame (bench.py's amortized cadence)
 N_AMORTIZED = 2 * KF_EVERY  # frames of the amortized loop
+N_REPLAY = 120  # frames of the monocular replay in phase 6 (6 s of camera)
+N_PREFIX = 20  # frames of its kernels-vs-plain prefix
+# Sim3 ATE gate of the replay: max(2 x the JAX System's ATE on the same 120
+# frames on a CPU, 0.01 m) (PERF.md, phase 6).
+ATE_GATE = 0.0186
 
 
 def _median_ms(fn, iters=20, warmup=3):
@@ -80,6 +92,16 @@ def _local_map_variant(args, ref_kf: int):
     last_mp = torch.where(torch.isin(last_mp, ids), -1, last_mp)
     state = state._replace(kf_mp=kf_mp, mp_normal=normal, mp_max_dist=max_dist)
     return img, state, local_mask, R, t, last_mp, last_octave
+
+
+def _aligned(rep):
+    """The replay's camera centres Sim3-aligned to the rendered ones, keyed
+    by timestamp."""
+    from orbslam3_tpu_torch.ate import associate, umeyama
+
+    ia, ib = associate(rep.ts, rep.gt_ts, 0.01)
+    s, R, t = umeyama(rep.pos[ia], rep.gt_pos[ib], True)
+    return {round(float(rep.ts[i]), 6): s * R @ rep.pos[i] + t for i in ia}
 
 
 def check(ok, what: str) -> None:
@@ -367,7 +389,104 @@ def main() -> int:
     print(f"phase 5 amortized: {N_AMORTIZED} frames of staged_pipeline with a mapping pass "
           f"every {KF_EVERY}th, {amort_s:.3f} s, {N_AMORTIZED / amort_s:.2f} frames/s")
 
-    launches["hamming_top2"] += launches5["hamming_top2"]
+    # --- Phase 6: the monocular System end to end -------------------------
+    from orbslam3_tpu_torch.pipeline.tracking import Tracker
+
+    torch.cuda.synchronize()
+    cuda_fast.LAUNCHES = 0
+    cuda_match.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rep = E.mono_replay(dev, N_REPLAY)
+    replay_s = time.perf_counter() - t0
+    launches6 = {"fast_nms": cuda_fast.LAUNCHES, "hamming_top2": cuda_match.LAUNCHES}
+    states = rep.states
+    init = next((k for k, x in enumerate(states) if x == "OK"), None)
+    check(init is not None and init < 10, f"no initialization in the first 10 frames: {states[:10]}")
+    after = states[init:]
+    n_ok = sum(x == "OK" for x in after)
+    check("LOST" not in after, f"LOST after initialization: {states}")
+    check(n_ok >= 0.95 * len(after), f"{n_ok} of {len(after)} frames OK after initialization")
+    check(rep.n_kf >= 3 and rep.n_mp >= 500, f"{rep.n_kf} keyframes, {rep.n_mp} map points")
+    check(rep.pos.shape == (len(rep.ts), 3) and np.isfinite(rep.pos).all(),
+          "trajectory not finite or misshapen")
+    check(rep.ate <= ATE_GATE, f"ATE {rep.ate} m above the gate {ATE_GATE} m")
+    check(all(n == 1 for n in rep.b2), f"B2 launches per frame {rep.b2}")
+    tracked = [k for k in range(init + 1, N_REPLAY) if states[k] == "OK"]
+    check(all(rep.b1[k] >= 2 for k in tracked), f"B1 launches per frame {rep.b1}")
+    plain = [k for k in tracked if not rep.keyframe[k]]
+    kfs = [k for k in tracked if rep.keyframe[k]]
+    sync_counts = sorted(set(rep.syncs[k] for k in plain))
+    check(plain and sync_counts == [Tracker.HOST_SYNCS_PER_FRAME],
+          f"host syncs per tracked non-keyframe frame {sync_counts}, documented "
+          f"{Tracker.HOST_SYNCS_PER_FRAME}")
+    ms_plain = statistics.median(rep.ms[k] for k in plain)
+    ms_kf = statistics.median(rep.ms[k] for k in kfs) if kfs else float("nan")
+    fps6 = N_REPLAY / (sum(rep.ms) / 1e3)
+    print(f"phase 6 replay: {N_REPLAY} frames at 752x480, 1000 features; initialized at frame "
+          f"{init} (the reference frame before it), {n_ok} of {len(after)} frames OK after it, "
+          f"{rep.n_kf} keyframes, {rep.n_mp} map points; launches {launches6}")
+    print(f"phase 6 ATE {rep.ate:.4f} m (Sim3, {len(rep.ts)} poses), gate {ATE_GATE:.4f} m")
+    print(f"phase 6 time: median {ms_plain:.2f} ms per tracked non-keyframe frame "
+          f"({len(plain)}), median {ms_kf:.2f} ms per keyframe frame with its mapping pass "
+          f"({len(kfs)}), {fps6:.2f} frames/s over the replay ({replay_s:.1f} s wall with "
+          f"{rep.render_s:.1f} s of rendering)")
+    print(f"phase 6 host syncs per tracked non-keyframe frame: {sync_counts[0]} on all "
+          f"{len(plain)} (keyframe frames: median "
+          f"{statistics.median(rep.syncs[k] for k in kfs) if kfs else 0})")
+
+    pre_k = E.mono_replay(dev, N_PREFIX)
+    with _build.force_plain():
+        pre_p = E.mono_replay(dev, N_PREFIX)
+    check(pre_k.states == pre_p.states, f"prefix states {pre_k.states} vs {pre_p.states}")
+    check(abs(pre_k.n_kf - pre_p.n_kf) <= 1, f"prefix keyframes {pre_k.n_kf} vs {pre_p.n_kf}")
+    a_k, a_p = _aligned(pre_k), _aligned(pre_p)
+    common = sorted(set(a_k) & set(a_p))
+    d_centre = max(float(np.linalg.norm(a_k[t] - a_p[t])) for t in common)
+    check(len(common) >= N_PREFIX - 10 and d_centre <= 0.02,
+          f"prefix camera centres differ by {d_centre} m over {len(common)} poses")
+    print(f"phase 6 kernels vs plain prefix ({N_PREFIX} frames): states equal, keyframes "
+          f"{pre_k.n_kf} vs {pre_p.n_kf}, max camera-centre difference {d_centre:.2e} m over "
+          f"{len(common)} poses (Sim3-aligned to the rendered centres), ATE {pre_k.ate:.4f} vs "
+          f"{pre_p.ate:.4f} m")
+
+    # B1 at the fuse-into-keyframe shape: 4096 candidates into the newest
+    # keyframe of the replay's map, windowed as `fuse_into_kf` windows them.
+    sysm = rep.system
+    ms_state = sysm.store.state
+    kf = sysm.tracker.last_kf_id
+    cand = torch.nonzero(ms_state.mp_valid)[:4096, 0]
+    lane_ok = torch.arange(4096, device=dev) < cand.shape[0]  # padding lanes are invalid
+    cand = torch.cat([cand, cand.new_zeros(4096 - cand.shape[0])])
+    Rk, tk = ms_state.kf_R[kf], ms_state.kf_t[kf]
+    uv_c, vis_c, lvl_c, _ = fr.frustum_and_scale(
+        sysm.tracker.model, sysm.tracker.params, Rk, tk, ms_state.mp_pos[cand],
+        lane_ok & ms_state.mp_valid[cand], ms_state.mp_normal[cand], ms_state.mp_min_dist[cand],
+        ms_state.mp_max_dist[cand], sysm.tracker.img_wh_t)
+    win_k = cuda_match.MatchWindow(uv_c, ms_state.kf_uv[kf], 3.0 * 1.2 ** lvl_c.float(),
+                                   ms_state.kf_octave[kf], torch.clamp(lvl_c - 1, min=0), lvl_c)
+
+    def b1_pool():
+        return cuda_match.hamming_top2(ms_state.mp_desc[cand], ms_state.kf_desc[kf],
+                                       ms_state.kf_feat_valid[kf], win_k)
+
+    out_k = b1_pool()
+    with _build.force_plain():
+        out_p = b1_pool()
+    torch.cuda.synchronize()
+    for name, k_, p_ in zip(("d1", "d2", "j1"), out_k, out_p):
+        check(torch.equal(k_, p_), f"B1 pool-shape {name} differs from plain")
+    err_b1 = max(err_b1, float((out_k[0] - out_p[0]).abs().max()),
+                 float((out_k[1] - out_p[1]).abs().max()))
+    ms_b1k = _median_ms(b1_pool)
+    with _build.force_plain():
+        ms_b1k_plain = _median_ms(b1_pool, iters=10)
+    print(f"phase 6 B1 fuse-into-keyframe shape {cand.shape[0]}x{ms_state.kf_desc.shape[1]} "
+          f"windowed: exact (tolerance 0) vs plain, {int(vis_c.sum())} candidates visible, "
+          f"{int((out_k[0] < 1e9).sum())} with a key in their window; kernel {ms_b1k:.4f} ms, "
+          f"plain {ms_b1k_plain:.4f} ms")
+
+    launches["fast_nms"] += launches6["fast_nms"]
+    launches["hamming_top2"] += launches5["hamming_top2"] + launches6["hamming_top2"]
     record = {"kernels": [
         {"name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",
          "replaces": "orbslam3_tpu/ops/pallas_fast.py:141", "launches": launches["fast_nms"],

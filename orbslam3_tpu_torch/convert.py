@@ -16,10 +16,20 @@ import torch
 T = TypeVar("T", bound=tuple)
 
 
-def tensor(x, device) -> torch.Tensor:
+def tensor(x, device, dtype: torch.dtype | None = None) -> torch.Tensor:
     """numpy (or array-like) -> tensor on `device`, dtype kept (int32 stays
-    int32, bool stays bool, uint8 stays uint8)."""
-    return torch.from_numpy(np.array(x, copy=True)).to(device)
+    int32, bool stays bool, uint8 stays uint8) unless `dtype` converts it
+    on the device. The array is copied, so the caller may reuse it. No host
+    synchronisation: to a CUDA device the copy goes through pinned memory
+    asynchronously (PyTorch synchronises the stream after a blocking copy
+    from pageable memory)."""
+    t = torch.from_numpy(np.array(x, copy=True))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        t = t.pin_memory().to(dev, non_blocking=True)
+    else:
+        t = t.to(dev)
+    return t if dtype is None else t.to(dtype)
 
 
 def to_torch(tree: NamedTuple, device, cls: Type[T] | None = None) -> T:

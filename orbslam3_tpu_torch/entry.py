@@ -15,6 +15,12 @@ candidate points into those neighbours, and the dense-Schur local BA over a
 48-keyframe window with a fixed bucket of 32 (24 valid), on a 128-keyframe
 map whose observations are consistent projections.
 
+The monocular `System` end to end (`mono_replay`) is the counterpart of
+`scripts/drive_slam.py` at EuRoC width: `System.track_monocular` on a
+stream of frames rendered by `scripts/make_synth_euroc.py` (752x480, the
+synthetic room's circle), 1000 features on 8 levels, Kmax 256, Pmax 16384,
+scored by the Sim3 ATE against the rendered camera centres.
+
 Scenes are built with numpy from a seed (`make_scene`, `make_mapping_scene`
 draw from the generator in the reference's order), so a test can hand the
 same map to the JAX package and to the port.
@@ -22,12 +28,17 @@ same map to the JAX package and to the port.
 
 from __future__ import annotations
 
+import importlib.util
+import time
+import warnings
+from pathlib import Path
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from orbslam3_tpu_torch import convert
+from orbslam3_tpu_torch.ate import ate_rmse
 from orbslam3_tpu_torch.atlas import store as st
 from orbslam3_tpu_torch.ops import cameras as cam
 from orbslam3_tpu_torch.ops import features as feat
@@ -468,3 +479,103 @@ def fetch_mapping(out: MappingOut) -> dict:
         conflict=out.conflict, cost=out.cost, n_bad=out.n_bad, kf_R=st_new.kf_R,
         kf_t=st_new.kf_t, kf_mp=st_new.kf_mp, mp_pos=st_new.mp_pos,
     ))
+
+
+# ---------------------------------------------------------------------------
+# The monocular System end to end
+# ---------------------------------------------------------------------------
+
+EUROC_MONO = dict(camera=[458.0, 458.0, 376.0, 240.0, 0.0, 0.0, 0.0, 0.0], img_wh=(752, 480),
+                  orb=feat.OrbParams(), Kmax=256, Pmax=16384, fps=20.0)
+_SYNTH = Path(__file__).resolve().parent.parent / "scripts" / "make_synth_euroc.py"
+
+
+def synth_euroc():
+    """`scripts/make_synth_euroc.py` (numpy only, not a package), loaded by
+    its file path: `make_textures`, `pose_at`, `render`."""
+    spec = importlib.util.spec_from_file_location("make_synth_euroc", _SYNTH)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def euroc_frames(n_frames: int, seed: int = 0):
+    """(timestamps (n,), uint8 images (n, 480, 752), camera centres (n, 3))
+    of the synthetic sequence, rendered as the script's `main` renders
+    them: t = k / 20 s, then sensor noise of 1.5 grey levels from the same
+    generator as the textures."""
+    M = synth_euroc()
+    rng = np.random.default_rng(seed)
+    tex = M.make_textures(rng)
+    ts, imgs, centres = [], [], []
+    for k in range(n_frames):
+        t = k / M.CAM_HZ
+        R_wc, p = M.pose_at(t)
+        img = M.render(tex, R_wc, p)
+        imgs.append(np.clip(img + rng.normal(0, 1.5, img.shape), 0, 255).astype(np.uint8))
+        ts.append(t)
+        centres.append(p)
+    return np.asarray(ts), np.stack(imgs), np.asarray(centres)
+
+
+class ReplayResult(NamedTuple):
+    """One replay; the per-frame lists have one entry per frame."""
+
+    ts: np.ndarray  # (N,) timestamps of the logged trajectory
+    pos: np.ndarray  # (N, 3) its camera centres (map frame)
+    gt_ts: np.ndarray  # (n_frames,)
+    gt_pos: np.ndarray  # (n_frames, 3) rendered camera centres
+    states: list  # TrackState name after each frame
+    keyframe: list  # whether the frame inserted a keyframe (its mapping pass ran)
+    ms: list  # host-clock ms of each `track_monocular`, the device drained after it
+    syncs: list  # host synchronisations inside it (None off CUDA)
+    b2: list  # kernel B2 launches inside it
+    b1: list  # kernel B1 launches inside it
+    n_kf: int
+    n_mp: int
+    ate: float  # Sim3-aligned ATE RMSE (m)
+    render_s: float
+    system: object  # the System after the last frame
+
+
+def mono_replay(device, n_frames: int, seed: int = 0) -> ReplayResult:
+    """Drive `System(MONOCULAR)` through `track_monocular` over the first
+    `n_frames` of the synthetic EuRoC sequence on `device` and score it. On
+    a CUDA device every frame runs with PyTorch's sync debug mode at
+    "warn", and the synchronisations each frame makes are counted."""
+    from orbslam3_tpu_torch.ops import cuda_fast, cuda_match
+    from orbslam3_tpu_torch.system import Sensor, System
+
+    t0 = time.perf_counter()
+    gt_ts, imgs, gt_pos = euroc_frames(n_frames, seed)
+    render_s = time.perf_counter() - t0
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    cfg = EUROC_MONO
+    slam = System(Sensor.MONOCULAR, cam.CameraModel.PINHOLE, cfg["camera"], cfg["img_wh"],
+                  cfg["orb"], device=dev, Kmax=cfg["Kmax"], Pmax=cfg["Pmax"], fps=cfg["fps"])
+    states, keyframe, ms, syncs, b2, b1 = [], [], [], [], [], []
+    for t, img in zip(gt_ts, imgs):
+        n2, n1 = cuda_fast.LAUNCHES, cuda_match.LAUNCHES
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.set_sync_debug_mode("warn")
+        start = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            frame = slam.track_monocular(img, float(t))
+        if cuda:
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - start) * 1e3)
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught) if cuda else None)
+        states.append(slam.tracking_state.name)
+        keyframe.append(slam.tracker.last_kf_frame_id == frame.frame_id)
+        b2.append(cuda_fast.LAUNCHES - n2)
+        b1.append(cuda_match.LAUNCHES - n1)
+    ts, pos = slam.get_trajectory()
+    ate = ate_rmse(ts, pos, gt_ts, gt_pos, with_scale=True, max_dt=0.01)
+    return ReplayResult(ts=ts, pos=pos, gt_ts=gt_ts, gt_pos=gt_pos, states=states,
+                        keyframe=keyframe, ms=ms, syncs=syncs, b2=b2, b1=b1,
+                        n_kf=slam.n_keyframes, n_mp=slam.n_map_points, ate=ate,
+                        render_s=render_s, system=slam)

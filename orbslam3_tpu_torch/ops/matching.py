@@ -18,6 +18,7 @@ read exactly INF = 1e9. Ties go to the lowest index.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -25,6 +26,7 @@ import torch
 TH_LOW = 50
 TH_HIGH = 100
 INF = 1e9
+HISTO_LENGTH = 30  # rotation histogram bins (ref ORBmatcher HISTO_LENGTH)
 
 
 class Matches(NamedTuple):
@@ -41,12 +43,13 @@ def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
 
 
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """(N,32) x (M,32) uint8 -> (N,M) float32 Hamming distances. Exact: the
-    bit dot products are integers <= 256 and the float32 sums are lossless
-    (TF32 is off, see the package docstring)."""
+    """(..., N,32) x (..., M,32) uint8 -> (..., N,M) float32 Hamming
+    distances (leading axes batch). Exact: the bit dot products are integers
+    <= 256 and the float32 sums are lossless (TF32 is off, see the package
+    docstring)."""
     a = unpack_bits(desc_a)
     b = unpack_bits(desc_b)
-    return a.sum(-1)[:, None] + b.sum(-1)[None, :] - 2.0 * (a @ b.T)
+    return a.sum(-1)[..., :, None] + b.sum(-1)[..., None, :] - 2.0 * (a @ b.transpose(-1, -2))
 
 
 def _mask_matrix(D, valid_a: Optional[torch.Tensor], valid_b: Optional[torch.Tensor]):
@@ -129,6 +132,24 @@ def search_by_projection(desc_query, uv_query, valid_query, desc_kp, uv_kp, vali
     d1, d2, j = cuda_match.hamming_top2(desc_query, desc_kp, valid_kp, window)
     ok = _ratio_ok(d1, d2, max_dist, ratio) & valid_query
     return Matches(idx=torch.where(ok, j, -1), dist=d1, valid=ok)
+
+
+def rotation_consistency(angle_a: torch.Tensor, angle_b: torch.Tensor, matches: Matches,
+                         keep_bins: int = 3) -> Matches:
+    """Keep only the matches whose angle difference falls in the
+    `keep_bins` most popular of HISTO_LENGTH histogram bins (ref
+    `ORBmatcher.cc` rotHist, `ComputeThreeMaxima`). Equal counts rank the
+    lower bin first, as `lax.top_k` does (C2): a stable descending sort."""
+    d_ang = angle_a - angle_b[torch.clamp(matches.idx, min=0).to(torch.int64)]
+    # `jnp.remainder`'s float form: the exact fmod, shifted into [0, 360).
+    d_deg = torch.fmod(d_ang * (180.0 / math.pi), 360.0)
+    d_deg = torch.where(d_deg < 0, d_deg + 360.0, d_deg)
+    bins = torch.clamp((d_deg * HISTO_LENGTH / 360.0).to(torch.int32), 0, HISTO_LENGTH - 1)
+    hist = torch.zeros(HISTO_LENGTH, dtype=torch.int32, device=bins.device).index_add(
+        0, bins.to(torch.int64), matches.valid.to(torch.int32))
+    top = torch.sort(hist, descending=True, stable=True)[1][:keep_bins]
+    ok = matches.valid & torch.any(bins[:, None].to(torch.int64) == top[None, :], dim=1)
+    return Matches(idx=torch.where(ok, matches.idx, -1), dist=matches.dist, valid=ok)
 
 
 def assign_unique(matches: Matches, n_cols: int) -> Matches:

@@ -1,16 +1,37 @@
-"""Frustum and scale prediction over the whole map-point array — the port
-of `frustum_and_scale` and `search_radius` of
-`orbslam3_tpu/pipeline/frame.py` (`Frame::isInFrustum`,
+"""The per-frame container `FrameData` and the frustum and scale
+prediction over the whole map-point array — the port of
+`orbslam3_tpu/pipeline/frame.py` (`Frame`, `Frame::isInFrustum`,
 `MapPoint::PredictScale`, `ORBmatcher::RadiusByViewingCos`)."""
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from orbslam3_tpu_torch.ops import cameras as cam
+from orbslam3_tpu_torch.ops import features as feat
 from orbslam3_tpu_torch.ops import lie
+
+
+@dataclass
+class FrameData:
+    """One processed frame: its features stay on the device; the pose and
+    the associations are host numpy, as the control logic reads them."""
+
+    features: feat.Features
+    timestamp: float
+    frame_id: int
+    R: np.ndarray  # (3,3) Tcw estimate
+    t: np.ndarray  # (3,)
+    mp_assoc: np.ndarray  # (Nf,) int32 map-point id per feature (-1 none)
+
+    @property
+    def n_features(self) -> int:
+        """Valid keypoints (a host read: the initializer's gate only)."""
+        return int(self.features.valid.sum())
 
 
 def frustum_and_scale(model: cam.CameraModel, params: torch.Tensor, R: torch.Tensor,

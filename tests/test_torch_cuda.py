@@ -20,6 +20,8 @@ from orbslam3_tpu_torch import convert
 from orbslam3_tpu_torch import entry as E
 from orbslam3_tpu_torch.ops import _build, cuda_fast, cuda_match
 from orbslam3_tpu_torch.ops import features as feat
+from orbslam3_tpu_torch.ops.cameras import CameraModel
+from orbslam3_tpu_torch.system import Sensor, System
 
 torch.set_num_threads(1)  # the tier-1 run has 6 xdist workers
 
@@ -136,3 +138,59 @@ def test_mapping_pass_on_card_equals_plain(dev):
     np.testing.assert_allclose(got["kf_R"], ref["kf_R"], atol=1e-4)
     np.testing.assert_allclose(got["kf_t"], ref["kf_t"], atol=1e-4)
     assert (got["adds"] >= 20).all() and int(got["conflict"].sum()) >= 1
+
+
+def _e2e_mono_frames(n_frames: int):
+    """The scene of `tests/test_e2e_mono.py` (a wall of squares at 3-6 m, a
+    slow lateral arc), rendered in numpy: that file imports JAX."""
+    H, W, f = 240, 320, 260.0
+    rng = np.random.default_rng(0)
+    pts = np.stack([rng.uniform(-3.0, 3.0, 130), rng.uniform(-2.2, 2.2, 130),
+                    rng.uniform(3.0, 6.0, 130)], -1).astype(np.float32)
+    shades = rng.uniform(120, 250, 130).astype(np.float32)
+    imgs = []
+    for k in range(n_frames):
+        s = k / (n_frames - 1)
+        yaw = 0.04 * np.sin(2 * np.pi * s)
+        R = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0], [-np.sin(yaw), 0, np.cos(yaw)]],
+                     np.float32)
+        centre = np.array([1.6 * s, 0.15 * np.sin(4 * s), 0.5 * s], np.float32)
+        Xc = (pts - centre) @ R.T
+        img = np.full((H, W), 35.0, np.float32)
+        for i in np.argsort(-Xc[:, 2]):  # far first
+            if Xc[i, 2] < 0.5:
+                continue
+            u, v = f * Xc[i, 0] / Xc[i, 2] + W / 2, f * Xc[i, 1] / Xc[i, 2] + H / 2
+            half = max(2, int(round(12.0 / Xc[i, 2] * 2)))
+            ui, vi = int(round(u)), int(round(v))
+            if 1 <= ui < W - 1 and 1 <= vi < H - 1:
+                img[max(vi - half, 0):min(vi + half, H), max(ui - half, 0):min(ui + half, W)] = \
+                    shades[i]
+        imgs.append(img)
+    return [f, f, W / 2, H / 2, 0, 0, 0, 0], (W, H), imgs
+
+
+def test_system_on_card_equals_plain(dev):
+    """Ten frames of the `test_e2e_mono` scene through the monocular System
+    on the card: through the kernels and through their plain versions the
+    same states and keyframe counts, camera centres within 1e-3 (the
+    kernels are exact; only the BA's atomic sums reorder)."""
+    params, wh, imgs = _e2e_mono_frames(12)
+
+    def run():
+        slam = System(Sensor.MONOCULAR, CameraModel.PINHOLE, params, wh,
+                      feat.OrbParams(n_features=400, n_levels=3), device=dev, Kmax=32, Pmax=4096)
+        states = []
+        for k, img in enumerate(imgs[:10]):
+            slam.track_monocular(img, k * 0.1)
+            states.append((slam.tracking_state.name, slam.n_keyframes))
+        return states, slam.get_trajectory()
+
+    n0 = (cuda_fast.LAUNCHES, cuda_match.LAUNCHES)
+    got, (ts, pos) = run()
+    assert cuda_fast.LAUNCHES == n0[0] + 10 and cuda_match.LAUNCHES > n0[1]
+    with _build.force_plain():
+        ref, (ts_p, pos_p) = run()
+    assert got == ref and got[-1][0] == "OK"
+    np.testing.assert_array_equal(ts, ts_p)
+    np.testing.assert_allclose(pos, pos_p, atol=1e-3)
