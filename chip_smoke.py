@@ -18,9 +18,21 @@ frames of the synthetic EuRoC sequence at 752x480 / 1000 features, checks
 the map, the states and the Sim3 ATE against its gate, the kernels'
 launches and the host syncs per frame, compares a 20-frame prefix through
 the kernels with the same through the plain versions, and times B1 at the
-fuse-into-keyframe shape (4096 candidates). Every phase prints its lines;
-any failure ends the run with a non-zero exit. Without a CUDA device it
-exits non-zero and prints no result.
+fuse-into-keyframe shape (4096 candidates). Phase 2 also holds B1 to its
+plain version on its edge cases (`kernel_bench.b1_edge_cases`). Phase 7
+times both kernels at the main path's calls (B2 on the atlas; B1 at the
+motion model, the local map, the cross-check, the fuse into a neighbour
+and the fuse into the keyframe): device-only time by CUDA-graph replay,
+the time of one wrapper call, the profiler's device time, the plain
+version's time and the bound (`orbslam3_tpu_torch/kernel_bench.py`). Every
+phase prints its lines; any failure ends the run with a non-zero exit.
+Without a CUDA device it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --save-inputs FILE
+
+also writes phase 7's inputs to FILE, for `python -m
+orbslam3_tpu_torch.kernel_bench FILE` to time another checkout's kernels on
+the same inputs.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -28,6 +40,8 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -54,20 +68,39 @@ N_PREFIX = 20  # frames of its kernels-vs-plain prefix
 ATE_GATE = 0.0186
 
 
-def _median_ms(fn, iters=20, warmup=3):
-    """Median device time of `fn()` in ms, CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+# The main path's B1 calls, by the function that makes them.
+B1_SITES = {"_track_last_frame": "motion model", "_track_local_map_match": "local map",
+            "_track_reference_kf": "cross-check", "_fuse_batch": "fuse into a neighbour",
+            "_fuse_neighbors": "fuse into the keyframe"}
+
+
+@contextlib.contextmanager
+def _b1_calls(calls: list, keep_args: bool):
+    """Within the block, append (call site, arguments or None) for every B1
+    wrapper call. The wrapper itself runs unchanged, launch count included."""
+    from orbslam3_tpu_torch.ops import cuda_match
+
+    wrapped = cuda_match.hamming_top2
+
+    def recording(*args):
+        f, site = sys._getframe(1), "other"
+        while f is not None and site == "other":
+            site = B1_SITES.get(f.f_code.co_name, "other")
+            f = f.f_back
+        calls.append((site, tuple(_clone(a) for a in args) if keep_args else None))
+        return wrapped(*args)
+
+    cuda_match.hamming_top2 = recording
+    try:
+        yield calls
+    finally:
+        cuda_match.hamming_top2 = wrapped
+
+
+def _clone(x):
+    if x is None or isinstance(x, torch.Tensor):
+        return None if x is None else x.clone()
+    return type(x)(*(_clone(y) for y in x))
 
 
 def _local_map_variant(args, ref_kf: int):
@@ -110,13 +143,18 @@ def check(ok, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--save-inputs", metavar="FILE",
+                    help="write phase 7's kernel inputs to FILE (torch.save)")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
     from orbslam3_tpu_torch import convert
     from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch import kernel_bench as KB
     from orbslam3_tpu_torch.ops import _build, cuda_fast, cuda_match
     from orbslam3_tpu_torch.ops import features as feat
     from orbslam3_tpu_torch.pipeline import frame as fr
@@ -151,13 +189,8 @@ def main() -> int:
     check(torch.equal(s_k[b:-b, b:-b], s_p[b:-b, b:-b]), "B2 score differs from plain")
     check(torch.equal(i_k[b:-b, b:-b], i_p[b:-b, b:-b]), "B2 pass_ini differs from plain")
     check(int((s_k > 0).sum()) > 10000, "B2 found no corners")
-    ms_b2 = _median_ms(lambda: cuda_fast.fast_score_nms(atlas, orb.min_th, orb.ini_th))
-    with _build.force_plain():
-        ms_b2_plain = _median_ms(
-            lambda: cuda_fast.fast_score_nms(atlas, orb.min_th, orb.ini_th), iters=10)
     print(f"phase 1 B2 fast_nms {tuple(atlas.shape)}: exact vs plain (tolerance 0) "
-          f"(corners {int((s_k > 0).sum())}, everywhere equal: {torch.equal(s_k, s_p)}); "
-          f"kernel {ms_b2:.4f} ms, plain {ms_b2_plain:.4f} ms")
+          f"(corners {int((s_k > 0).sum())}, everywhere equal: {torch.equal(s_k, s_p)})")
 
     # --- Phase 2: B1 at the slice's two shapes --------------------------
     f = feat.extract(img, orb)
@@ -183,9 +216,6 @@ def main() -> int:
     err_b1 = max(float((out_k[0] - out_p[0]).abs().max()),
                  float((out_k[1] - out_p[1]).abs().max()))
     n_in_window = int((out_k[0] < 1e9).sum())
-    ms_b1 = _median_ms(b1_local)
-    with _build.force_plain():
-        ms_b1_plain = _median_ms(b1_local, iters=10)
 
     rk = cfg.ref_kf
     kf_desc, kf_valid = state.kf_desc[rk], state.kf_feat_valid[rk]
@@ -199,17 +229,27 @@ def main() -> int:
     with _build.force_plain():
         out_p = b1_cross()
     torch.cuda.synchronize()
-    rows_c = [kf_valid] * 3 + [f.valid] * 3
-    for i, (k_, p_, r_) in enumerate(zip(out_k, out_p, rows_c)):
-        check(torch.equal(k_[r_], p_[r_]), f"B1 cross-check output {i} differs from plain")
-    ms_b1c = _median_ms(b1_cross)
-    with _build.force_plain():
-        ms_b1c_plain = _median_ms(b1_cross, iters=10)
+    for i, (k_, p_) in enumerate(zip(out_k, out_p)):
+        check(torch.equal(k_, p_), f"B1 cross-check output {i} differs from plain")
     print(f"phase 2 B1 hamming_top2: windowed {tuple(state.mp_desc.shape[:1])}x{f.desc.shape[0]} "
           f"exact (tolerance 0) vs plain on all rows ({n_in_window} with a key in their window, "
-          f"{int(visible.sum())} visible), kernel {ms_b1:.4f} ms, "
-          f"plain {ms_b1_plain:.4f} ms; cross-checked 1024x1024 (2 launches) exact, "
-          f"kernel {ms_b1c:.4f} ms, plain {ms_b1c_plain:.4f} ms")
+          f"{int(visible.sum())} visible); cross-checked {kf_desc.shape[0]}x{f.desc.shape[0]} "
+          f"(2 launches) exact on all rows")
+    cross_args = (kf_desc, f.desc, f.valid, None)  # the forward launch of the pair
+
+    # B1's edge cases, every row exact.
+    cases = KB.b1_edge_cases()
+    n_rows = 0
+    for name, case in cases:
+        a = KB.b1_case_args(case, dev)
+        got = cuda_match.hamming_top2(*a)
+        ref = cuda_match.hamming_top2_plain(*a)
+        torch.cuda.synchronize()
+        for what, k_, p_ in zip(("d1", "d2", "j1"), got, ref):
+            check(torch.equal(k_, p_), f"B1 edge case {name}: {what} differs from plain")
+        n_rows += a[0].shape[0]
+    print(f"phase 2 B1 edge cases: {len(cases)} cases, {n_rows} rows, d1/d2/j1 exact "
+          f"(tolerance 0) vs plain")
 
     # --- Phase 3: the slice, through both entry points -------------------
     rng = np.random.default_rng(1)
@@ -258,8 +298,10 @@ def main() -> int:
 
     # --- Phase 4: one frame through the kernels and through the plain versions,
     # on the scene as built and on its variant where the local-map stage matches.
+    frame_calls = []
     for name, a in (("as built", args), ("local map", _local_map_variant(args, cfg.ref_kf))):
-        got_k = run(frames[0], *a[1:])
+        with _b1_calls(frame_calls, keep_args=name == "local map"):
+            got_k = run(frames[0], *a[1:])
         with _build.force_plain():
             got_p = run(frames[0], *a[1:])
         check(np.array_equal(got_k["assoc"], got_p["assoc"]), f"{name}: assoc, kernels vs plain")
@@ -273,6 +315,10 @@ def main() -> int:
         print(f"phase 4 kernels vs plain frame ({name}): assoc equal ({n_assoc} associated, "
               f"{int(got_k['n_a'])} by the motion model), n_inl {int(got_k['n_inl'])} vs "
               f"{int(got_p['n_inl'])}, max |dR| {dR:.2e}, max |dt| {dt:.2e}")
+    # The local-map variant's frame: the motion model's and the local map's calls.
+    b1_shapes = {site: a for site, a in frame_calls if a is not None}
+    check(sorted(b1_shapes) == ["local map", "motion model"],
+          f"B1 calls of a frame: {[site for site, _ in frame_calls]}")
 
     # --- Phase 5: the mapping pass ----------------------------------------
     mcfg = E.EUROC_MAPPING
@@ -307,12 +353,11 @@ def main() -> int:
     err_b1 = max(err_b1, float((out_k[0] - out_p[0]).abs().max()),
                  float((out_k[1] - out_p[1]).abs().max()))
     n_zero = int((out_k[0] == 0).sum())
-    ms_b1f = _median_ms(b1_fuse)
-    with _build.force_plain():
-        ms_b1f_plain = _median_ms(b1_fuse, iters=10)
     print(f"phase 5 B1 fuse shape {cand.shape[0]}x{vstate.kf_desc.shape[1]} windowed: exact "
-          f"(tolerance 0) vs plain, {n_zero} queries at distance 0, kernel {ms_b1f:.4f} ms, "
-          f"plain {ms_b1f_plain:.4f} ms")
+          f"(tolerance 0) vs plain, {n_zero} queries at distance 0")
+    b1_shapes["cross-check"] = cross_args
+    b1_shapes["fuse into a neighbour"] = (vstate.mp_desc[cand], vstate.kf_desc[nbk],
+                                          vstate.kf_feat_valid[nbk], win_f)
 
     # The main path: one pass through the entry point, counts read around it.
     E.fetch_mapping(mrun(mstate))  # first call: per-shape tables and caches
@@ -396,9 +441,13 @@ def main() -> int:
     cuda_fast.LAUNCHES = 0
     cuda_match.LAUNCHES = 0
     t0 = time.perf_counter()
-    rep = E.mono_replay(dev, N_REPLAY)
+    with _b1_calls([], keep_args=False) as replay_calls:
+        rep = E.mono_replay(dev, N_REPLAY)
     replay_s = time.perf_counter() - t0
     launches6 = {"fast_nms": cuda_fast.LAUNCHES, "hamming_top2": cuda_match.LAUNCHES}
+    per_site = {site: sum(s == site for s, _ in replay_calls) for site in B1_SITES.values()}
+    check(sum(per_site.values()) == launches6["hamming_top2"],
+          f"B1 calls by site {per_site} vs launches {launches6}")
     states = rep.states
     init = next((k for k, x in enumerate(states) if x == "OK"), None)
     check(init is not None and init < 10, f"no initialization in the first 10 frames: {states[:10]}")
@@ -433,6 +482,8 @@ def main() -> int:
     print(f"phase 6 host syncs per tracked non-keyframe frame: {sync_counts[0]} on all "
           f"{len(plain)} (keyframe frames: median "
           f"{statistics.median(rep.syncs[k] for k in kfs) if kfs else 0})")
+    print(f"phase 6 B1 launches by call over the replay: {per_site} ({len(tracked)} tracked "
+          f"frames after initialization, {len(kfs)} of them keyframes)")
 
     pre_k = E.mono_replay(dev, N_PREFIX)
     with _build.force_plain():
@@ -477,25 +528,76 @@ def main() -> int:
         check(torch.equal(k_, p_), f"B1 pool-shape {name} differs from plain")
     err_b1 = max(err_b1, float((out_k[0] - out_p[0]).abs().max()),
                  float((out_k[1] - out_p[1]).abs().max()))
-    ms_b1k = _median_ms(b1_pool)
-    with _build.force_plain():
-        ms_b1k_plain = _median_ms(b1_pool, iters=10)
     print(f"phase 6 B1 fuse-into-keyframe shape {cand.shape[0]}x{ms_state.kf_desc.shape[1]} "
           f"windowed: exact (tolerance 0) vs plain, {int(vis_c.sum())} candidates visible, "
-          f"{int((out_k[0] < 1e9).sum())} with a key in their window; kernel {ms_b1k:.4f} ms, "
-          f"plain {ms_b1k_plain:.4f} ms")
+          f"{int((out_k[0] < 1e9).sum())} with a key in their window")
+    b1_shapes["fuse into the keyframe"] = (ms_state.mp_desc[cand], ms_state.kf_desc[kf],
+                                           ms_state.kf_feat_valid[kf], win_k)
+
+    # --- Phase 7: device-only times, call times and bounds ------------------
+    if opts.save_inputs:
+        torch.save({"b2": {"atlas": atlas.cpu(), "min_th": orb.min_th, "ini_th": orb.ini_th},
+                    "b1": [KB.b1_record(site, a) for site, a in b1_shapes.items()]},
+                   opts.save_inputs)
+    card = smi.stdout.strip().splitlines()[0]
+    b2_t = KB.time_b2(atlas, orb.min_th, orb.ini_th)
+    with _build.force_plain():
+        b2_plain_ms = KB.call_us(lambda: cuda_fast.fast_score_nms(atlas, orb.min_th, orb.ini_th),
+                                 iters=10) / 1e3
+    b2_b = KB.b2_bound(atlas)
+    print(f"phase 7 B2 fast_nms {tuple(atlas.shape)}: device {b2_t['device_us']:.2f} us "
+          f"(graph of {KB.GRAPH_CALLS}), call {b2_t['call_us']:.2f} us, profiler "
+          f"{b2_t['profiler_us']} us, bound {b2_b['bound_us']:.2f} us ({b2_b['bound_by']}: "
+          f"{b2_b['byte_us']:.2f} us for {b2_b['bytes']} bytes, {b2_b['op_us']:.2f} us for "
+          f"{b2_b['ops']} fp32 ops), plain {b2_plain_ms:.4f} ms; 1 launch per frame [{card}]")
+    b1_rows = []
+    for site in B1_SITES.values():
+        a = b1_shapes[site]
+        got = cuda_match.hamming_top2(*a)
+        with _build.force_plain():
+            ref = cuda_match.hamming_top2(*a)
+        torch.cuda.synchronize()
+        for what, k_, p_ in zip(("d1", "d2", "j1"), got, ref):
+            check(torch.equal(k_, p_), f"B1 {site}: {what} differs from plain")
+        err_b1 = max(err_b1, float((got[0] - ref[0]).abs().max()),
+                     float((got[1] - ref[1]).abs().max()))
+        t = KB.time_b1(a)
+        with _build.force_plain():
+            plain_ms = KB.call_us(lambda: cuda_match.hamming_top2(*a), iters=10) / 1e3
+        bd = KB.b1_bound(*a)
+        fuse = site.startswith("fuse")
+        per = per_site[site] / max(len(kfs) if fuse else len(tracked), 1)
+        row = {"call": site, "shape": [a[0].shape[0], a[1].shape[0]], "windowed": a[3] is not None,
+               **t, "plain_ms": plain_ms, "bound_us": bd["bound_us"], "bound_by": bd["bound_by"],
+               "in_window_pairs": bd["pairs"], "launches_per_replay": per_site[site],
+               ("launches_per_keyframe" if fuse else "launches_per_tracked_frame"): per}
+        b1_rows.append(row)
+        print(f"phase 7 B1 {site} {a[0].shape[0]}x{a[1].shape[0]} "
+              f"{'windowed' if row['windowed'] else 'unwindowed'}: exact vs plain; device "
+              f"{t['device_us']:.2f} us (graph of {KB.GRAPH_CALLS}), call {t['call_us']:.2f} us, "
+              f"profiler {t['profiler_us']} us, bound {bd['bound_us']:.3f} us ({bd['bound_by']}; "
+              f"{bd['bytes']} bytes, {bd['pairs']} pairs to popcount), plain {plain_ms:.4f} ms; "
+              f"{per_site[site]} launches in the replay ({per:.2f} per "
+              f"{'keyframe' if fuse else 'tracked frame'}) [{card}]")
 
     launches["fast_nms"] += launches6["fast_nms"]
     launches["hamming_top2"] += launches5["hamming_top2"] + launches6["hamming_top2"]
+    lm = next(r for r in b1_rows if r["call"] == "local map")  # the kernel's headline call
     record = {"kernels": [
         {"name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",
          "replaces": "orbslam3_tpu/ops/pallas_fast.py:141", "launches": launches["fast_nms"],
-         "max_abs_err": err_b2, "ms": ms_b2, "plain_ms": ms_b2_plain},
+         "max_abs_err": err_b2, "ms": b2_t["device_us"] / 1e3, "plain_ms": b2_plain_ms,
+         "bound_ms": b2_b["bound_us"] / 1e3, "bound_by": b2_b["bound_by"], "library_ms": None,
+         "device_us": b2_t["device_us"], "call_us": b2_t["call_us"],
+         "bound_us": b2_b["bound_us"], "launches_per_replay": launches6["fast_nms"]},
         {"name": "hamming_top2", "route": "cuda",
          "source": "orbslam3_tpu_torch/csrc/hamming_top2.cu",
          "replaces": "orbslam3_tpu/ops/pallas_match.py:155",
-         "launches": launches["hamming_top2"], "max_abs_err": err_b1, "ms": ms_b1,
-         "plain_ms": ms_b1_plain},
+         "launches": launches["hamming_top2"], "max_abs_err": err_b1,
+         "ms": lm["device_us"] / 1e3, "plain_ms": lm["plain_ms"],
+         "bound_ms": lm["bound_us"] / 1e3, "bound_by": lm["bound_by"], "library_ms": None,
+         "device_us": lm["device_us"], "call_us": lm["call_us"], "bound_us": lm["bound_us"],
+         "launches_per_replay": launches6["hamming_top2"], "calls": b1_rows},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from orbslam3_tpu_torch import convert
+from orbslam3_tpu_torch.device import require_cuda
 from orbslam3_tpu_torch.ops import matching
 
 
@@ -406,12 +407,13 @@ def erase_keyframe(state: MapState, slot: int) -> MapState:
 
 
 class MapStore:
-    """Host-side owner of one map on `device`: slot allocation, keyframe
-    timestamps, and host mirrors of derived structures, each cached until
-    `change_index` moves (`bump`)."""
+    """Host-side owner of one map on `device` (None: the first CUDA card,
+    raising where there is none): slot allocation, keyframe timestamps, and
+    host mirrors of derived structures, each cached until `change_index`
+    moves (`bump`)."""
 
-    def __init__(self, Kmax: int = 256, Pmax: int = 16384, Nf: int = 1024, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, Kmax: int = 256, Pmax: int = 16384, Nf: int = 1024, device=None):
+        self.device = require_cuda() if device is None else torch.device(device)
         self.state = empty_map(Kmax, Pmax, Nf, device=self.device)
         self.n_kf = 0
         self.n_mp = 0

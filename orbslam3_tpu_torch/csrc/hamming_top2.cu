@@ -1,4 +1,4 @@
-// Hamming distance + top-2 reduction, with the projection-search window.
+// Kernel B1: Hamming distance + top-2 with the projection-search window.
 //
 // Replaces the Pallas TPU kernel `_kernel` of orbslam3_tpu/ops/pallas_match.py
 // (:56, launched by `_top2_call` at pallas_match.py:155). For every query row
@@ -7,183 +7,486 @@
 //          is tied), j1[q] the index of the best, the lowest index on ties;
 // where the distance of key k is popc(a_q ^ b_k) over 256 bits, or exactly
 // 1e9 when key k is invalid or (windowed) outside the query's window:
-//   |u_q - u_k| <= r_q, |v_q - v_k| <= r_q, lo_q <= octave_k <= hi_q.
+//   |u_q - u_k| <= r_q, |v_q - v_k| <= r_q (float32), lo_q <= octave_k <= hi_q.
 // These are the float32 values of the reference's XLA path
-// (matching._mask_matrix + window_mask + best_two). The N x M matrix is never
-// stored. Ratio test, max distance and query validity are applied by the
-// caller, as in the reference.
+// (matching._mask_matrix + window_mask + best_two): the same on every row,
+// whatever the inputs (NaN or infinite positions, radius 0, M = 1, ties).
+// The N x M matrix is never stored. Ratio test, max distance and query
+// validity are applied by the caller, as in the reference.
 //
-// What bounds it on the H100: the popcount rate of the integer units. The
-// local-map search is 16384 x 1024 pairs x 8 words = about 134 M `__popc`
-// (plus as many XORs and adds) per call before the window prunes any; on
-// 132 SMs at 16 popc/clk/SM that is ~40 us unpruned. The distance is exact
-// (no bit-matmul identity, no tensor cores). The design answers the bound by
-// (1) testing the window first, so out-of-window keys skip their 8 popcounts
-// (the window keeps a few keys of 1024 per query at EuRoC shapes), and
-// (2) staging a tile of keys in shared memory once per block, transposed to
-// [word][key] so a warp's 32 lanes read 32 consecutive words without bank
-// conflicts, while each warp walks its queries over the tile.
+// What bounds it on the H100 (3.35 TB/s; `__popc` at 132 SMs x 16/clk x
+// 1.98 GHz = 4.2 T/s), at the main path's calls (inputs read once, outputs
+// written once):
+//   call                                  bytes    byte floor  op floor
+//   local map, windowed 16384 x 1024      1.09 MB  0.33 us     8 popc per
+//   motion model, windowed 1024 x 1024    0.11 MB  0.03 us       in-window
+//   fuse into a neighbour, windowed 1024² 0.11 MB  0.03 us       valid pair
+//   fuse into the keyframe, 4096 x 1000   0.31 MB  0.09 us       (a few per query)
+//   cross-check, unwindowed 1024 x 1024   0.08 MB  0.02 us     8.4 M popc, 2.0 us
+// A windowed call's window holds a few keys of ~1000, so its floor is the
+// launch itself (about 1 us through a CUDA graph on this card); the
+// cross-check is bound by popcounts.
 //
-// Order: each lane folds its keys in increasing index with a strict `<`
-// (lowest index wins a tie), and the warp then merges the 32 partial
-// (d1, j1, d2) triples with a tie-break on index — the same result as the
-// sequential fold of the TPU kernel and as `lax.top_k`.
+// Design, against that bound:
+// (1) Visit only the keys a window can hold. Each block stages the window
+//     data of the M <= 1024 keys (u, v, octave, validity: 13 bytes a key,
+//     not the 32 descriptor bytes) in shared memory and lists the valid keys
+//     by cell of a 32 x 32 grid over the extent of the valid keys with
+//     finite positions (a counting sort: shared-memory atomics, then a block
+//     scan). A query walks the cells its box [u - r, u + r] x [v - r, v + r]
+//     overlaps (one contiguous slot range per cell row) and applies the
+//     exact float32 window and octave tests to those keys only; a key that
+//     passes reads its 32 descriptor bytes from L2, and that load overlaps
+//     the rest of the walk. The box's edges are rounded outwards (directed
+//     rounding) from a radius widened by 2^-22 r and mapped to cells by the
+//     same monotone float32 function as the keys' (a key that passes
+//     |u_q - u_k| <= r_q in float32 lies within r_q (1 + 2^-23) of u_q in
+//     exact arithmetic), so every key that passes lies in a visited cell,
+//     whatever the values. Keys with a non-finite coordinate sit in one
+//     extra bucket that every query visits (it is empty on the main path). A
+//     query with a NaN position or radius, or a negative radius, passes no
+//     key (the plain mask is False there).
+// (2) Short dependency chains. The staging issues all its loads at once and
+//     the block's first queries are loaded while it stages; a windowed query
+//     takes 16 lanes, so a warp runs two queries at a time and merges each
+//     over four shuffle rounds (8 lanes and four queries above 2048 queries).
+//     Blocks of 4 warps: a 1024-query call runs 128 blocks, larger calls up
+//     to 4 per SM with the queries strided over them. What is left of a
+//     windowed launch is latency: the staging's global round trip, its
+//     barriers and atomics, and the query's own.
+// (3) Unwindowed (the cross-check), each block stages all descriptors in
+//     index order, [word][key] with a 4-word pad per word row so that the
+//     coalesced stores and the warp's reads of consecutive keys are free of
+//     bank conflicts, and a warp's 32 lanes walk every key of a query.
+// (4) Ties. Keys are visited in no fixed order, so the fold breaks ties on
+//     the index explicitly: (d < d1 || d == d1 && j < j1) replaces the best,
+//     anything else lowers d2; the lanes merge the same way. The result (the
+//     minimum, its lowest index, the second of the multiset) does not depend
+//     on the order. Keys that are not visited read 1e9: with none visited,
+//     d1 = 1e9 and j1 = 0 (the lowest index), d2 = 1e9 when M >= 2 and +inf
+//     when M == 1 (as best_two gives); with one visited, d2 = 1e9 when M >= 2.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <type_traits>
+
 namespace {
 
-constexpr int kTileKeys = 512;   // keys staged in shared memory per tile
-constexpr int kWarps = 8;        // warps per block
-constexpr int kQueriesPerWarp = 4;
-constexpr float kInf = 1e9f;     // the reference's masked distance
+constexpr int kMaxKeys = 1024;  // key capacity (cuda_match.MAX_KEYS)
+constexpr int kWarps = 4;       // warps per block
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlocksPerSM = 4;
+constexpr int kKeysPerThread = kMaxKeys / kThreads;
+constexpr int kGrid = 32;                // cells per side of the window grid
+constexpr int kCells = kGrid * kGrid;    // bucket kCells: non-finite keys
+constexpr int kBuckets = kCells + 1;
+constexpr int kPad = kMaxKeys + 4;       // word-row stride of staged descriptors
+constexpr float kMasked = 1e9f;          // the reference's masked distance
+
+// Windowed staging: the keys' window data in index order, and the valid
+// keys' indices in cell order.
+struct WindowKeys {
+  float u[kMaxKeys];
+  float v[kMaxKeys];
+  int oct[kMaxKeys];
+  uint8_t ok[kMaxKeys];     // valid
+  uint16_t idx[kMaxKeys];   // key index of each slot
+  int start[kBuckets + 1];  // first slot of each bucket; start[kBuckets] = staged keys
+};
+
+// Unwindowed staging: every descriptor, in index order.
+struct AllKeys {
+  uint32_t desc[8 * kPad];  // word w of key k at desc[w * kPad + k]
+  uint8_t valid[kMaxKeys];
+};
 
 struct Top2 {
   float d1, d2;
   int j1;
 };
 
+__device__ __forceinline__ bool beats(float d, int j, float d1, int j1) {
+  return d < d1 || (d == d1 && j < j1);
+}
+
 __device__ __forceinline__ void fold(Top2& t, float d, int j) {
-  if (d < t.d1) {
+  if (beats(d, j, t.d1, t.j1)) {
     t.d2 = t.d1;
     t.d1 = d;
     t.j1 = j;
-  } else if (d < t.d2) {
-    t.d2 = d;
+  } else {
+    t.d2 = fminf(t.d2, d);
   }
 }
 
 __device__ __forceinline__ Top2 merge(const Top2& a, const Top2& b) {
-  const bool b_wins = (b.d1 < a.d1) || (b.d1 == a.d1 && b.j1 < a.j1);
+  const bool b_wins = beats(b.d1, b.j1, a.d1, a.j1);
   const Top2& w = b_wins ? b : a;
   const Top2& l = b_wins ? a : b;
-  Top2 r;
-  r.d1 = w.d1;
-  r.j1 = w.j1;
-  r.d2 = fminf(w.d2, l.d1);
-  return r;
+  return {w.d1, fminf(w.d2, l.d1), w.j1};
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+// cell(x) = floor((x - lo) * scale) in float32: monotone in x (rounding is),
+// for keys and box edges alike.
+struct Axis {
+  float lo, scale, min, max;  // min/max: extent of the finite staged keys
+};
+
+__device__ __forceinline__ float cell_of(float x, const Axis& a) {
+  return floorf((x - a.lo) * a.scale);
+}
+
+__device__ __forceinline__ int key_cell(float x, const Axis& a) {
+  return (int)fminf(fmaxf(cell_of(x, a), 0.f), kGrid - 1.f);
+}
+
+// First and last cell a box edge can reach; NaN widens to the whole axis.
+__device__ __forceinline__ int first_cell(float x, const Axis& a) {
+  const float t = cell_of(x, a);
+  return t > 0.f ? (int)fminf(t, kGrid - 1.f) : 0;
+}
+
+__device__ __forceinline__ int last_cell(float x, const Axis& a) {
+  const float t = cell_of(x, a);
+  return t < kGrid - 1.f ? (int)fmaxf(t, 0.f) : kGrid - 1;
+}
+
+__device__ __forceinline__ Axis make_axis(float mn, float mx) {
+  if (!(mx >= mn)) return {0.f, 0.f, INFINITY, -INFINITY};  // no finite key
+  const float scale = kGrid / (mx - mn);  // inf when the extent is 0 or too small
+  return {mn, isfinite(scale) ? scale : 0.f, mn, mx};
+}
+
+__device__ __forceinline__ float warp_min(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fminf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+// Exclusive scan of s[0..n) in place (n <= kThreads * per); returns the total.
+template <int per>
+__device__ int block_exclusive_scan(int* s, int n, int* warp_tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int base = threadIdx.x * per;
+  int vals[per];
+  int sum = 0;
+#pragma unroll
+  for (int i = 0; i < per; ++i) {
+    vals[i] = base + i < n ? s[base + i] : 0;
+    sum += vals[i];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  int before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    before += w < warp ? warp_tot[w] : 0;
+    total += warp_tot[w];
+  }
+  int run = before + incl - sum;
+#pragma unroll
+  for (int i = 0; i < per; ++i) {
+    if (base + i < n) s[base + i] = run;
+    run += vals[i];
+  }
+  return total;
+}
+
+// Stage the keys' window data and list the valid keys by cell (windowed
+// calls): a counting sort, shared-memory atomics then a block scan.
+__device__ void stage_window_keys(WindowKeys& s, const uint8_t* __restrict__ valid_b,
+                                  const float* __restrict__ uvk, const int* __restrict__ octk,
+                                  int M, Axis& ax, Axis& ay) {
+  __shared__ float s_ext[4][kWarps];
+  __shared__ int s_tot[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  float ku[kKeysPerThread], kv[kKeysPerThread];
+  int ko[kKeysPerThread];
+  bool ok[kKeysPerThread];
+#pragma unroll
+  for (int i = 0; i < kKeysPerThread; ++i) {  // coalesced, every load issued at once
+    const int k = min((int)threadIdx.x + i * kThreads, M - 1);
+    ok[i] = valid_b == nullptr || valid_b[k] != 0;
+    ku[i] = uvk[2 * k];
+    kv[i] = uvk[2 * k + 1];
+    ko[i] = octk[k];
+  }
+  for (int c = threadIdx.x; c <= kBuckets; c += kThreads) s.start[c] = 0;
+  float umin = INFINITY, umax = -INFINITY, vmin = INFINITY, vmax = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kKeysPerThread; ++i) {
+    const int k = (int)threadIdx.x + i * kThreads;
+    ok[i] = ok[i] && k < M;
+    if (k < M) {
+      s.u[k] = ku[i];
+      s.v[k] = kv[i];
+      s.oct[k] = ko[i];
+      s.ok[k] = ok[i];
+    }
+    if (ok[i] && isfinite(ku[i]) && isfinite(kv[i])) {
+      umin = fminf(umin, ku[i]);
+      umax = fmaxf(umax, ku[i]);
+      vmin = fminf(vmin, kv[i]);
+      vmax = fmaxf(vmax, kv[i]);
+    }
+  }
+  umin = warp_min(umin);
+  vmin = warp_min(vmin);
+  umax = -warp_min(-umax);
+  vmax = -warp_min(-vmax);
+  if (lane == 0) {
+    s_ext[0][warp] = umin;
+    s_ext[1][warp] = umax;
+    s_ext[2][warp] = vmin;
+    s_ext[3][warp] = vmax;
+  }
+  __syncthreads();
+  umin = s_ext[0][0], umax = s_ext[1][0], vmin = s_ext[2][0], vmax = s_ext[3][0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) {
+    umin = fminf(umin, s_ext[0][w]);
+    umax = fmaxf(umax, s_ext[1][w]);
+    vmin = fminf(vmin, s_ext[2][w]);
+    vmax = fmaxf(vmax, s_ext[3][w]);
+  }
+  ax = make_axis(umin, umax);
+  ay = make_axis(vmin, vmax);
+
+  // Count per bucket (the atomic's old value is the key's rank in its
+  // bucket), scan, scatter. Keys next to each other in index order tend to
+  // share a cell, and a warp's atomics on one address serialise, so here a
+  // thread takes keys 37 apart (37 is odd: a bijection of the block's 128
+  // keys that also keeps the warp's reads of u and v in distinct banks).
+  int key[kKeysPerThread], bucket[kKeysPerThread], rank[kKeysPerThread];
+#pragma unroll
+  for (int i = 0; i < kKeysPerThread; ++i) {
+    const int k = i * kThreads + (((int)threadIdx.x * 37) & (kThreads - 1));
+    key[i] = k;
+    bucket[i] = -1;
+    if (k < M && s.ok[k]) {
+      const float u = s.u[k], v = s.v[k];
+      bucket[i] = isfinite(u) && isfinite(v) ? key_cell(v, ay) * kGrid + key_cell(u, ax) : kCells;
+      rank[i] = atomicAdd(&s.start[bucket[i]], 1);
+    }
+  }
+  __syncthreads();
+  const int total =
+      block_exclusive_scan<(kBuckets + kThreads - 1) / kThreads>(s.start, kBuckets, s_tot);
+  if (threadIdx.x == 0) s.start[kBuckets] = total;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kKeysPerThread; ++i)
+    if (bucket[i] >= 0) s.idx[s.start[bucket[i]] + rank[i]] = (uint16_t)key[i];
+  __syncthreads();
+}
+
+// Every descriptor and validity flag, in index order (unwindowed calls).
+__device__ void stage_all_keys(AllKeys& s, const uint32_t* __restrict__ b,
+                               const uint8_t* __restrict__ valid_b, int M) {
+  if ((reinterpret_cast<uintptr_t>(b) & 15) == 0) {
+    for (int i = threadIdx.x; i < 2 * M; i += kThreads) {  // half a row per thread
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(b) + i);
+      uint32_t* d = s.desc + 4 * (i & 1) * kPad + (i >> 1);
+      d[0] = x.x;
+      d[kPad] = x.y;
+      d[2 * kPad] = x.z;
+      d[3 * kPad] = x.w;
+    }
+  } else {
+    for (int i = threadIdx.x; i < 8 * M; i += kThreads) s.desc[(i & 7) * kPad + (i >> 3)] = b[i];
+  }
+  for (int k = threadIdx.x; k < M; k += kThreads) s.valid[k] = valid_b ? valid_b[k] : (uint8_t)1;
+  __syncthreads();
+}
+
+__device__ __forceinline__ void load_row(const uint32_t* __restrict__ p, bool aligned16,
+                                         uint32_t (&w)[8]) {
+  if (aligned16) {
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint4 y = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+    w[4] = y.x, w[5] = y.y, w[6] = y.z, w[7] = y.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) w[i] = __ldg(p + i);
+  }
+}
+
+__device__ __forceinline__ int hamming(const uint32_t (&a)[8], const uint32_t (&b)[8]) {
+  int h = 0;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) h += __popc(a[w] ^ b[w]);
+  return h;
+}
+
+struct Query {
+  uint32_t a[8];
+  float u, v, r;
+  int lo, hi;
+};
+
+// kLanes lanes take one query: 32 unwindowed; windowed 16, or 8 for large
+// query counts, where more queries in flight per warp pay more than lanes.
+template <bool kWindowed, int kLanes>
+__global__ void __launch_bounds__(kThreads)
 hamming_top2_kernel(const uint32_t* __restrict__ a,      // (N, 8)
                     const uint32_t* __restrict__ b,      // (M, 8)
                     const uint8_t* __restrict__ valid_b, // (M,) or null
                     const float* __restrict__ uvq,       // (N, 2)
                     const float* __restrict__ uvk,       // (M, 2)
-                    const float* __restrict__ rad,       // (N,)
+                    const float* __restrict__ rad,       // (N,) at rad_stride (0 or 1)
+                    int rad_stride,
                     const int* __restrict__ octk,        // (M,)
                     const int* __restrict__ lo,          // (N,)
                     const int* __restrict__ hi,          // (N,)
-                    int windowed, int N, int M,
+                    int N, int M,
                     float* __restrict__ d1_out, float* __restrict__ d2_out,
                     int* __restrict__ j1_out) {
-  __shared__ uint32_t s_words[8][kTileKeys];
-  __shared__ float s_u[kTileKeys];
-  __shared__ float s_v[kTileKeys];
-  __shared__ int s_oct[kTileKeys];
-  __shared__ uint8_t s_valid[kTileKeys];
-
+  constexpr int kGroups = 32 / kLanes;  // queries a warp runs at once
+  __shared__ __align__(16) std::conditional_t<kWindowed, WindowKeys, AllKeys> s;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int q0 = (blockIdx.x * kWarps + warp) * kQueriesPerWarp;
+  const int sub = lane % kLanes;
+  const bool aligned16 = ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15) == 0;
+  const int stride = gridDim.x * kWarps * kGroups;
+  const int first = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kGroups + lane / kLanes;
 
-  uint32_t qa[kQueriesPerWarp][8];
-  float qu[kQueriesPerWarp], qv[kQueriesPerWarp], qr[kQueriesPerWarp];
-  int qlo[kQueriesPerWarp], qhi[kQueriesPerWarp];
-  Top2 acc[kQueriesPerWarp];
-#pragma unroll
-  for (int i = 0; i < kQueriesPerWarp; ++i) {
-    const int q = min(q0 + i, N - 1);  // rows past N are computed, not stored
-#pragma unroll
-    for (int w = 0; w < 8; ++w) qa[i][w] = a[(size_t)q * 8 + w];
-    if (windowed) {
-      qu[i] = uvq[2 * q];
-      qv[i] = uvq[2 * q + 1];
-      qr[i] = rad[q];
-      qlo[i] = lo[q];
-      qhi[i] = hi[q];
+  auto load_query = [&](int q, Query& x) {
+    q = min(q, N - 1);  // a warp's idle groups compute a real row and store nothing
+    load_row(a + (size_t)q * 8, aligned16, x.a);
+    if constexpr (kWindowed) {
+      x.u = uvq[2 * q];
+      x.v = uvq[2 * q + 1];
+      x.r = rad[(size_t)q * rad_stride];
+      x.lo = lo[q];
+      x.hi = hi[q];
     }
-    acc[i].d1 = INFINITY;
-    acc[i].d2 = INFINITY;
-    acc[i].j1 = 0x7fffffff;
-  }
+  };
 
-  for (int t0 = 0; t0 < M; t0 += kTileKeys) {
-    const int nt = min(kTileKeys, M - t0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < nt * 8; i += blockDim.x) {
-      const int k = i >> 3, w = i & 7;
-      s_words[w][k] = b[(size_t)(t0 + k) * 8 + w];
-    }
-    for (int k = threadIdx.x; k < nt; k += blockDim.x) {
-      s_valid[k] = valid_b ? valid_b[t0 + k] : (uint8_t)1;
-      if (windowed) {
-        s_u[k] = uvk[2 * (t0 + k)];
-        s_v[k] = uvk[2 * (t0 + k) + 1];
-        s_oct[k] = octk[t0 + k];
+  Query x;
+  load_query(first, x);  // in flight while the block stages the keys
+  Axis ax, ay;
+  if constexpr (kWindowed)
+    stage_window_keys(s, valid_b, uvk, octk, M, ax, ay);
+  else
+    stage_all_keys(s, b, valid_b, M);
+  if (first - lane / kLanes >= N) return;  // warp-uniform: no query for this warp
+
+  for (int q = first; q - lane / kLanes < N; q += stride) {
+    Query next;
+    load_query(q + stride, next);  // the next query's loads overlap this one
+    Top2 t = {INFINITY, INFINITY, 0x7fffffff};
+    if constexpr (!kWindowed) {
+      // Every key folds, an invalid one at the masked distance, as in the
+      // plain version: no branch, so the loads of unrolled steps overlap.
+#pragma unroll 4
+      for (int k = sub; k < M; k += kLanes) {
+        uint32_t w[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) w[i] = s.desc[i * kPad + k];
+        fold(t, s.valid[k] ? (float)hamming(x.a, w) : kMasked, k);
       }
-    }
-    __syncthreads();
-
-    for (int k = lane; k < nt; k += 32) {
-      const bool kv = s_valid[k] != 0;
-#pragma unroll
-      for (int i = 0; i < kQueriesPerWarp; ++i) {
-        bool ok = kv;
-        if (windowed && ok) {
-          ok = fabsf(qu[i] - s_u[k]) <= qr[i] && fabsf(qv[i] - s_v[k]) <= qr[i] &&
-               s_oct[k] >= qlo[i] && s_oct[k] <= qhi[i];
+    } else {
+      // A key that passes starts the load of its descriptor and is folded
+      // at the next pass or after the walk, so the load overlaps the walk.
+      int pend_k = -1;
+      uint32_t pend[8];
+      auto visit = [&](int s0, int s1) {
+        for (int i = s0 + sub; i < s1; i += kLanes) {
+          const int k = s.idx[i];
+          if (!(fabsf(x.u - s.u[k]) <= x.r && fabsf(x.v - s.v[k]) <= x.r &&
+                s.oct[k] >= x.lo && s.oct[k] <= x.hi))
+            continue;
+          if (pend_k >= 0) fold(t, (float)hamming(x.a, pend), pend_k);
+          pend_k = k;
+          load_row(b + (size_t)k * 8, aligned16, pend);
         }
-        float d = kInf;
-        if (ok) {
-          int h = 0;
-#pragma unroll
-          for (int w = 0; w < 8; ++w) h += __popc(qa[i][w] ^ s_words[w][k]);
-          d = (float)h;
+      };
+      if (!(isnan(x.u) || isnan(x.v) || isnan(x.r) || x.r < 0.f)) {
+        const float rr = __fmul_ru(x.r, 1.f + 0x1p-22f);
+        const float u0 = __fadd_rd(x.u, -rr), u1 = __fadd_ru(x.u, rr);
+        const float v0 = __fadd_rd(x.v, -rr), v1 = __fadd_ru(x.v, rr);
+        // NaN edges (inf - inf) fail these tests and keep the grid.
+        if (!(u1 < ax.min || u0 > ax.max || v1 < ay.min || v0 > ay.max)) {
+          const int cx0 = first_cell(u0, ax), cx1 = last_cell(u1, ax);
+          const int cy1 = last_cell(v1, ay);
+          for (int cy = first_cell(v0, ay); cy <= cy1; ++cy)
+            visit(s.start[cy * kGrid + cx0], s.start[cy * kGrid + cx1 + 1]);
         }
-        fold(acc[i], d, t0 + k);
+        visit(s.start[kCells], s.start[kBuckets]);
       }
+      if (pend_k >= 0) fold(t, (float)hamming(x.a, pend), pend_k);
     }
-  }
-
 #pragma unroll
-  for (int i = 0; i < kQueriesPerWarp; ++i) {
-    Top2 t = acc[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
+    for (int off = kLanes / 2; off > 0; off >>= 1) {
       Top2 o;
       o.d1 = __shfl_xor_sync(0xffffffffu, t.d1, off);
       o.d2 = __shfl_xor_sync(0xffffffffu, t.d2, off);
       o.j1 = __shfl_xor_sync(0xffffffffu, t.j1, off);
       t = merge(t, o);
     }
-    const int q = q0 + i;
-    if (lane == 0 && q < N) {
+    if (sub == 0 && q < N) {
+      if (t.d1 == INFINITY) {  // no key visited: every key reads 1e9
+        t.d1 = kMasked;
+        t.j1 = 0;
+        t.d2 = M >= 2 ? kMasked : INFINITY;
+      } else if (t.d2 == INFINITY && M >= 2) {  // one key visited
+        t.d2 = kMasked;
+      }
       d1_out[q] = t.d1;
       d2_out[q] = t.d2;
       j1_out[q] = t.j1;
     }
+    x = next;
   }
+}
+
+// The card's SM count, read once per process (one card).
+int sm_count(cudaError_t& err) {
+  static int sms = 0;
+  static cudaError_t st = [] {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return e;
+  }();
+  err = st;
+  return sms;
 }
 
 }  // namespace
 
-// a (N, 32) u8 and b (M, 32) u8 descriptors (read as 8 u32 words a row);
-// valid_b (M,) bool or null; windowed != 0 reads uvq (N, 2) f32, uvk (M, 2)
-// f32, rad (N,) f32, octk (M,) i32, lo (N,) i32, hi (N,) i32. Outputs d1, d2
-// (N,) f32 and j1 (N,) i32. All device pointers, contiguous.
+// a (N, 32) u8 and b (M, 32) u8 descriptors, 4-aligned (read as 8 u32 words a
+// row); valid_b (M,) bool or null; windowed != 0 reads uvq (N, 2) f32, uvk
+// (M, 2) f32, rad f32 at rad[q * rad_stride] (rad_stride 0: one radius for all
+// queries), octk (M,) i32, lo (N,) i32, hi (N,) i32. Outputs d1, d2 (N,) f32
+// and j1 (N,) i32. All device pointers, contiguous. 1 <= M <= 1024.
 extern "C" int hamming_top2_launch(const uint32_t* a, const uint32_t* b,
                                    const uint8_t* valid_b, const float* uvq,
-                                   const float* uvk, const float* rad,
+                                   const float* uvk, const float* rad, int rad_stride,
                                    const int* octk, const int* lo, const int* hi,
                                    int windowed, int N, int M, float* d1,
                                    float* d2, int* j1, cudaStream_t stream) {
-  if (N <= 0 || M <= 0) return (int)cudaSuccess;
-  const int per_block = kWarps * kQueriesPerWarp;
-  const int blocks = (N + per_block - 1) / per_block;
-  hamming_top2_kernel<<<blocks, kWarps * 32, 0, stream>>>(
-      a, b, valid_b, uvq, uvk, rad, octk, lo, hi, windowed, N, M, d1, d2, j1);
+  if (M < 1 || M > kMaxKeys || N < 0) return (int)cudaErrorInvalidValue;
+  if (N == 0) return (int)cudaSuccess;
+  cudaError_t err;
+  const int sms = sm_count(err);
+  if (err != cudaSuccess) return (int)err;
+  const int lanes = !windowed ? 32 : N > 2048 ? 8 : 16;
+  const int per_block = kWarps * (32 / lanes);
+  const int blocks = std::min((N + per_block - 1) / per_block, kBlocksPerSM * sms);
+  auto kernel = !windowed ? hamming_top2_kernel<false, 32>
+                : lanes == 8 ? hamming_top2_kernel<true, 8> : hamming_top2_kernel<true, 16>;
+  kernel<<<blocks, kThreads, 0, stream>>>(a, b, valid_b, uvq, uvk, rad, rad_stride, octk, lo, hi,
+                                          N, M, d1, d2, j1);
   return (int)cudaGetLastError();
 }

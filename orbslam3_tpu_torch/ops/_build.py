@@ -42,8 +42,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     # img, score, ini, scratch, H, W, min_th, ini_th, stream
     "fast_nms_launch": [_P, _P, _P, _P, _I, _I, _F, _F, _P],
-    # a, b, valid_b, uvq, uvk, rad, octk, lo, hi, windowed, N, M, d1, d2, j1, stream
-    "hamming_top2_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # a, b, valid_b, uvq, uvk, rad, rad_stride, octk, lo, hi, windowed, N, M, d1, d2, j1, stream
+    "hamming_top2_launch": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
 }
 
 _lib = None

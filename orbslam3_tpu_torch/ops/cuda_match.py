@@ -5,6 +5,13 @@ Replaces the Pallas kernel of `orbslam3_tpu/ops/pallas_match.py`
 (`_kernel`, launched by `_top2_call`). On a CPU tensor the wrapper runs
 the plain version, `best_two` over the masked dense Hamming matrix of
 `ops/matching.py`; on a CUDA tensor it launches the kernel or raises.
+
+The kernel takes the documented types as they are and the wrapper converts
+nothing: (n, 32) uint8 descriptors on 4-byte boundaries, bool key validity,
+float32 positions and radius, int32 octaves, every tensor contiguous on the
+queries' device. The radius is (n,) or one value for all queries (0-d, or
+expanded with stride 0), passed by stride, never copied. At most `MAX_KEYS`
+keys: the capacity the kernel stages in shared memory.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from orbslam3_tpu_torch.ops import _build
 from orbslam3_tpu_torch.ops import matching
 
 LAUNCHES = 0  # wrapper calls that launched the kernel
+MAX_KEYS = 1024  # keys the kernel holds (`kMaxKeys` of csrc/hamming_top2.cu)
 
 
 class MatchWindow(NamedTuple):
@@ -41,6 +49,55 @@ def hamming_top2_plain(desc_a, desc_b, valid_b=None, window: Optional[MatchWindo
     return matching.best_two(D)
 
 
+def _require(name: str, x: torch.Tensor, dtype: torch.dtype, shape, dev: torch.device) -> None:
+    if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
+        raise ValueError(f"hamming_top2: {name} must be a contiguous {dtype} {shape} on {dev}, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _radius_stride(r: torch.Tensor, n: int, dev: torch.device) -> int:
+    """0 for one radius shared by all queries, else 1; raises on anything else."""
+    if r.dim() == 0:
+        stride = 0
+    elif tuple(r.shape) == (n,):
+        stride = r.stride(0) if n > 1 else 0
+    else:
+        stride = -1
+    if r.device != dev or r.dtype != torch.float32 or stride not in (0, 1):
+        raise ValueError(f"hamming_top2: radius_q must be float32 () or ({n},) with stride 0 "
+                         f"or 1 on {dev}, got {r.dtype} {tuple(r.shape)} on {r.device}")
+    return stride
+
+
+def kernel_args(desc_a: torch.Tensor, desc_b: torch.Tensor,
+                valid_b: Optional[torch.Tensor] = None,
+                window: Optional[MatchWindow] = None) -> Tuple[int, int, int]:
+    """(n, m, radius stride) of a call the kernel takes as it is; raises
+    ValueError on anything else (type, shape, layout, device, capacity)."""
+    dev = desc_a.device
+    n = desc_a.shape[0] if desc_a.dim() == 2 else -1
+    m = desc_b.shape[0] if desc_b.dim() == 2 else -1
+    _require("desc_a", desc_a, torch.uint8, (n, 32), dev)
+    _require("desc_b", desc_b, torch.uint8, (m, 32), dev)
+    if not 1 <= m <= MAX_KEYS:
+        raise ValueError(f"hamming_top2: {m} keys; the kernel holds 1 to {MAX_KEYS}")
+    # The kernel reads each 32-byte row as 8 u32 words.
+    if desc_a.data_ptr() % 4 or desc_b.data_ptr() % 4:
+        raise ValueError("hamming_top2: descriptors must start on a 4-byte boundary")
+    if valid_b is not None:
+        _require("valid_b", valid_b, torch.bool, (m,), dev)
+    if window is None:
+        return n, m, 0
+    for name, x, dtype, shape in (
+            ("uv_q", window.uv_q, torch.float32, (n, 2)),
+            ("uv_k", window.uv_k, torch.float32, (m, 2)),
+            ("octave_k", window.octave_k, torch.int32, (m,)),
+            ("octave_lo", window.octave_lo, torch.int32, (n,)),
+            ("octave_hi", window.octave_hi, torch.int32, (n,))):
+        _require(name, x, dtype, shape, dev)
+    return n, m, _radius_stride(window.radius_q, n, dev)
+
+
 def hamming_top2(desc_a: torch.Tensor, desc_b: torch.Tensor,
                  valid_b: Optional[torch.Tensor] = None,
                  window: Optional[MatchWindow] = None
@@ -52,36 +109,17 @@ def hamming_top2(desc_a: torch.Tensor, desc_b: torch.Tensor,
     if not _build.use_kernel(desc_a):
         return hamming_top2_plain(desc_a, desc_b, valid_b, window)
     global LAUNCHES
-    for name, d in (("desc_a", desc_a), ("desc_b", desc_b)):
-        if d.dtype != torch.uint8 or d.dim() != 2 or d.shape[1] != 32:
-            raise ValueError(f"{name} must be (n, 32) uint8, got {d.dtype} {tuple(d.shape)}")
+    n, m, rad_stride = kernel_args(desc_a, desc_b, valid_b, window)
     dev = desc_a.device
-    n, m = desc_a.shape[0], desc_b.shape[0]
-    # The kernel reads each 32-byte row as 8 u32 words: rows must be 4-aligned.
-    a = desc_a.contiguous() if desc_a.data_ptr() % 4 == 0 else desc_a.clone()
-    b = desc_b.contiguous() if desc_b.data_ptr() % 4 == 0 else desc_b.clone()
-    vb = None if valid_b is None else valid_b.to(torch.bool).contiguous()
     d1 = torch.empty(n, dtype=torch.float32, device=dev)
     d2 = torch.empty(n, dtype=torch.float32, device=dev)
     j1 = torch.empty(n, dtype=torch.int32, device=dev)
-    wargs = [None] * 6
-    if window is not None:
-        wargs = [
-            window.uv_q.to(torch.float32).contiguous(),
-            window.uv_k.to(torch.float32).contiguous(),
-            window.radius_q.to(torch.float32).expand(n).contiguous(),
-            window.octave_k.to(torch.int32).contiguous(),
-            window.octave_lo.to(torch.int32).contiguous(),
-            window.octave_hi.to(torch.int32).contiguous(),
-        ]
-    # The kernel reads raw pointers: every input lies on the card, at its shape.
-    shapes = [(b, (m, 32)), (vb, (m,))] + list(zip(wargs, [(n, 2), (m, 2), (n,), (m,), (n,), (n,)]))
-    for x, shape in shapes:
-        if x is not None and (x.device != dev or tuple(x.shape) != shape):
-            raise ValueError(f"hamming_top2: expected {shape} on {dev}, got {tuple(x.shape)} on {x.device}")
+    if n == 0:
+        return d1, d2, j1
+    uvq, uvk, rad, octk, lo, hi = (_build.ptr(w) for w in (window or [None] * 6))
     _build.launch(
-        "hamming_top2_launch", _build.ptr(a), _build.ptr(b), _build.ptr(vb),
-        *(_build.ptr(w) for w in wargs), int(window is not None), n, m,
+        "hamming_top2_launch", _build.ptr(desc_a), _build.ptr(desc_b), _build.ptr(valid_b),
+        uvq, uvk, rad, rad_stride, octk, lo, hi, int(window is not None), n, m,
         _build.ptr(d1), _build.ptr(d2), _build.ptr(j1),
     )
     LAUNCHES += 1

@@ -3,7 +3,10 @@
 
 `System(Sensor.MONOCULAR, CameraModel.PINHOLE, params, (W, H), orb, device)`
 wires a `Tracker` and a synchronous `LocalMapper` over one `MapStore` on
-`device`; `track_monocular(img, timestamp)` runs a frame (and, on a new
+`device`: the first CUDA card when `device` is None (it raises where there
+is none and never falls back), the CPU (the kernels' plain versions) only
+when the caller asks for it with `device="cpu"`.
+`track_monocular(img, timestamp)` runs a frame (and, on a new
 keyframe, its mapping pass) and `get_trajectory()` reads the camera centres
 back through the current keyframe poses. Not ported yet: the other sensors
 (stereo and RGB-D A10, inertial A11), the fisheye model (A12), place
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from orbslam3_tpu_torch.atlas.store import MapStore
+from orbslam3_tpu_torch.device import require_cuda
 from orbslam3_tpu_torch.ops import cameras as cam
 from orbslam3_tpu_torch.ops import features as feat
 from orbslam3_tpu_torch.pipeline.local_mapping import LocalMapper
@@ -46,13 +50,13 @@ _NOT_PORTED = {
 class System:
     def __init__(self, sensor: Sensor, camera_model: cam.CameraModel, camera_params,
                  img_wh: Tuple[int, int], orb_params: feat.OrbParams = feat.OrbParams(),
-                 device="cpu", Kmax: int = 256, Pmax: int = 16384, fps: float = 20.0):
+                 device=None, Kmax: int = 256, Pmax: int = 16384, fps: float = 20.0):
         if sensor in _NOT_PORTED:
             raise NotImplementedError(f"{sensor.name} is ROADMAP {_NOT_PORTED[sensor]}")
         if camera_model != cam.CameraModel.PINHOLE:
             raise NotImplementedError("the Kannala-Brandt model is ROADMAP A12")
         self.sensor = sensor
-        self.device = torch.device(device)
+        self.device = require_cuda() if device is None else torch.device(device)
         self.store = MapStore(Kmax=Kmax, Pmax=Pmax, Nf=sum(feat.level_budgets(orb_params)),
                               device=self.device)
         params = torch.from_numpy(np.array(camera_params, np.float32)).to(self.device)

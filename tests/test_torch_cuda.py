@@ -18,6 +18,7 @@ import torch
 
 from orbslam3_tpu_torch import convert
 from orbslam3_tpu_torch import entry as E
+from orbslam3_tpu_torch import kernel_bench
 from orbslam3_tpu_torch.ops import _build, cuda_fast, cuda_match
 from orbslam3_tpu_torch.ops import features as feat
 from orbslam3_tpu_torch.ops.cameras import CameraModel
@@ -59,8 +60,8 @@ def test_fast_nms_kernel_equals_plain(dev, H, W):
 
 
 @pytest.mark.parametrize("n,m,windowed", [
-    (1, 5, False), (37, 31, False), (1000, 1024, False), (300, 1500, True),
-    (16384, 1024, True), (33, 2000, True),
+    (1, 5, False), (37, 31, False), (1000, 1024, False), (300, 1000, True),
+    (16384, 1024, True), (33, 1024, True),
 ])
 def test_hamming_top2_kernel_equals_plain(dev, n, m, windowed):
     """d1, d2 and j1 exactly equal on every row (ties go to the lowest
@@ -91,6 +92,38 @@ def test_hamming_top2_kernel_equals_plain(dev, n, m, windowed):
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("case", [name for name, _ in kernel_bench.b1_edge_cases()])
+def test_hamming_top2_kernel_equals_plain_on_edge_cases(dev, case):
+    """B1's edge cases (NaN and infinite positions, radius 0 and wider than
+    the image, keys at exactly |du| = r, M = 1 and 2, all keys invalid,
+    duplicate descriptors, odd query counts): d1, d2 and j1 exactly equal to
+    the plain version on every row."""
+    args = kernel_bench.b1_case_args(dict(kernel_bench.b1_edge_cases())[case], dev)
+    n0 = cuda_match.LAUNCHES
+    got = cuda_match.hamming_top2(*args)
+    assert cuda_match.LAUNCHES == n0 + 1
+    ref = cuda_match.hamming_top2_plain(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_hamming_top2_kernel_takes_one_radius_by_stride(dev):
+    """A radius shared by all queries (0-d, or expanded with stride 0) is
+    read in place and gives what the same radius per query gives."""
+    args = kernel_bench.b1_case_args(kernel_bench.b1_edge_cases()[-1][1], dev)
+    n = args[0].shape[0]
+    r = torch.tensor(9.5, device=dev)
+    outs = []
+    for radius in (r, r.expand(n), r.repeat(n)):
+        outs.append(cuda_match.hamming_top2(*args[:3], args[3]._replace(radius_q=radius)))
+    torch.cuda.synchronize()
+    for out in outs[:2]:
+        for g, e in zip(out, outs[2]):
+            assert torch.equal(g, e)
+    assert int((outs[2][0] < 1e9).sum()) > 0
 
 
 def test_slice_on_card_equals_cpu_port(dev):

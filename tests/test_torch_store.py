@@ -201,7 +201,7 @@ def test_refresh_points_and_map_store():
     padding, and the stores' allocators and mirrors."""
     s = _map(9)
     store_j = st_j.MapStore(Kmax=K, Pmax=P, Nf=NF)
-    store_t = st_t.MapStore(Kmax=K, Pmax=P, Nf=NF)
+    store_t = st_t.MapStore(Kmax=K, Pmax=P, Nf=NF, device="cpu")
     store_j.state, store_t.state = _j(s), _t(s)
     cand = np.concatenate([np.arange(0, 400, 7), [P - 1, 3, 3]])
     st_j.refresh_points(store_j, cand, jnp.asarray(SCALE), cap=8)

@@ -293,10 +293,29 @@ def test_mono_replay_initializes_on_the_cpu():
     assert rep.n_kf >= 2 and rep.n_mp > 200 and rep.ate < 0.05
 
 
+def test_system_takes_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """`System` (and its `MapStore`) without a device take the first CUDA
+    card and raise where there is none, never falling back to the CPU; with
+    `device="cpu"` the System runs a frame on the CPU."""
+    params, imgs, _ = _frames()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        System(Sensor.MONOCULAR, CameraModel.PINHOLE, params, (scene.W, scene.H),
+               orb_params=feat_t.OrbParams(**ORB), Kmax=32, Pmax=4096)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        st_t.MapStore(Kmax=8, Pmax=64, Nf=16)
+    slam = _port_system(params, device="cpu")
+    slam.track_monocular(imgs[0], 0.0)
+    assert slam.device.type == "cpu" and slam.store.state.kf_R.device.type == "cpu"
+    assert slam.tracking_state == TrackState.NOT_INITIALIZED
+
+
 def test_port_imports_no_jax():
-    """Importing the System and the entry points (and loading the synthetic
-    sequence's script) leaves JAX and the JAX package out of the process."""
-    code = ("import sys, orbslam3_tpu_torch.system, orbslam3_tpu_torch.entry as E; "
+    """Importing the System, the entry points and the kernel bench (and
+    loading the synthetic sequence's script) leaves JAX and the JAX package
+    out of the process."""
+    code = ("import sys, orbslam3_tpu_torch.system, orbslam3_tpu_torch.entry as E, "
+            "orbslam3_tpu_torch.kernel_bench; "
             "E.synth_euroc(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'orbslam3_tpu')]; "
             "assert not bad, bad")
