@@ -12,7 +12,8 @@
 // (matching._mask_matrix + window_mask + best_two): the same on every row,
 // whatever the inputs (NaN or infinite positions, radius 0, M = 1, ties).
 // The N x M matrix is never stored. Ratio test, max distance and query
-// validity are applied by the caller, as in the reference.
+// validity are applied by the caller, as in the reference. Any M >= 1 is
+// taken: the keys are folded in tiles of 1024 in index order (5).
 //
 // What bounds it on the H100 (3.35 TB/s; `__popc` at 132 SMs x 16/clk x
 // 1.98 GHz = 4.2 T/s), at the main path's calls (inputs read once, outputs
@@ -29,7 +30,7 @@
 //
 // Design, against that bound:
 // (1) Visit only the keys a window can hold. Each block stages the window
-//     data of the M <= 1024 keys (u, v, octave, validity: 13 bytes a key,
+//     data of a tile of up to 1024 keys (u, v, octave, validity: 13 bytes a key,
 //     not the 32 descriptor bytes) in shared memory and lists the valid keys
 //     by cell of a 32 x 32 grid over the extent of the valid keys with
 //     finite positions (a counting sort: shared-memory atomics, then a block
@@ -65,6 +66,14 @@
 //     on the order. Keys that are not visited read 1e9: with none visited,
 //     d1 = 1e9 and j1 = 0 (the lowest index), d2 = 1e9 when M >= 2 and +inf
 //     when M == 1 (as best_two gives); with one visited, d2 = 1e9 when M >= 2.
+// (5) More than 1024 keys (nFeatures 1200 or 2000 in ORB-SLAM3's own EuRoC
+//     and KITTI settings), as the TPU kernel folds over key tiles on its
+//     grid's second axis: the block stages the keys 1024 at a time, in index
+//     order, and each query's (d1, d2, j1) carries across the tiles in
+//     registers, keys indexed by the tile's base plus the slot. The
+//     block's queries then advance in rounds that every warp runs, since
+//     each tile's staging is a block barrier. Up to 1024 keys the kernel is
+//     the single-tile instance, which stages once before its query loop.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,7 +84,7 @@
 
 namespace {
 
-constexpr int kMaxKeys = 1024;  // key capacity (cuda_match.MAX_KEYS)
+constexpr int kMaxKeys = 1024;  // keys staged at once: one tile
 constexpr int kWarps = 4;       // warps per block
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlocksPerSM = 4;
@@ -337,7 +346,8 @@ struct Query {
 
 // kLanes lanes take one query: 32 unwindowed; windowed 16, or 8 for large
 // query counts, where more queries in flight per warp pay more than lanes.
-template <bool kWindowed, int kLanes>
+// kTiled: M > kMaxKeys, folded over key tiles (design note 5).
+template <bool kWindowed, int kLanes, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 hamming_top2_kernel(const uint32_t* __restrict__ a,      // (N, 8)
                     const uint32_t* __restrict__ b,      // (M, 8)
@@ -375,56 +385,73 @@ hamming_top2_kernel(const uint32_t* __restrict__ a,      // (N, 8)
   Query x;
   load_query(first, x);  // in flight while the block stages the keys
   Axis ax, ay;
-  if constexpr (kWindowed)
-    stage_window_keys(s, valid_b, uvk, octk, M, ax, ay);
-  else
-    stage_all_keys(s, b, valid_b, M);
-  if (first - lane / kLanes >= N) return;  // warp-uniform: no query for this warp
+  // Stage the keys base .. base + tile_keys(base) - 1.
+  auto tile_keys = [&](int base) { return kTiled ? min(M - base, kMaxKeys) : M; };
+  auto stage = [&](int base) {
+    const uint8_t* vb = valid_b ? valid_b + base : nullptr;
+    if constexpr (kWindowed)
+      stage_window_keys(s, vb, uvk + 2 * (size_t)base, octk + base, tile_keys(base), ax, ay);
+    else
+      stage_all_keys(s, b + 8 * (size_t)base, vb, tile_keys(base));
+  };
+  if constexpr (!kTiled) {
+    stage(0);
+    if (first - lane / kLanes >= N) return;  // warp-uniform: no query for this warp
+  }
+  // The block's first query: tiled, every warp runs each round (barriers).
+  const int round0 = first - ((threadIdx.x >> 5) * kGroups + lane / kLanes);
 
-  for (int q = first; q - lane / kLanes < N; q += stride) {
+  for (int q = first; kTiled ? q - first + round0 < N : q - lane / kLanes < N; q += stride) {
     Query next;
     load_query(q + stride, next);  // the next query's loads overlap this one
     Top2 t = {INFINITY, INFINITY, 0x7fffffff};
-    if constexpr (!kWindowed) {
-      // Every key folds, an invalid one at the masked distance, as in the
-      // plain version: no branch, so the loads of unrolled steps overlap.
+    for (int base = 0; base < (kTiled ? M : 1); base += kMaxKeys) {
+      if constexpr (kTiled) {
+        __syncthreads();  // every warp is done with the previous tile
+        stage(base);
+      }
+      if constexpr (!kWindowed) {
+        // Every key folds, an invalid one at the masked distance, as in the
+        // plain version: no branch, so the loads of unrolled steps overlap.
+        const int mt = tile_keys(base);
 #pragma unroll 4
-      for (int k = sub; k < M; k += kLanes) {
-        uint32_t w[8];
+        for (int k = sub; k < mt; k += kLanes) {
+          uint32_t w[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) w[i] = s.desc[i * kPad + k];
-        fold(t, s.valid[k] ? (float)hamming(x.a, w) : kMasked, k);
-      }
-    } else {
-      // A key that passes starts the load of its descriptor and is folded
-      // at the next pass or after the walk, so the load overlaps the walk.
-      int pend_k = -1;
-      uint32_t pend[8];
-      auto visit = [&](int s0, int s1) {
-        for (int i = s0 + sub; i < s1; i += kLanes) {
-          const int k = s.idx[i];
-          if (!(fabsf(x.u - s.u[k]) <= x.r && fabsf(x.v - s.v[k]) <= x.r &&
-                s.oct[k] >= x.lo && s.oct[k] <= x.hi))
-            continue;
-          if (pend_k >= 0) fold(t, (float)hamming(x.a, pend), pend_k);
-          pend_k = k;
-          load_row(b + (size_t)k * 8, aligned16, pend);
+          for (int i = 0; i < 8; ++i) w[i] = s.desc[i * kPad + k];
+          fold(t, s.valid[k] ? (float)hamming(x.a, w) : kMasked, base + k);
         }
-      };
-      if (!(isnan(x.u) || isnan(x.v) || isnan(x.r) || x.r < 0.f)) {
-        const float rr = __fmul_ru(x.r, 1.f + 0x1p-22f);
-        const float u0 = __fadd_rd(x.u, -rr), u1 = __fadd_ru(x.u, rr);
-        const float v0 = __fadd_rd(x.v, -rr), v1 = __fadd_ru(x.v, rr);
-        // NaN edges (inf - inf) fail these tests and keep the grid.
-        if (!(u1 < ax.min || u0 > ax.max || v1 < ay.min || v0 > ay.max)) {
-          const int cx0 = first_cell(u0, ax), cx1 = last_cell(u1, ax);
-          const int cy1 = last_cell(v1, ay);
-          for (int cy = first_cell(v0, ay); cy <= cy1; ++cy)
-            visit(s.start[cy * kGrid + cx0], s.start[cy * kGrid + cx1 + 1]);
+      } else {
+        // A key that passes starts the load of its descriptor and is folded
+        // at the next pass or after the walk, so the load overlaps the walk.
+        int pend_k = -1;
+        uint32_t pend[8];
+        auto visit = [&](int s0, int s1) {
+          for (int i = s0 + sub; i < s1; i += kLanes) {
+            const int k = s.idx[i];
+            if (!(fabsf(x.u - s.u[k]) <= x.r && fabsf(x.v - s.v[k]) <= x.r &&
+                  s.oct[k] >= x.lo && s.oct[k] <= x.hi))
+              continue;
+            if (pend_k >= 0) fold(t, (float)hamming(x.a, pend), pend_k);
+            pend_k = base + k;
+            load_row(b + (size_t)pend_k * 8, aligned16, pend);
+          }
+        };
+        if (!(isnan(x.u) || isnan(x.v) || isnan(x.r) || x.r < 0.f)) {
+          const float rr = __fmul_ru(x.r, 1.f + 0x1p-22f);
+          const float u0 = __fadd_rd(x.u, -rr), u1 = __fadd_ru(x.u, rr);
+          const float v0 = __fadd_rd(x.v, -rr), v1 = __fadd_ru(x.v, rr);
+          // NaN edges (inf - inf) fail these tests and keep the grid.
+          if (!(u1 < ax.min || u0 > ax.max || v1 < ay.min || v0 > ay.max)) {
+            const int cx0 = first_cell(u0, ax), cx1 = last_cell(u1, ax);
+            const int cy1 = last_cell(v1, ay);
+            for (int cy = first_cell(v0, ay); cy <= cy1; ++cy)
+              visit(s.start[cy * kGrid + cx0], s.start[cy * kGrid + cx1 + 1]);
+          }
+          visit(s.start[kCells], s.start[kBuckets]);
         }
-        visit(s.start[kCells], s.start[kBuckets]);
+        if (pend_k >= 0) fold(t, (float)hamming(x.a, pend), pend_k);
       }
-      if (pend_k >= 0) fold(t, (float)hamming(x.a, pend), pend_k);
     }
 #pragma unroll
     for (int off = kLanes / 2; off > 0; off >>= 1) {
@@ -469,14 +496,14 @@ int sm_count(cudaError_t& err) {
 // row); valid_b (M,) bool or null; windowed != 0 reads uvq (N, 2) f32, uvk
 // (M, 2) f32, rad f32 at rad[q * rad_stride] (rad_stride 0: one radius for all
 // queries), octk (M,) i32, lo (N,) i32, hi (N,) i32. Outputs d1, d2 (N,) f32
-// and j1 (N,) i32. All device pointers, contiguous. 1 <= M <= 1024.
+// and j1 (N,) i32. All device pointers, contiguous. M >= 1.
 extern "C" int hamming_top2_launch(const uint32_t* a, const uint32_t* b,
                                    const uint8_t* valid_b, const float* uvq,
                                    const float* uvk, const float* rad, int rad_stride,
                                    const int* octk, const int* lo, const int* hi,
                                    int windowed, int N, int M, float* d1,
                                    float* d2, int* j1, cudaStream_t stream) {
-  if (M < 1 || M > kMaxKeys || N < 0) return (int)cudaErrorInvalidValue;
+  if (M < 1 || N < 0) return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaSuccess;
   cudaError_t err;
   const int sms = sm_count(err);
@@ -484,8 +511,13 @@ extern "C" int hamming_top2_launch(const uint32_t* a, const uint32_t* b,
   const int lanes = !windowed ? 32 : N > 2048 ? 8 : 16;
   const int per_block = kWarps * (32 / lanes);
   const int blocks = std::min((N + per_block - 1) / per_block, kBlocksPerSM * sms);
-  auto kernel = !windowed ? hamming_top2_kernel<false, 32>
-                : lanes == 8 ? hamming_top2_kernel<true, 8> : hamming_top2_kernel<true, 16>;
+  auto kernel = M <= kMaxKeys
+      ? (!windowed    ? hamming_top2_kernel<false, 32, false>
+         : lanes == 8 ? hamming_top2_kernel<true, 8, false>
+                      : hamming_top2_kernel<true, 16, false>)
+      : (!windowed    ? hamming_top2_kernel<false, 32, true>
+         : lanes == 8 ? hamming_top2_kernel<true, 8, true>
+                      : hamming_top2_kernel<true, 16, true>);
   kernel<<<blocks, kThreads, 0, stream>>>(a, b, valid_b, uvq, uvk, rad, rad_stride, octk, lo, hi,
                                           N, M, d1, d2, j1);
   return (int)cudaGetLastError();

@@ -538,11 +538,13 @@ class ReplayResult(NamedTuple):
     system: object  # the System after the last frame
 
 
-def mono_replay(device, n_frames: int, seed: int = 0) -> ReplayResult:
-    """Drive `System(MONOCULAR)` through `track_monocular` over the first
-    `n_frames` of the synthetic EuRoC sequence on `device` and score it. On
-    a CUDA device every frame runs with PyTorch's sync debug mode at
-    "warn", and the synchronisations each frame makes are counted."""
+def mono_replay(device, n_frames: int, seed: int = 0,
+                orb: feat.OrbParams = EUROC_MONO["orb"]) -> ReplayResult:
+    """Drive `System(MONOCULAR)` with ORB parameters `orb` through
+    `track_monocular` over the first `n_frames` of the synthetic EuRoC
+    sequence on `device` and score it. On a CUDA device every frame runs
+    with PyTorch's sync debug mode at "warn", and the synchronisations each
+    frame makes are counted."""
     from orbslam3_tpu_torch.ops import cuda_fast, cuda_match
     from orbslam3_tpu_torch.system import Sensor, System
 
@@ -553,7 +555,7 @@ def mono_replay(device, n_frames: int, seed: int = 0) -> ReplayResult:
     cuda = dev.type == "cuda"
     cfg = EUROC_MONO
     slam = System(Sensor.MONOCULAR, cam.CameraModel.PINHOLE, cfg["camera"], cfg["img_wh"],
-                  cfg["orb"], device=dev, Kmax=cfg["Kmax"], Pmax=cfg["Pmax"], fps=cfg["fps"])
+                  orb, device=dev, Kmax=cfg["Kmax"], Pmax=cfg["Pmax"], fps=cfg["fps"])
     states, keyframe, ms, syncs, b2, b1 = [], [], [], [], [], []
     for t, img in zip(gt_ts, imgs):
         n2, n1 = cuda_fast.LAUNCHES, cuda_match.LAUNCHES

@@ -10,8 +10,8 @@ The kernel takes the documented types as they are and the wrapper converts
 nothing: (n, 32) uint8 descriptors on 4-byte boundaries, bool key validity,
 float32 positions and radius, int32 octaves, every tensor contiguous on the
 queries' device. The radius is (n,) or one value for all queries (0-d, or
-expanded with stride 0), passed by stride, never copied. At most `MAX_KEYS`
-keys: the capacity the kernel stages in shared memory.
+expanded with stride 0), passed by stride, never copied. Any number of
+keys from 1: the kernel folds over them in tiles of 1024.
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ from orbslam3_tpu_torch.ops import _build
 from orbslam3_tpu_torch.ops import matching
 
 LAUNCHES = 0  # wrapper calls that launched the kernel
-MAX_KEYS = 1024  # keys the kernel holds (`kMaxKeys` of csrc/hamming_top2.cu)
 
 
 class MatchWindow(NamedTuple):
@@ -73,14 +72,14 @@ def kernel_args(desc_a: torch.Tensor, desc_b: torch.Tensor,
                 valid_b: Optional[torch.Tensor] = None,
                 window: Optional[MatchWindow] = None) -> Tuple[int, int, int]:
     """(n, m, radius stride) of a call the kernel takes as it is; raises
-    ValueError on anything else (type, shape, layout, device, capacity)."""
+    ValueError on anything else (type, shape, layout, device, no keys)."""
     dev = desc_a.device
     n = desc_a.shape[0] if desc_a.dim() == 2 else -1
     m = desc_b.shape[0] if desc_b.dim() == 2 else -1
     _require("desc_a", desc_a, torch.uint8, (n, 32), dev)
     _require("desc_b", desc_b, torch.uint8, (m, 32), dev)
-    if not 1 <= m <= MAX_KEYS:
-        raise ValueError(f"hamming_top2: {m} keys; the kernel holds 1 to {MAX_KEYS}")
+    if m < 1:
+        raise ValueError("hamming_top2: no keys; the kernel takes 1 or more")
     # The kernel reads each 32-byte row as 8 u32 words.
     if desc_a.data_ptr() % 4 or desc_b.data_ptr() % 4:
         raise ValueError("hamming_top2: descriptors must start on a 4-byte boundary")

@@ -321,6 +321,7 @@ class Tracker:
         self.frame_id = 0
         self.trajectory = []  # (ts, store, ref kf, R_cr, t_cr)
         self.new_kf_callback = None  # set by System: runs local mapping
+        self.anomaly_cb = None  # set by System: called with "reorder" (timestamp went back)
         self.kfdb = None  # keyframe database (place recognition, A9)
         # NeedNewKeyFrame policy state (ref `Tracking.cc:2577-2715`).
         self.max_frames = max(1, int(round(fps)))  # ref mMaxFrames = fps
@@ -450,6 +451,12 @@ class Tracker:
         return self._process_with_features(self._extract(img), timestamp)
 
     def _process_with_features(self, f: feat.Features, timestamp: float) -> fr.FrameData:
+        # A frame older than the last one resets the active map, and then
+        # goes on as the first frame of a new one (`Tracking::Track`,
+        # Tracking.cc:987-996). The >1 s gap branches are inertial (A11).
+        if (self.anomaly_cb is not None and self.last_frame is not None
+                and timestamp - self.last_frame.timestamp < 0):
+            self.anomaly_cb("reorder")
         cur = fr.FrameData(features=f, timestamp=timestamp, frame_id=self.frame_id,
                            R=np.eye(3, dtype=np.float32), t=np.zeros(3, np.float32),
                            mp_assoc=np.full(f.n, -1, np.int32))

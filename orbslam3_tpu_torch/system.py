@@ -7,8 +7,9 @@ wires a `Tracker` and a synchronous `LocalMapper` over one `MapStore` on
 is none and never falls back), the CPU (the kernels' plain versions) only
 when the caller asks for it with `device="cpu"`.
 `track_monocular(img, timestamp)` runs a frame (and, on a new
-keyframe, its mapping pass) and `get_trajectory()` reads the camera centres
-back through the current keyframe poses. Not ported yet: the other sensors
+keyframe, its mapping pass; a frame older than the last one first resets
+the active map) and `get_trajectory()` reads the camera centres back
+through the current keyframe poses. Not ported yet: the other sensors
 (stereo and RGB-D A10, inertial A11), the fisheye model (A12), place
 recognition and loop closing (A9), multi-map, atlas save/load and the
 trajectory writers (A13, A14), asynchronous mapping and localization mode
@@ -64,10 +65,17 @@ class System:
         self.mapper = LocalMapper(camera_model, params, img_wh, self.store, orb_params)
         self.mapper.tracker = self.tracker
         self.tracker.new_kf_callback = self._on_new_keyframe
+        self.tracker.anomaly_cb = self._on_timestamp_anomaly
         self._lost_streak = 0
 
     def _on_new_keyframe(self, slot: int, initial: bool = False):
         self.mapper.process_keyframe(slot, initial=initial)
+
+    def _on_timestamp_anomaly(self, kind: str):
+        """`Tracking::Track` (Tracking.cc:987-996): a reordered frame
+        (`kind` "reorder", the only anomaly of the visual sensors) resets
+        the active map."""
+        self.reset_active_map()
 
     def track_monocular(self, img: np.ndarray, timestamp: float):
         """`System::TrackMonocular`: one grey image (H, W) and its time in

@@ -7,9 +7,10 @@ have no CPU or interpreted mode). On a machine with one:
 
 (`tests/conftest.py` imports JAX, which a machine with only the port lacks.)
 
-Sizes cover the edges of each kernel's tiling: key counts below one warp,
-across several shared-memory tiles, and query counts that are no multiple
-of a block.
+Sizes cover the edges of each kernel's tiling: images smaller than one
+64 x 32 tile and than its halo, and plateaus; key counts below one warp,
+across several 1024-key tiles, and query counts that are no multiple of a
+block.
 """
 
 import numpy as np
@@ -45,10 +46,20 @@ def _rand_img(rng, H, W):
     return np.round(img + rng.normal(0, 2.0, (H, W))).astype(np.float32)
 
 
-@pytest.mark.parametrize("H,W", [(240, 320), (2400, 768), (37, 53)])
-def test_fast_nms_kernel_equals_plain(dev, H, W):
-    """Bit-exact everywhere: both pad with zeros and sum in ring order."""
-    img = torch.from_numpy(_rand_img(np.random.default_rng(H), H, W)).to(dev)
+BLOCK_IMAGES = {"240x320": (240, 320), "2400x768": (2400, 768), "37x53": (37, 53)}
+
+
+@pytest.mark.parametrize("case", list(BLOCK_IMAGES) + [name for name, _ in kernel_bench.b2_cases()])
+def test_fast_nms_kernel_equals_plain(dev, case):
+    """Bit-exact on every pixel, in one launch (both pad with zeros and sum
+    in ring order): block images, and B2's cases (images smaller than a
+    tile and its halo, non-integer values, plateaus of equal scores)."""
+    if case in BLOCK_IMAGES:
+        H, W = BLOCK_IMAGES[case]
+        img = _rand_img(np.random.default_rng(H), H, W)
+    else:
+        img = dict(kernel_bench.b2_cases())[case]
+    img = torch.from_numpy(img).to(dev)
     n0 = cuda_fast.LAUNCHES
     s_k, i_k = cuda_fast.fast_score_nms(img, 7.0, 20.0)
     assert cuda_fast.LAUNCHES == n0 + 1
@@ -62,6 +73,7 @@ def test_fast_nms_kernel_equals_plain(dev, H, W):
 @pytest.mark.parametrize("n,m,windowed", [
     (1, 5, False), (37, 31, False), (1000, 1024, False), (300, 1000, True),
     (16384, 1024, True), (33, 1024, True),
+    (1000, 1500, False), (16384, 2000, True), (1024, 2048, True), (33, 4097, True),
 ])
 def test_hamming_top2_kernel_equals_plain(dev, n, m, windowed):
     """d1, d2 and j1 exactly equal on every row (ties go to the lowest
@@ -108,6 +120,23 @@ def test_hamming_top2_kernel_equals_plain_on_edge_cases(dev, case):
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("case", [name for name, _ in kernel_bench.b1_tile_cases()])
+def test_hamming_top2_kernel_equals_plain_above_one_tile(dev, case):
+    """More keys than one 1024-key tile (1025, 2000, 4097), and ties across
+    the tile edge (query 0 is key 5 and key 1029: j1 = 5): d1, d2 and j1
+    exactly equal to the plain version on every row, in one launch."""
+    args = kernel_bench.b1_case_args(dict(kernel_bench.b1_tile_cases())[case], dev)
+    n0 = cuda_match.LAUNCHES
+    got = cuda_match.hamming_top2(*args)
+    assert cuda_match.LAUNCHES == n0 + 1
+    ref = cuda_match.hamming_top2_plain(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    if case.startswith("tile_tie"):
+        assert int(got[2][0]) == 5 and float(got[0][0]) == 0.0
 
 
 def test_hamming_top2_kernel_takes_one_radius_by_stride(dev):
@@ -227,3 +256,22 @@ def test_system_on_card_equals_plain(dev):
     assert got == ref and got[-1][0] == "OK"
     np.testing.assert_array_equal(ts, ts_p)
     np.testing.assert_allclose(pos, pos_p, atol=1e-3)
+
+
+def test_system_tracks_2000_features_on_card(dev):
+    """A System at 2000 features (ORB-SLAM3's KITTI setting) on the card:
+    its B1 calls hold 2000 keys, and the frames after initialization track."""
+    calls = []
+    wrapped = cuda_match.hamming_top2
+
+    def recording(*args):
+        calls.append(args[1].shape[0])
+        return wrapped(*args)
+
+    cuda_match.hamming_top2 = recording
+    try:
+        rep = E.mono_replay(dev, 6, orb=feat.OrbParams(n_features=2000))
+    finally:
+        cuda_match.hamming_top2 = wrapped
+    assert "OK" in rep.states and rep.states[-1] == "OK"
+    assert calls and max(calls) == 2000

@@ -9,7 +9,8 @@ import torch
 
 from orbslam3_tpu.ops import features as feat_j
 from orbslam3_tpu.ops import pallas_fast
-from orbslam3_tpu_torch.ops import cuda_fast
+from orbslam3_tpu_torch import kernel_bench
+from orbslam3_tpu_torch.ops import _build, cuda_fast
 from orbslam3_tpu_torch.ops import features as feat_t
 
 torch.set_num_threads(1)  # the tier-1 run has 6 xdist workers
@@ -83,6 +84,57 @@ def test_fast_plain_equals_xla_and_pallas_on_interior():
     assert cuda_fast.LAUNCHES == n0
     np.testing.assert_array_equal(s_w.numpy(), score_t.numpy())
     np.testing.assert_array_equal(i_w.numpy(), ini_t.numpy())
+
+
+B2_CASES = dict(kernel_bench.b2_cases())
+
+
+@pytest.mark.parametrize("name", ["plateau", "7x7", "5x300"])
+def test_fast_plain_equals_xla_on_plateau_and_small_images(name):
+    """The plain version equals the reference's XLA path (`fast_score` +
+    `_nms3`) on kernel B2's plateau image (equal scores side by side, all
+    kept) and on images smaller than its 4-px halo. The reference wraps at
+    the border (`jnp.roll`); given the image inside a 4-px zero margin, its
+    taps read the zeros the port pads with, so the two agree on every pixel
+    whose 3x3 NMS window lies in the image, and on pass_ini everywhere."""
+    img = B2_CASES[name]
+    score_t, ini_t = feat_t.fast_score_nms_plain(torch.from_numpy(img), 7.0, 20.0)
+    padded = jnp.pad(jnp.asarray(img), 4)
+    score_x, ini_x = feat_j.fast_score(padded, 7.0, 20.0)
+    inside = (slice(4, -4), slice(4, -4))
+    score_x = np.asarray(feat_j._nms3(score_x))[inside]
+    np.testing.assert_array_equal(ini_t.numpy(), np.asarray(ini_x)[inside])
+    inner = (slice(1, -1), slice(1, -1))
+    np.testing.assert_array_equal(score_t.numpy()[inner], score_x[inner])
+    s = score_t.numpy()
+    assert (s[inner] > 0).sum() > 0
+    if name == "plateau":  # equal neighbours that both survive the NMS
+        assert (((s[:, 1:] == s[:, :-1]) & (s[:, 1:] > 0)).sum()
+                + ((s[1:] == s[:-1]) & (s[1:] > 0)).sum()) > 100
+
+
+@pytest.mark.parametrize("img,ok", [
+    (torch.zeros((32, 16), device="meta").t(), False),
+    (torch.zeros((2, 16, 16), device="meta"), False),
+    (torch.zeros(16, device="meta"), False),
+    (torch.zeros((16, 16), dtype=torch.float64, device="meta"), False),
+    (torch.zeros((16, 16), dtype=torch.uint8, device="meta"), False),
+    (torch.zeros((16, 16), device="meta"), True),
+], ids=["strided", "3d", "1d", "f64", "u8", "taken"])
+def test_fast_wrapper_refuses_what_it_would_misread(img, ok, monkeypatch):
+    """On a non-CPU tensor the B2 wrapper converts and copies nothing: a
+    non-contiguous, non-2-D or non-float32 image raises ValueError before
+    anything launches; a contiguous 2-D float32 one goes to the launch."""
+
+    def no_build():
+        raise AssertionError("reached the launch")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    n0 = cuda_fast.LAUNCHES
+    with pytest.raises(AssertionError if ok else ValueError,
+                       match="reached the launch" if ok else "fast_score_nms"):
+        cuda_fast.fast_score_nms(img, 7.0, 20.0)
+    assert cuda_fast.LAUNCHES == n0
 
 
 @pytest.mark.parametrize("scene", ["blocks", "uniform"])

@@ -5,7 +5,10 @@ features on 3 levels, Kmax 32, Pmax 4096).
 One module-scoped JAX run serves every case; it also snapshots the map and
 the tracker before frame 6 and around keyframe 4's mapping pass, so that
 `Tracker._track` and `LocalMapper.process_keyframe` are compared from the
-same state.
+same state. After the 12 frames both systems take one more, frame 5 again
+with a timestamp (0.35 s) before the last frame's: the reordered frame that
+resets the active map (`tests/test_system_control.py`); every other case
+reads its numbers before it.
 
 Both systems run with map-point slot 0 left empty and keypoint 0 of every
 frame marked invalid. That keeps ROADMAP fault C6 out of the comparison:
@@ -57,6 +60,7 @@ N_FRAMES = 12
 TRACK_FRAME = 6  # `_track` is compared on this frame
 MAP_KF = 4  # the keyframe whose mapping pass is compared (inserted by frame 6)
 ORB = dict(n_features=400, n_levels=3)
+REORDER = (5, 0.35)  # frame 5's image again, at a timestamp before frame 11's
 
 
 def _frames():
@@ -146,12 +150,36 @@ def _reference_run():
         n_kf.append(slam.n_keyframes)
     ts, pos = slam.get_trajectory()
     return dict(params=params, imgs=imgs, gt=gt, states=states, n_kf=n_kf, ts=ts, pos=pos,
-                snaps=snaps)
+                snaps=snaps, reorder=_reorder(slam, imgs))
+
+
+def _reorder(slam, imgs):
+    """Track the reordered frame; what the system looks like after it."""
+    k, t = REORDER
+    n_kf = slam.n_keyframes
+    slam.track_monocular(imgs[k], t)
+    return dict(n_kf_before=n_kf, n_kf=slam.n_keyframes, state=slam.tracking_state.name,
+                n_traj=len(slam.get_trajectory()[0]))
 
 
 def _port_system(params, device="cpu"):
     return System(Sensor.MONOCULAR, CameraModel.PINHOLE, params, (scene.W, scene.H),
                   orb_params=feat_t.OrbParams(**ORB), device=device, Kmax=32, Pmax=4096)
+
+
+@pytest.fixture(scope="module")
+def port(ref):
+    """The port's System over the same frames, then the reordered frame."""
+    slam = _port_system(ref["params"])
+    _avoid_c6_t(slam)
+    states, n_kf = [], []
+    for k, img in enumerate(ref["imgs"]):
+        slam.track_monocular(img, k * 0.1)
+        states.append(slam.tracking_state.name)
+        n_kf.append(slam.n_keyframes)
+    ts, pos = slam.get_trajectory()
+    return dict(states=states, n_kf=n_kf, ts=ts, pos=pos, n_mp=slam.n_map_points,
+                reorder=_reorder(slam, ref["imgs"]))
 
 
 def _load_store(store: st_t.MapStore, snap, mapper=None):
@@ -237,16 +265,10 @@ def _aligned(ts, pos, gt_ts, gt):
     return {round(float(ts[i]), 6): s * R @ pos[i] + t for i in ia}
 
 
-def test_system_matches_reference(ref):
+def test_system_matches_reference(ref, port):
     """The port's System and the reference's on the whole scene. Both
     initialize on frame 1 (the reference frame is frame 0) on this scene."""
-    slam = _port_system(ref["params"])
-    _avoid_c6_t(slam)
-    states, n_kf = [], []
-    for k, img in enumerate(ref["imgs"]):
-        slam.track_monocular(img, k * 0.1)
-        states.append(slam.tracking_state.name)
-        n_kf.append(slam.n_keyframes)
+    states, n_kf = port["states"], port["n_kf"]
     init_p = states.index("OK")
     init_r = ref["states"].index("OK")
     assert abs(init_p - init_r) <= 1, (states, ref["states"])
@@ -254,7 +276,7 @@ def test_system_matches_reference(ref):
     assert states[start:] == ref["states"][start:]
     assert all(abs(a - b) <= 1 for a, b in zip(n_kf, ref["n_kf"])), (n_kf, ref["n_kf"])
     gt_ts = np.arange(N_FRAMES) * 0.1
-    ts, pos = slam.get_trajectory()
+    ts, pos = port["ts"], port["pos"]
     assert np.isfinite(pos).all() and pos.shape == (len(ts), 3)
     err_p = ate_j.ate_rmse(ts, pos, gt_ts, ref["gt"], with_scale=True, max_dt=0.01)
     err_r = ate_j.ate_rmse(ref["ts"], ref["pos"], gt_ts, ref["gt"], with_scale=True, max_dt=0.01)
@@ -265,7 +287,41 @@ def test_system_matches_reference(ref):
     assert len(common) >= N_FRAMES - 2
     rms = np.sqrt(np.mean([np.sum((a_p[t] - a_r[t]) ** 2) for t in common]))
     assert rms < 0.02, rms
-    assert slam.n_map_points > 50
+    assert port["n_mp"] > 50
+
+
+def test_timestamp_reorder_resets_active_map(ref, port):
+    """A frame whose timestamp goes back (frame 5 again at 0.35 s, after
+    frame 11 at 1.1 s) resets the active map in both systems
+    (`Tracking.cc:987-996`), and then goes on as the first frame of a new
+    map: the same state after it, at most one keyframe, and the same
+    trajectory length (the old map's entries are gone)."""
+    got, want = port["reorder"], ref["reorder"]
+    assert want["n_kf_before"] >= 2 and got["n_kf_before"] >= 2
+    assert got["n_kf"] <= 1 and want["n_kf"] <= 1
+    assert got["state"] == want["state"]
+    assert got["n_traj"] == want["n_traj"]
+
+
+def test_tracker_reports_a_reorder_exactly_when_time_goes_back():
+    """`Tracker` calls `anomaly_cb("reorder")` for a frame older than the
+    last one, never for a later or equal timestamp, and never before a
+    first frame; the frame then goes on through the normal path."""
+    params, imgs, _ = _frames()
+    slam = _port_system(params)
+    tr = slam.tracker
+    calls, seen = [], []
+    tr.anomaly_cb = calls.append
+    tr._initialize_mono = lambda cur: seen.append(cur.timestamp)  # the normal path, stubbed
+    f = tr._extract(imgs[0])
+    for t in (0.5, 0.7, 0.7, 0.6, 0.65, 0.2, 1.0, 1.0 - 1e-9):
+        n = len(calls)
+        tr._process_with_features(f, t)
+        back = tr.frame_id > 1 and t < prev
+        assert calls[n:] == (["reorder"] if back else []), (t, calls)
+        prev = t
+    assert seen == [0.5, 0.7, 0.7, 0.6, 0.65, 0.2, 1.0, 1.0 - 1e-9]
+    assert calls == ["reorder"] * 3
 
 
 def test_ate_equals_reference():
