@@ -30,13 +30,31 @@ times both kernels at the main path's calls (B2 on the atlas; B1 at the
 motion model, the local map, the cross-check, the fuse into a neighbour
 and the fuse into the keyframe): device-only time by CUDA-graph replay,
 the time of one wrapper call, the profiler's device time, the plain
-version's time and the bound (`orbslam3_tpu_torch/kernel_bench.py`). Every
-phase prints its lines; any failure ends the run with a non-zero exit.
-Without a CUDA device it exits non-zero and prints no result.
+version's time and the bound (`orbslam3_tpu_torch/kernel_bench.py`).
+
+Phase 9 loads the 97k-word vocabulary (`assets/ORBvoc_synth_100k.bin`)
+onto the card and holds `bow.transform` and the keyframe database's queries
+over phase 6's keyframes equal on the card and on the CPU, and B1 with an
+open octave band exact against its plain version. Phase 10 drives
+`System.enable_place_recognition` at the reference's defaults through
+`entry.mono_replay` at full width over a lap of the synthetic sequence
+shortened to 8 s (260 frames) with a kidnap at frame 240 back to frame 40:
+at least one loop closed in the JAX `System`'s region, the ATE lowered by
+the essential graph, a GBA finished, no point twice in a keyframe row,
+LOST and relocalized within 5 frames, the ATE within max(2 x the JAX
+`System`'s on the same frames, 0.01 m); at the closing pair `_verify_sim3`
+and at the relocalizing frame `_relocalize` run again through the kernels
+and through the plain versions (equal counts and associations, Sim3 and
+pose within 1e-4); it prints the ms of each verification, correction,
+SearchAndFuse, GBA chunk and of the relocalizing frame, the host syncs per
+frame kind, B1's launches per call site, and times B1 at place
+recognition's five calls. Every phase prints its lines; any failure ends
+the run with a non-zero exit. Without a CUDA device it exits non-zero and
+prints no result.
 
     python3 chip_smoke.py --save-inputs FILE
 
-also writes phase 7's inputs to FILE, for `python -m
+also writes the kernels' inputs of phases 7 and 10 to FILE, for `python -m
 orbslam3_tpu_torch.kernel_bench FILE` to time another checkout's kernels on
 the same inputs.
 
@@ -81,23 +99,56 @@ N_WIDE_FEATURES = 2000
 B1_SITES = {"_track_last_frame": "motion model", "_track_local_map_match": "local map",
             "_track_reference_kf": "cross-check", "_fuse_batch": "fuse into a neighbour",
             "_fuse_neighbors": "fuse into the keyframe"}
+# Place recognition's B1 calls (phase 10); a call is named by the first of
+# these functions on its stack, before those of B1_SITES (relocalization's
+# reference-keyframe match goes through `_track_reference_kf`).
+B1_PR_SITES = {"_projection_rescue_match": "reloc rescue",
+               "_relocalize": "reloc reference-keyframe match",
+               "_sim3_projection_matches": "Sim3 projection",
+               "_verify_sim3_impl": "loop verify match",
+               "_search_and_fuse": "SearchAndFuse"}
+
+# Phase 10: the loop-and-kidnap lap. The JAX `System` on the same frames on a
+# CPU (`python tests/jax_loop_lap.py --t-loop 8 --frames 260 --kidnap-at 240
+# --kidnap-src 40`): the shortest lap in 8-20 s with which it closes a loop
+# (keyframe 67 onto keyframe 5, at frame 156, ATE 0.0332 -> 0.0212 m at the
+# closure), finishes a GBA, relocalizes at frame 241 after the kidnap at 240,
+# and ends at a Sim3 ATE of 0.012894 m over 259 poses.
+VOC_100K = "assets/ORBvoc_synth_100k.bin"
+LAP_T_LOOP = 8.0
+LAP_FRAMES = 260
+LAP_KIDNAP = (240, 40)  # from frame 240 on, the images of frames 40, 41, ...
+JAX_LAP_LOOP = (67, 5)  # the JAX System's closing keyframe pair
+JAX_LAP_ATE = 0.012894
+LAP_ATE_GATE = max(2 * JAX_LAP_ATE, 0.01)
 
 
 @contextlib.contextmanager
-def _b1_calls(calls: list, keep_args: bool):
+def _b1_calls(calls: list, keep_args):
     """Within the block, append (call site, arguments or None, key count)
-    for every B1 wrapper call. The wrapper itself runs unchanged, launch
-    count included."""
-    from orbslam3_tpu_torch.ops import cuda_match
+    for every B1 wrapper call. `keep_args`: True keeps every call's
+    arguments, a set of sites the first call's of each. A call made while
+    `COMPARING` is set is named "comparison" (kernels against plain, not the
+    main path). The wrapper itself runs unchanged, launch count included."""
+    from orbslam3_tpu_torch.ops import _build, cuda_match
 
     wrapped = cuda_match.hamming_top2
 
     def recording(*args):
-        f, site = sys._getframe(1), "other"
-        while f is not None and site == "other":
-            site = B1_SITES.get(f.f_code.co_name, "other")
+        if not _build.use_kernel(args[0]):  # a plain run launches nothing
+            return wrapped(*args)
+        names, f = [], sys._getframe(1)
+        while f is not None:
+            names.append(f.f_code.co_name)
             f = f.f_back
-        calls.append((site, tuple(_clone(a) for a in args) if keep_args else None,
+        site = next((B1_PR_SITES[n] for n in names if n in B1_PR_SITES), None) or next(
+            (B1_SITES[n] for n in names if n in B1_SITES), "other")
+        if COMPARING[0]:
+            site = "comparison"
+        keep = keep_args is True or (keep_args and site in keep_args
+                                     and not any(c[0] == site for c in calls))
+        full = args + (None,) * (4 - len(args))  # (desc_a, desc_b, valid_b, window)
+        calls.append((site, tuple(_clone(a) for a in full) if keep else None,
                       args[1].shape[0]))
         return wrapped(*args)
 
@@ -106,6 +157,9 @@ def _b1_calls(calls: list, keep_args: bool):
         yield calls
     finally:
         cuda_match.hamming_top2 = wrapped
+
+
+COMPARING = [False]  # set while a phase re-runs a step to hold kernels against plain
 
 
 def _clone(x):
@@ -164,6 +218,309 @@ def _same_run(rep_k, rep_p, what: str, kf_slack: int) -> str:
     return (f"states equal, keyframes {rep_k.n_kf} vs {rep_p.n_kf}, max camera-centre "
             f"difference {d_centre:.2e} m over {len(common)} poses (Sim3-aligned to the rendered "
             f"centres), ATE {rep_k.ate:.4f} vs {rep_p.ate:.4f} m")
+
+
+def _quiet_sync():
+    """Drain the card without counting it as one of the replay's host syncs."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode(mode)
+
+
+@contextlib.contextmanager
+def _comparing():
+    """A kernels-against-plain re-run inside a replay's frame: its host syncs
+    are not counted (debug mode off) and its B1 calls are named
+    "comparison"; yields a list that receives its ms."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    COMPARING[0] = True
+    took = []
+    t0 = time.perf_counter()
+    try:
+        yield took
+    finally:
+        torch.cuda.synchronize()
+        took.append((time.perf_counter() - t0) * 1e3)
+        COMPARING[0] = False
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def phase9_vocabulary(dev, sysm) -> dict:
+    """Phase 9: the 97k-word vocabulary on the card; `bow.transform` and
+    keyframe-database queries over a replay's keyframes equal on the card
+    and on the CPU; B1 with an open octave band (the Sim3 projection's
+    window: one radius, no octaves) exact against its plain version at the
+    projection's shape. Returns the B1 call's arguments and its error."""
+    from orbslam3_tpu_torch import convert
+    from orbslam3_tpu_torch.atlas.kfdb import KeyFrameDB
+    from orbslam3_tpu_torch.io.vocab_io import load_binary_vocabulary
+    from orbslam3_tpu_torch.ops import _build, bow, cuda_match
+    from orbslam3_tpu_torch.ops import cameras as cam
+
+    t0 = time.perf_counter()
+    voc = load_binary_vocabulary(VOC_100K, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    voc_h = bow.to_device(voc, "cpu")
+    store = sysm.store
+    s = store.state
+    kfs = np.flatnonzero(s.kf_valid.cpu().numpy())
+    cpu = lambda x: x.cpu()  # noqa: E731
+    n_words = 0
+    db_c, db_h = KeyFrameDB(voc, s.Kmax), KeyFrameDB(voc_h, s.Kmax)
+    for k in kfs:
+        w_c, v_c = db_c.add(int(k), s.kf_desc[k], s.kf_feat_valid[k])
+        w_h, v_h = db_h.add(int(k), cpu(s.kf_desc[k]), cpu(s.kf_feat_valid[k]))
+        check(torch.equal(w_c.cpu(), w_h), f"bow.transform of keyframe {k}: card vs CPU")
+        check(float((v_c.cpu() - v_h).abs().max()) <= 1e-6, f"bow_vector of keyframe {k}")
+        n_words += int((w_h >= 0).sum())
+    covis = store.covisibility_np()
+    cov_c, cov_h = convert.tensor(covis, dev), convert.tensor(covis, "cpu")
+    # Each keyframe as a loop query (its covisible neighbourhood excluded)
+    # and as a relocalization query of its own features.
+    n_cand, d_score = 0, 0.0
+    for k in kfs:
+        for what, q_c, q_h in (
+                ("query", lambda: db_c.query(int(k), cov_c), lambda: db_h.query(int(k), cov_h)),
+                ("query_frame", lambda: db_c.query_frame(s.kf_desc[k], s.kf_feat_valid[k], cov_c),
+                 lambda: db_h.query_frame(cpu(s.kf_desc[k]), cpu(s.kf_feat_valid[k]), cov_h))):
+            (ids_c, sc_c), (ids_h, sc_h) = q_c(), q_h()
+            check(torch.equal(ids_c.cpu(), ids_h),
+                  f"KFDB {what} of keyframe {k}: {ids_c} vs {ids_h}")
+            d_score = max(d_score, float((sc_c.cpu() - sc_h).abs().max()))
+            n_cand += int((ids_h >= 0).sum())
+    check(n_cand >= len(kfs), f"KFDB: {n_cand} candidates for {len(kfs)} keyframes")
+    check(d_score <= 1e-6, f"KFDB scores differ by {d_score}")
+    k = int(kfs[-1])
+
+    # B1 with the open band at the Sim3 projection's shape: up to 4096 of the
+    # map's points through the newest keyframe's pose, radius 8 px.
+    pid = torch.nonzero(s.mp_valid)[:4096, 0]
+    Xc = s.mp_pos[pid] @ s.kf_R[k].T + s.kf_t[k]
+    uv = cam.project(sysm.tracker.model, sysm.tracker.params, Xc)
+    win = cuda_match.MatchWindow(uv.contiguous(), s.kf_uv[k], torch.tensor(8.0, device=dev))
+    args = (s.mp_desc[pid], s.kf_desc[k], s.kf_feat_valid[k], win)
+    got = cuda_match.hamming_top2(*args)
+    with _build.force_plain():
+        ref = cuda_match.hamming_top2(*args)
+    torch.cuda.synchronize()
+    for what, g, r in zip(("d1", "d2", "j1"), got, ref):
+        check(torch.equal(g, r), f"B1 open band {what} differs from plain")
+    err = max(float((got[0] - ref[0]).abs().max()), float((got[1] - ref[1]).abs().max()))
+    print(f"phase 9 vocabulary {VOC_100K}: {voc.n_words} words, depth {voc.depth}, k {voc.k}, "
+          f"{load_s:.2f} s to load onto the card; bow.transform of {len(kfs)} keyframes "
+          f"({n_words} words) exact card vs CPU; KFDB loop and relocalization queries of each "
+          f"keyframe: the same candidates ({n_cand} in all), scores within {d_score:.1e}; "
+          f"B1 open band "
+          f"{pid.shape[0]}x{s.kf_desc.shape[1]} radius 8: exact (tolerance 0) vs plain, "
+          f"{int((got[0] < 1e9).sum())} with a key in their window")
+    return dict(args=args, err=err)
+
+
+def phase10_loop_lap(dev) -> dict:
+    """Phase 10: `System` with place recognition at the reference's
+    defaults over the loop-and-kidnap lap at full width (752x480, 1000
+    features, Kmax 256, Pmax 16384, the 97k-word vocabulary), through
+    `entry.mono_replay`; gates, times and host syncs as in the module
+    docstring. At the closing pair `_verify_sim3`, and at the relocalizing
+    frame `_relocalize` on a copy of its inputs, run again through the
+    kernels and through the plain versions inside the replay; those re-runs
+    are held apart (their ms, syncs and B1 calls are not the replay's)."""
+    import copy
+
+    from orbslam3_tpu_torch import convert
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch.ops import _build, cuda_fast, cuda_match
+    from orbslam3_tpu_torch.pipeline import gba as gba_mod
+    from orbslam3_tpu_torch.pipeline import loop_closing as lc_mod
+    from orbslam3_tpu_torch.pipeline.tracking import Tracker
+
+    frame = [0]
+    timers = {k: [] for k in ("verify", "correct", "fuse", "gba_chunk", "reloc")}
+    extra_ms = {}  # frame -> ms of its kernels-vs-plain re-runs
+    found = {}
+
+    def timed(name, fn):
+        def run(self, *a, **kw):
+            _quiet_sync()
+            t0 = time.perf_counter()
+            out = fn(self, *a, **kw)
+            _quiet_sync()
+            timers[name].append((frame[0], (time.perf_counter() - t0) * 1e3))
+            return out
+        return run
+
+    orig = {"verify": lc_mod.LoopCloser._verify_sim3, "correct": lc_mod.LoopCloser._correct_loop,
+            "fuse": lc_mod.LoopCloser._search_and_fuse, "gba_chunk": gba_mod.AsyncGBA.tick,
+            "reloc": Tracker._relocalize}
+
+    def correct(self, kf_id, loop_kf, *S):
+        if "closure" not in found:  # the closing pair, kernels against plain
+            runs = {}
+            with _comparing() as took:
+                for mode in ("kernels", "plain"):
+                    with _build.force_plain() if mode == "plain" else contextlib.nullcontext():
+                        out = self._verify_sim3_impl(kf_id, loop_kf)
+                    runs[mode] = (out, dict(self.last_verify))
+            extra_ms[frame[0]] = extra_ms.get(frame[0], 0.0) + took[0]
+            found["closure"] = (kf_id, loop_kf, frame[0], runs)
+        return timed("correct", orig["correct"])(self, kf_id, loop_kf, *S)
+
+    def reloc(self, cur):
+        before = (cur.R.copy(), cur.t.copy(), cur.mp_assoc.copy(), self.ref_kf)
+        ok = timed("reloc", orig["reloc"])(self, cur)
+        if ok and "reloc" not in found:
+            after = (cur.R, cur.t, cur.mp_assoc, self.ref_kf)
+            runs = {}
+            with _comparing() as took:
+                for mode in ("kernels", "plain"):
+                    c2 = copy.copy(cur)
+                    c2.R, c2.t, c2.mp_assoc = (x.copy() for x in before[:3])
+                    self.ref_kf = before[3]
+                    with _build.force_plain() if mode == "plain" else contextlib.nullcontext():
+                        ok2 = orig["reloc"](self, c2)
+                    runs[mode] = (ok2, c2.R, c2.t, c2.mp_assoc, self.ref_kf)
+            self.ref_kf = after[3]
+            extra_ms[frame[0]] = extra_ms.get(frame[0], 0.0) + took[0]
+            found["reloc"] = (frame[0], after, runs)
+        return ok
+
+    patches = [(lc_mod.LoopCloser, "_verify_sim3", timed("verify", orig["verify"])),
+               (lc_mod.LoopCloser, "_correct_loop", correct),
+               (lc_mod.LoopCloser, "_search_and_fuse", timed("fuse", orig["fuse"])),
+               (gba_mod.AsyncGBA, "tick", timed("gba_chunk", orig["gba_chunk"])),
+               (Tracker, "_relocalize", reloc)]
+
+    def on_frame(k, slam):
+        frame[0] = k + 1
+
+    torch.cuda.synchronize()
+    cuda_fast.LAUNCHES = 0
+    cuda_match.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        for cls, name, fn in patches:
+            setattr(cls, name, fn)
+        with _b1_calls([], keep_args=set(B1_PR_SITES.values())) as calls:
+            rep = E.mono_replay(dev, LAP_FRAMES, vocabulary=VOC_100K, t_loop=LAP_T_LOOP,
+                                kidnap=LAP_KIDNAP, on_frame=on_frame)
+    finally:
+        for (cls, name, _), fn in zip(patches, (orig["verify"], orig["correct"], orig["fuse"],
+                                                orig["gba_chunk"], orig["reloc"])):
+            setattr(cls, name, fn)
+    wall_s = time.perf_counter() - t0
+    sites = {site: sum(c[0] == site for c in calls)
+             for site in list(B1_SITES.values()) + list(B1_PR_SITES.values()) + ["comparison"]}
+    launches = {"fast_nms": cuda_fast.LAUNCHES,
+                "hamming_top2": cuda_match.LAUNCHES - sites["comparison"]}
+    check(sum(sites.values()) == cuda_match.LAUNCHES, f"B1 calls by site {sites}")
+    for site in B1_PR_SITES.values():  # the rescue runs only below the accept threshold
+        check(sites[site] > 0 or site == "reloc rescue",
+              f"phase 10: B1 never launched at {site}: {sites}")
+    sysm = rep.system
+
+    # Gates.
+    check(len(rep.loops) >= 1, f"no loop closed: states {rep.states}")
+    lp = rep.loops[0]
+    covis = sysm.store.covisibility_np()
+
+    def same_region(a, b):
+        return abs(a - b) <= 15 or covis[a, b] >= 15
+
+    check(same_region(lp["kf"], JAX_LAP_LOOP[0]) and same_region(lp["loop_kf"], JAX_LAP_LOOP[1]),
+          f"loop {lp} not in the region of the JAX System's {JAX_LAP_LOOP}")
+    check(lp["ate_after"] < lp["ate_before"], f"the closure did not lower the ATE: {lp}")
+    check(rep.gba_finished >= 1, f"no GBA finished ({rep.gba_aborted} aborted)")
+    km = sysm.store.state.kf_mp.cpu().numpy()
+    kfv = sysm.store.state.kf_valid.cpu().numpy()
+    dups = sum(len(r[r >= 0]) - len(np.unique(r[r >= 0])) for r in km[kfv])
+    check(dups == 0, f"{dups} duplicate map points in keyframe rows")
+    at = LAP_KIDNAP[0]
+    first_lost = next((k for k in range(at, LAP_FRAMES) if rep.states[k] != "OK"), None)
+    check(first_lost is not None and first_lost <= at + 1, f"not LOST after the kidnap: "
+          f"{rep.states[at:]}")
+    check(rep.relocalized is not None and rep.relocalized <= at + 5,
+          f"not relocalized within 5 frames of the kidnap: {rep.states[at:]}")
+    check(np.isfinite(rep.pos).all() and rep.ate <= LAP_ATE_GATE,
+          f"ATE {rep.ate} m above the gate {LAP_ATE_GATE} m")
+    check("closure" in found and "reloc" in found, f"phase 10 re-ran {sorted(found)}")
+    kf_c, loop_c, fr_c, runs = found["closure"]
+    (S_k, st_k), (S_p, st_p) = runs["kernels"], runs["plain"]
+    check(S_k is not None and S_p is not None and st_k == st_p,
+          f"verify at the closing pair, kernels vs plain: {st_k} vs {st_p}")
+    dS = max(float(np.abs(np.asarray(a) - np.asarray(b)).max()) for a, b in zip(S_k, S_p))
+    check(dS <= 1e-4, f"verify's Sim3, kernels vs plain: {dS}")
+    fr_r, after, rruns = found["reloc"]
+    (ok_k, R_k, t_k, a_k, kf_k), (ok_p, R_p, t_p, a_p, kf_p) = rruns["kernels"], rruns["plain"]
+    check(ok_k and ok_p and kf_k == kf_p and np.array_equal(a_k, a_p),
+          "relocalization, kernels vs plain: outcome or associations differ")
+    dP = max(float(np.abs(R_k - R_p).max()), float(np.abs(t_k - t_p).max()))
+    check(dP <= 1e-4 and np.array_equal(a_k, after[2]),
+          f"relocalization pose, kernels vs plain {dP}")
+
+    kinds = rep.frame_kinds()
+    ms = [m - extra_ms.get(k, 0.0) for k, m in enumerate(rep.ms)]
+    by_kind = {}
+    for kind, n_sync, m in zip(kinds, rep.syncs, ms):
+        by_kind.setdefault(kind, []).append((n_sync, m))
+    tracked = [n for n, _ in by_kind.get("tracked", [])]
+    check(tracked and set(tracked) == {Tracker.HOST_SYNCS_PER_FRAME},
+          f"host syncs per tracked non-keyframe frame without a GBA chunk: {sorted(set(tracked))}")
+    fps = LAP_FRAMES / (sum(ms) / 1e3)
+    med = lambda xs: statistics.median(xs) if xs else float("nan")  # noqa: E731
+    print(f"phase 10 lap: {LAP_FRAMES} frames of the synthetic EuRoC sequence with a "
+          f"{LAP_T_LOOP:g} s "
+          f"lap, kidnapped at frame {at} back to frame {LAP_KIDNAP[1]}; {rep.n_kf} keyframes, "
+          f"{rep.n_mp} map points; launches {launches}; {fps:.2f} frames/s over the replay "
+          f"({wall_s:.1f} s wall, {rep.render_s:.1f} s of rendering)")
+    for L in rep.loops:
+        print(f"phase 10 loop closed at frame {L['frame']}: keyframe {L['kf']} onto {L['loop_kf']} "
+              f"(JAX: {JAX_LAP_LOOP[0]} onto {JAX_LAP_LOOP[1]}), ATE {L['ate_before']:.4f} -> "
+              f"{L['ate_after']:.4f} m by the essential graph")
+    print(f"phase 10 GBA: {rep.gba_finished} finished, {rep.gba_aborted} aborted; ATE "
+          f"{rep.ate:.4f} m over {len(rep.ts)} poses (Sim3), gate {LAP_ATE_GATE:.4f} m (2 x the "
+          f"JAX System's {JAX_LAP_ATE} m); no duplicate point in any keyframe row")
+    print(f"phase 10 kidnap at frame {at}: not OK at {rep.lost}, relocalized at frame "
+          f"{rep.relocalized} ({ms[rep.relocalized]:.2f} ms; its _relocalize calls "
+          f"{[round(m, 2) for f, m in timers['reloc'] if f == rep.relocalized]} ms)")
+    fmt = lambda xs: ", ".join(f"{m:.1f}" for _, m in xs)  # noqa: E731
+    print(f"phase 10 ms: _verify_sim3 [{fmt(timers['verify'])}] ({len(timers['verify'])} calls); "
+          f"_correct_loop [{fmt(timers['correct'])}] (of it _search_and_fuse "
+          f"[{fmt(timers['fuse'])}]); GBA chunks [{fmt(timers['gba_chunk'])}]")
+    print("phase 10 host syncs and ms per frame kind: " + "; ".join(
+        f"{kind} {len(v)} frames, syncs median {med([n for n, _ in v])} (max "
+        f"{max(n for n, _ in v)}), ms median {med([m for _, m in v]):.2f}"
+        for kind, v in sorted(by_kind.items())))
+    print(f"phase 10 kernels vs plain at the closing pair (keyframe {kf_c} onto {loop_c}, frame "
+          f"{fr_c}): gate counts equal {st_k}, Sim3 within {dS:.1e}; at the relocalizing frame "
+          f"{fr_r}: {int((a_k >= 0).sum())} associations equal, pose within {dP:.1e}")
+    print(f"phase 10 B1 launches by call over the replay: {sites}")
+    args = {site: next(c[1] for c in calls if c[0] == site) for site in B1_PR_SITES.values()
+            if sites[site]}
+    if "reloc rescue" not in args:
+        # Relocalization accepted without its projection rescue on this lap:
+        # take the rescue's B1 arguments (all Pmax points against the last
+        # frame's free keypoints, 10 px) from the last frame, to time and
+        # hold the call all the same.
+        from orbslam3_tpu_torch.ops import matching
+        from orbslam3_tpu_torch.pipeline import tracking as trk
+
+        tr, st_ = sysm.tracker, sysm.store.state
+        cur = tr.last_frame
+        mask = trk._local_point_mask(st_, convert.tensor(np.asarray([tr.ref_kf], np.int32), dev))
+        half = np.where(np.arange(cur.mp_assoc.shape[0]) % 2 == 0, cur.mp_assoc, -1)
+        assoc = convert.tensor(half.astype(np.int32), dev)  # half the keypoints free
+        with _b1_calls([], keep_args={"reloc rescue"}) as extra:
+            trk._projection_rescue_match(
+                tr.model, tr.params, convert.tensor(cur.R.astype(np.float32), dev),
+                convert.tensor(cur.t.astype(np.float32), dev), st_, mask, cur.features, assoc,
+                tr.img_wh_t, base_radius=10.0, max_dist=float(matching.TH_HIGH),
+                n_levels=tr.orb.n_levels)
+        args["reloc rescue"] = extra[0][1]
+    return dict(rep=rep, sites=sites, launches=launches, args=args)
 
 
 def check(ok, what: str) -> None:
@@ -560,10 +917,6 @@ def main(argv=None) -> int:
                                            ms_state.kf_feat_valid[kf], win_k)
 
     # --- Phase 7: device-only times, call times and bounds ------------------
-    if opts.save_inputs:
-        torch.save({"b2": {"atlas": atlas.cpu(), "min_th": orb.min_th, "ini_th": orb.ini_th},
-                    "b1": [KB.b1_record(site, a) for site, a in b1_shapes.items()]},
-                   opts.save_inputs)
     card = smi.stdout.strip().splitlines()[0]
     b2_t = KB.time_b2(atlas, orb.min_th, orb.ini_th)
     with _build.force_plain():
@@ -646,9 +999,49 @@ def main(argv=None) -> int:
           f"keyframes, {wide_k.n_mp} map points, launches {launches8} (B1 keys per call "
           f"{min(keys)}-{max(keys)}); kernels vs plain: {same}")
 
-    launches["fast_nms"] += launches6["fast_nms"] + launches8["fast_nms"]
+    # --- Phase 9: the vocabulary and the keyframe database on the card ------
+    p9 = phase9_vocabulary(dev, sysm)
+    err_b1 = max(err_b1, p9["err"])
+
+    # --- Phase 10: loop closing and relocalization at full width ----------
+    p10 = phase10_loop_lap(dev)
+    for site, a in p10["args"].items():  # B1 at place recognition's calls
+        got = cuda_match.hamming_top2(*a)
+        with _build.force_plain():
+            ref = cuda_match.hamming_top2(*a)
+        torch.cuda.synchronize()
+        for what, k_, p_ in zip(("d1", "d2", "j1"), got, ref):
+            check(torch.equal(k_, p_), f"B1 {site}: {what} differs from plain")
+        err_b1 = max(err_b1, float((got[0] - ref[0]).abs().max()),
+                     float((got[1] - ref[1]).abs().max()))
+        t = KB.time_b1(a)
+        with _build.force_plain():
+            plain_ms = KB.call_us(lambda: cuda_match.hamming_top2(*a), iters=10) / 1e3
+        bd = KB.b1_bound(*a)
+        n10 = p10["sites"][site]
+        b1_rows.append({"call": site, "shape": [a[0].shape[0], a[1].shape[0]],
+                        "windowed": a[3] is not None, **t, "plain_ms": plain_ms,
+                        "bound_us": bd["bound_us"], "bound_by": bd["bound_by"],
+                        "in_window_pairs": bd["pairs"], "launches_per_replay": n10,
+                        "replay": "phase 10"})
+        b1_shapes[site] = a
+        print(f"phase 10 B1 {site} {a[0].shape[0]}x{a[1].shape[0]} "
+              f"{'windowed' if a[3] is not None else 'unwindowed'}: exact vs plain; device "
+              f"{t['device_us']:.2f} us (graph of {KB.GRAPH_CALLS}), call {t['call_us']:.2f} us, "
+              f"profiler {t['profiler_us']} us, bound {bd['bound_us']:.3f} us ({bd['bound_by']}; "
+              f"{bd['bytes']} bytes, {bd['pairs']} pairs to popcount), plain {plain_ms:.4f} ms; "
+              f"{n10} launches in the phase-10 replay [{card}]")
+    if opts.save_inputs:
+        per_replay = {**per_site, **p10["sites"]}
+        torch.save({"b2": {"atlas": atlas.cpu(), "min_th": orb.min_th, "ini_th": orb.ini_th},
+                    "b1": [KB.b1_record(site, a, per_replay.get(site))
+                           for site, a in b1_shapes.items()]},
+                   opts.save_inputs)
+
+    launches["fast_nms"] += (launches6["fast_nms"] + launches8["fast_nms"]
+                             + p10["launches"]["fast_nms"])
     launches["hamming_top2"] += (launches5["hamming_top2"] + launches6["hamming_top2"]
-                                 + launches8["hamming_top2"])
+                                 + launches8["hamming_top2"] + p10["launches"]["hamming_top2"])
     lm = next(r for r in b1_rows if r["call"] == "local map")  # the kernel's headline call
     record = {"kernels": [
         {"name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",

@@ -45,3 +45,15 @@ def to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return type(tree)(*(to_numpy(v) for v in tree))
+
+
+def vocabulary(voc, device):
+    """A vocabulary tree of the JAX package (`ops/bow.py::Vocabulary`, its
+    arrays read through `np.asarray`) -> the port's `Vocabulary` on
+    `device`. The vocabulary is this system's weights: both packages can
+    then be fed the same tree."""
+    from orbslam3_tpu_torch.ops.bow import from_arrays
+
+    return from_arrays(np.asarray(voc.node_desc), np.asarray(voc.node_children),
+                       np.asarray(voc.node_word), np.asarray(voc.word_weight), voc.depth, voc.k,
+                       device)

@@ -19,7 +19,9 @@ The monocular `System` end to end (`mono_replay`) is the counterpart of
 `scripts/drive_slam.py` at EuRoC width: `System.track_monocular` on a
 stream of frames rendered by `scripts/make_synth_euroc.py` (752x480, the
 synthetic room's circle), 1000 features on 8 levels, Kmax 256, Pmax 16384,
-scored by the Sim3 ATE against the rendered camera centres.
+scored by the Sim3 ATE against the rendered camera centres; with a
+vocabulary, place recognition on, over a shortened lap and a kidnap (earlier
+images at later timestamps).
 
 Scenes are built with numpy from a seed (`make_scene`, `make_mapping_scene`
 draw from the generator in the reference's order), so a test can hand the
@@ -499,18 +501,26 @@ def synth_euroc():
     return mod
 
 
-def euroc_frames(n_frames: int, seed: int = 0):
+def euroc_frames(n_frames: int, seed: int = 0, t_loop: float | None = None,
+                 kidnap: tuple[int, int] | None = None):
     """(timestamps (n,), uint8 images (n, 480, 752), camera centres (n, 3))
     of the synthetic sequence, rendered as the script's `main` renders
     them: t = k / 20 s, then sensor noise of 1.5 grey levels from the same
-    generator as the textures."""
+    generator as the textures. `t_loop` sets the script's lap length
+    (`T_LOOP`, seconds; its default 60 s when None). `kidnap` = (at, src):
+    frame k >= at shows the scene of frame src + k - at, still at time
+    k / 20 s (a camera carried back along its path, timestamps increasing),
+    and its centre is that frame's."""
     M = synth_euroc()
+    if t_loop is not None:
+        M.T_LOOP = float(t_loop)
     rng = np.random.default_rng(seed)
     tex = M.make_textures(rng)
     ts, imgs, centres = [], [], []
     for k in range(n_frames):
         t = k / M.CAM_HZ
-        R_wc, p = M.pose_at(t)
+        src = k if kidnap is None or k < kidnap[0] else kidnap[1] + k - kidnap[0]
+        R_wc, p = M.pose_at(src / M.CAM_HZ)
         img = M.render(tex, R_wc, p)
         imgs.append(np.clip(img + rng.normal(0, 1.5, img.shape), 0, 255).astype(np.uint8))
         ts.append(t)
@@ -531,34 +541,92 @@ class ReplayResult(NamedTuple):
     syncs: list  # host synchronisations inside it (None off CUDA)
     b2: list  # kernel B2 launches inside it
     b1: list  # kernel B1 launches inside it
+    gba_chunk: list  # whether a background GBA chunk ran after it
     n_kf: int
     n_mp: int
     ate: float  # Sim3-aligned ATE RMSE (m)
     render_s: float
+    # Place recognition (empty / 0 / None without a vocabulary):
+    loops: list  # per closure: dict(kf, loop_kf, frame, ate_before, ate_after)
+    gba_finished: int  # background GBA runs folded into the map
+    gba_aborted: int
+    lost: list  # frames after `kidnap[0]` that ended not OK
+    relocalized: int | None  # the first OK frame after a not-OK one since the kidnap
     system: object  # the System after the last frame
+
+    def frame_kinds(self) -> list:
+        """Each frame's kind: "init" (before the first OK), "lost" (not OK),
+        "reloc" (OK after a not-OK frame), "keyframe", "gba" (a GBA chunk
+        ran after it) or "tracked"."""
+        kinds, seen_ok = [], False
+        for k, state in enumerate(self.states):
+            if not seen_ok:
+                kind = "init"
+            elif state != "OK":
+                kind = "lost"
+            elif self.states[k - 1] != "OK":
+                kind = "reloc"
+            elif self.keyframe[k]:
+                kind = "keyframe"
+            elif self.gba_chunk[k]:
+                kind = "gba"
+            else:
+                kind = "tracked"
+            seen_ok |= state == "OK"
+            kinds.append(kind)
+        return kinds
 
 
 def mono_replay(device, n_frames: int, seed: int = 0,
-                orb: feat.OrbParams = EUROC_MONO["orb"]) -> ReplayResult:
+                orb: feat.OrbParams = EUROC_MONO["orb"], vocabulary: str | None = None,
+                t_loop: float | None = None, kidnap: tuple[int, int] | None = None,
+                on_frame: Callable | None = None) -> ReplayResult:
     """Drive `System(MONOCULAR)` with ORB parameters `orb` through
     `track_monocular` over the first `n_frames` of the synthetic EuRoC
     sequence on `device` and score it. On a CUDA device every frame runs
     with PyTorch's sync debug mode at "warn", and the synchronisations each
-    frame makes are counted."""
+    frame makes are counted.
+
+    With `vocabulary` (the path of a DBoW2 binary vocabulary) place
+    recognition runs at the reference's defaults, and the ATE is read
+    before and after each loop correction. `t_loop` and `kidnap` shape the
+    sequence (`euroc_frames`); after the last frame a running background
+    GBA is run to its end (`System.shutdown`). `on_frame(k, system)` is
+    called after each frame."""
+    from orbslam3_tpu_torch.io.vocab_io import load_binary_vocabulary
     from orbslam3_tpu_torch.ops import cuda_fast, cuda_match
     from orbslam3_tpu_torch.system import Sensor, System
 
     t0 = time.perf_counter()
-    gt_ts, imgs, gt_pos = euroc_frames(n_frames, seed)
+    gt_ts, imgs, gt_pos = euroc_frames(n_frames, seed, t_loop=t_loop, kidnap=kidnap)
     render_s = time.perf_counter() - t0
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     cfg = EUROC_MONO
     slam = System(Sensor.MONOCULAR, cam.CameraModel.PINHOLE, cfg["camera"], cfg["img_wh"],
                   orb, device=dev, Kmax=cfg["Kmax"], Pmax=cfg["Pmax"], fps=cfg["fps"])
-    states, keyframe, ms, syncs, b2, b1 = [], [], [], [], [], []
-    for t, img in zip(gt_ts, imgs):
+    loops = []
+    if vocabulary is not None:
+        slam.enable_place_recognition(load_binary_vocabulary(vocabulary, dev))
+        frame_no = [0]
+
+        def on_correction(phase, kf_id, loop_kf):
+            ts, pos = slam.get_trajectory()
+            ate = ate_rmse(ts, pos, gt_ts, gt_pos, with_scale=True, max_dt=0.01)
+            if phase == "before":
+                loops.append(dict(kf=int(kf_id), loop_kf=int(loop_kf), frame=frame_no[0],
+                                  ate_before=ate))
+            else:
+                loops[-1]["ate_after"] = ate
+
+        slam.loop_closer.on_correction = on_correction
+    gba = slam.loop_closer.gba_async if slam.loop_closer is not None else None
+    states, keyframe, ms, syncs, b2, b1, chunks = [], [], [], [], [], [], []
+    for k, (t, img) in enumerate(zip(gt_ts, imgs)):
+        if vocabulary is not None:
+            frame_no[0] = k
         n2, n1 = cuda_fast.LAUNCHES, cuda_match.LAUNCHES
+        n_chunks = gba.n_chunks if gba is not None else 0
         if cuda:
             torch.cuda.synchronize(dev)
             torch.cuda.set_sync_debug_mode("warn")
@@ -575,9 +643,21 @@ def mono_replay(device, n_frames: int, seed: int = 0,
         keyframe.append(slam.tracker.last_kf_frame_id == frame.frame_id)
         b2.append(cuda_fast.LAUNCHES - n2)
         b1.append(cuda_match.LAUNCHES - n1)
+        chunks.append(gba is not None and gba.n_chunks > n_chunks)
+        if on_frame is not None:
+            on_frame(k, slam)
+    slam.shutdown()
     ts, pos = slam.get_trajectory()
     ate = ate_rmse(ts, pos, gt_ts, gt_pos, with_scale=True, max_dt=0.01)
+    lost, reloc = [], None
+    if kidnap is not None:
+        lost = [k for k in range(kidnap[0], n_frames) if states[k] != "OK"]
+        reloc = next((k for k in range(kidnap[0] + 1, n_frames)
+                      if states[k] == "OK" and states[k - 1] != "OK"), None)
     return ReplayResult(ts=ts, pos=pos, gt_ts=gt_ts, gt_pos=gt_pos, states=states,
-                        keyframe=keyframe, ms=ms, syncs=syncs, b2=b2, b1=b1,
+                        keyframe=keyframe, ms=ms, syncs=syncs, b2=b2, b1=b1, gba_chunk=chunks,
                         n_kf=slam.n_keyframes, n_mp=slam.n_map_points, ate=ate,
-                        render_s=render_s, system=slam)
+                        render_s=render_s, loops=loops,
+                        gba_finished=gba.n_finished if gba is not None else 0,
+                        gba_aborted=gba.n_aborted if gba is not None else 0,
+                        lost=lost, relocalized=reloc, system=slam)

@@ -5,8 +5,11 @@
 
 The first times the kernels of whichever `orbslam3_tpu_torch` is imported
 on the inputs that `chip_smoke.py --save-inputs INPUTS.pt` wrote (B2 on the
-EuRoC atlas, B1 at the main path's five calls), and prints one JSON line per
-kernel and call. The second builds the kernel library and prints, per
+EuRoC atlas; B1 at the main path's five calls and at the five of place
+recognition: the relocalization reference-keyframe match, its projection
+rescue, the loop verification's match, the Sim3 projection with an open
+octave band, SearchAndFuse), and prints one JSON line per kernel and call,
+with its bound and its launches in the replay that saved it. The second builds the kernel library and prints, per
 kernel, its SASS instructions by opcode (`cuobjdump -sass`) and its
 registers and shared memory (`cuobjdump -res-usage`). Both use only the
 wrappers' public API and the loaded library, so the same file, copied into
@@ -271,13 +274,14 @@ def sass_report(lib_path: str) -> Dict[str, Dict[str, object]]:
 # --- Inputs saved by chip_smoke.py, loaded here --------------------------
 
 
-def b1_record(label: str, args) -> Dict[str, object]:
+def b1_record(label: str, args, launches: Optional[int] = None) -> Dict[str, object]:
     """One B1 call's inputs, on the host, in a form any version of the
-    package can load."""
+    package can load, with its launches in the replay that made it."""
     desc_a, desc_b, valid_b, window = args
     cpu = lambda x: None if x is None else x.detach().cpu()  # noqa: E731
     return {"label": label, "desc_a": cpu(desc_a), "desc_b": cpu(desc_b),
-            "valid_b": cpu(valid_b), "window": None if window is None else [cpu(w) for w in window]}
+            "valid_b": cpu(valid_b), "window": None if window is None else [cpu(w) for w in window],
+            "launches": launches}
 
 
 def b1_args(rec: Dict[str, object], device):
@@ -299,8 +303,10 @@ def b1_edge_cases(seed: int = 0) -> List[Dict[str, object]]:
     infinite query and key positions, negative, zero and wider-than-image
     radii, keys at exactly |du| = r and |dv| = r and one ulp beyond, M = 1
     and 2, all keys invalid, many duplicate descriptors, and query counts
-    that are no multiple of any block size. Each case is a dict of da, db,
-    vb and (windowed) uvq, uvk, rad, octk, lo, hi."""
+    that are no multiple of any block size, and windows without octaves
+    (the open band, one radius or one per query). Each case is a dict of
+    da, db, vb and (windowed) uvq, uvk, rad and, where the band is gated,
+    octk, lo, hi."""
     rng = np.random.default_rng(seed)
     W, H = 160.0, 120.0
 
@@ -367,6 +373,15 @@ def b1_edge_cases(seed: int = 0) -> List[Dict[str, object]]:
         c = make(257, 1000, n_desc=4, windowed=windowed, rad=(10.0, 60.0))
         cases.append((f"duplicates_{'windowed' if windowed else 'all'}", c))
 
+    # No octaves (the loop closer's Sim3 projection): the open band, with
+    # one radius for all queries (0-d, stride 0) or one per query.
+    for name, rad in (("open_band_r8", np.float32(8.0)), ("open_band_per_query", None)):
+        c = make(300, 1000, rad=(2.0, 20.0))
+        del c["octk"], c["lo"], c["hi"]
+        if rad is not None:
+            c["rad"] = rad
+        cases.append((name, c))
+
     for n in (1, 31, 129, 1031):
         cases.append((f"n{n}", make(n, 777, rad=(4.0, 40.0))))
     return cases
@@ -420,11 +435,13 @@ def b1_case_args(case: Dict[str, np.ndarray], device):
     """The wrapper's arguments for one edge case, on `device`."""
     from orbslam3_tpu_torch.ops import cuda_match
 
-    t = lambda x: torch.from_numpy(np.array(x, copy=True)).to(device)  # noqa: E731
+    def t(x):
+        return None if x is None else torch.from_numpy(np.array(x, copy=True)).to(device)
+
     window = None
-    if "uvq" in case:
-        window = cuda_match.MatchWindow(*(t(case[k]) for k in ("uvq", "uvk", "rad", "octk",
-                                                                 "lo", "hi")))
+    if "uvq" in case:  # without "octk": the open octave band
+        window = cuda_match.MatchWindow(*(t(case.get(k)) for k in ("uvq", "uvk", "rad", "octk",
+                                                                     "lo", "hi")))
     return t(case["da"]), t(case["db"]), t(case["vb"]), window
 
 
@@ -481,9 +498,12 @@ def main(argv=None) -> int:
                       **time_b2(atlas, b2["min_th"], b2["ini_th"])}))
     for rec in saved["b1"]:
         args = b1_args(rec, dev)
+        bd = b1_bound(*args)
         print(json.dumps({"kernel": "hamming_top2", "call": rec["label"],
                           "shape": [args[0].shape[0], args[1].shape[0]],
-                          "windowed": args[3] is not None, **time_b1(args)}))
+                          "windowed": args[3] is not None, **time_b1(args),
+                          "bound_us": bd["bound_us"], "bound_by": bd["bound_by"],
+                          "launches": rec.get("launches")}))
     print(json.dumps({"device": torch.cuda.get_device_name(0)}))
     return 0
 

@@ -11,7 +11,10 @@ nothing: (n, 32) uint8 descriptors on 4-byte boundaries, bool key validity,
 float32 positions and radius, int32 octaves, every tensor contiguous on the
 queries' device. The radius is (n,) or one value for all queries (0-d, or
 expanded with stride 0), passed by stride, never copied. Any number of
-keys from 1: the kernel folds over them in tiles of 1024.
+keys from 1: the kernel folds over them in tiles of 1024. A window without
+octaves (`octave_k` None, as the loop closer's Sim3 projection asks) gets
+an open band: octave 0 for every key and [INT32_MIN, INT32_MAX] for every
+query, which every key passes, so the kernel stays as it is.
 """
 
 from __future__ import annotations
@@ -32,9 +35,31 @@ class MatchWindow(NamedTuple):
     uv_q: torch.Tensor  # (N, 2) predicted pixel positions of the queries
     uv_k: torch.Tensor  # (M, 2) keypoint pixel positions
     radius_q: torch.Tensor  # (N,) search radius per query (pixels)
-    octave_k: torch.Tensor  # (M,) keypoint octave
-    octave_lo: torch.Tensor  # (N,) inclusive lower octave gate
-    octave_hi: torch.Tensor  # (N,) inclusive upper octave gate
+    octave_k: Optional[torch.Tensor] = None  # (M,) keypoint octave; None: no octave gate
+    octave_lo: Optional[torch.Tensor] = None  # (N,) inclusive lower gate; None: open
+    octave_hi: Optional[torch.Tensor] = None  # (N,) inclusive upper gate; None: open
+
+
+_I32 = torch.iinfo(torch.int32)
+
+
+def open_band(window: Optional[MatchWindow], n: int, m: int) -> Optional[MatchWindow]:
+    """`window` with its missing octave gates filled by the open band, as
+    `matching.window_mask` reads them: no `octave_k`, no octave test at all;
+    no `octave_lo` or `octave_hi`, that side open."""
+    if window is None or None not in (window.octave_k, window.octave_lo, window.octave_hi):
+        return window
+    dev = window.uv_q.device
+
+    def full(k, v):
+        return torch.full((k,), v, dtype=torch.int32, device=dev)
+
+    if window.octave_k is None:
+        return window._replace(octave_k=full(m, 0), octave_lo=full(n, _I32.min),
+                               octave_hi=full(n, _I32.max))
+    return window._replace(
+        octave_lo=full(n, _I32.min) if window.octave_lo is None else window.octave_lo,
+        octave_hi=full(n, _I32.max) if window.octave_hi is None else window.octave_hi)
 
 
 def hamming_top2_plain(desc_a, desc_b, valid_b=None, window: Optional[MatchWindow] = None):
@@ -87,6 +112,7 @@ def kernel_args(desc_a: torch.Tensor, desc_b: torch.Tensor,
         _require("valid_b", valid_b, torch.bool, (m,), dev)
     if window is None:
         return n, m, 0
+    window = open_band(window, n, m)
     for name, x, dtype, shape in (
             ("uv_q", window.uv_q, torch.float32, (n, 2)),
             ("uv_k", window.uv_k, torch.float32, (m, 2)),
@@ -108,6 +134,7 @@ def hamming_top2(desc_a: torch.Tensor, desc_b: torch.Tensor,
     if not _build.use_kernel(desc_a):
         return hamming_top2_plain(desc_a, desc_b, valid_b, window)
     global LAUNCHES
+    window = open_band(window, desc_a.shape[0], desc_b.shape[0])
     n, m, rad_stride = kernel_args(desc_a, desc_b, valid_b, window)
     dev = desc_a.device
     d1 = torch.empty(n, dtype=torch.float32, device=dev)

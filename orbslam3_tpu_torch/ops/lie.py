@@ -1,4 +1,4 @@
-"""SO(3) / SE(3) operations on torch tensors — the slice's subset of
+"""SO(3) / SE(3) / Sim(3) operations on torch tensors — the port's subset of
 `orbslam3_tpu/ops/lie.py`, same conventions:
 
 * rotations are (..., 3, 3) float32 matrices;
@@ -29,6 +29,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
     )
 
 
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hat`: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def _theta(w: torch.Tensor):
     """(theta_safe, theta2, small), as the reference's `_theta`."""
     theta2 = torch.sum(w * w, dim=-1)
@@ -50,6 +55,37 @@ def exp_so3(w: torch.Tensor) -> torch.Tensor:
     a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
     b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / safe_t2)
     return _eye_like(W) + a[..., None, None] * W + b[..., None, None] * W2
+
+
+def log_so3(R: torch.Tensor) -> torch.Tensor:
+    """Logarithm SO(3) -> so(3), batched: the reference's atan2 form, with
+    the small-angle Taylor branch and the near-pi branch (axis from the
+    diagonal of (R + I) / 2, signs from the largest axis' column). The
+    1e-24 keeps the square root differentiable at 0 and pi, so derivatives
+    stay finite on every branch."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
+    w_skew = vee(R - R.transpose(-1, -2))  # 2 sin(theta) * axis
+    sin2 = 0.25 * torch.sum(w_skew * w_skew, dim=-1)
+    sin_t_n = torch.sqrt(sin2 + 1e-24)
+    theta = torch.atan2(sin_t_n, cos_t)
+    small = theta < 1e-4
+    near_pi = theta > torch.pi - 1e-3
+    safe_sin = torch.where(small | near_pi, torch.ones_like(sin_t_n), sin_t_n)
+    generic = w_skew * (theta / (2.0 * safe_sin))[..., None]
+    small_w = 0.5 * w_skew * (1.0 + theta[..., None] ** 2 / 6.0)
+    B = (R + _eye_like(R)) * 0.5
+    diag = torch.stack([B[..., 0, 0], B[..., 1, 1], B[..., 2, 2]], dim=-1)
+    diag_safe = torch.where(near_pi[..., None], torch.clamp(diag, min=1e-9),
+                            torch.ones_like(diag))
+    axis = torch.sqrt(diag_safe)
+    k = torch.argmax(diag, dim=-1)
+    col = torch.gather(B, -1, k[..., None, None].expand(*k.shape, 3, 1))[..., 0]
+    sign = torch.sign(torch.where(col == 0.0, torch.ones_like(col), col))
+    axis = axis * sign / torch.linalg.norm(axis * sign + _EPS, dim=-1, keepdim=True)
+    pi_w = axis * theta[..., None]
+    out = torch.where(small[..., None], small_w, generic)
+    return torch.where(near_pi[..., None], pi_w, out)
 
 
 def exp_se3(xi: torch.Tensor):
@@ -133,3 +169,52 @@ def se3_inv(R: torch.Tensor, t: torch.Tensor):
 def se3_compose(Ra, ta, Rb, tb):
     """(Ra, ta) * (Rb, tb): first apply b, then a."""
     return Ra @ Rb, torch.einsum("...ij,...j->...i", Ra, tb) + ta
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): (R, t, s), the loop closer's vertices and measurements
+# ---------------------------------------------------------------------------
+
+
+def sim3_apply(R, t, s, p):
+    """s * R @ p + t."""
+    return s[..., None] * torch.einsum("...ij,...j->...i", R, p) + t
+
+
+def sim3_inv(R, t, s):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return Rt, -s_inv[..., None] * torch.einsum("...ij,...j->...i", Rt, t), s_inv
+
+
+def sim3_compose(Ra, ta, sa, Rb, tb, sb):
+    """(Ra, ta, sa) * (Rb, tb, sb)."""
+    return Ra @ Rb, sa[..., None] * torch.einsum("...ij,...j->...i", Ra, tb) + ta, sa * sb
+
+
+def _sim3_V(phi: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """V(phi, sigma) = integral over [0, 1] of exp(sigma tau) exp_so3(phi tau),
+    by the reference's 32-point midpoint rule, its nodes evaluated as one
+    batch (the reference's `fori_loop` adds them in turn; the sums agree to
+    float32 rounding)."""
+    n_steps = 32
+    dt = 1.0 / n_steps
+    tau = (torch.arange(n_steps, dtype=phi.dtype, device=phi.device) + 0.5) * dt  # (32,)
+    R = exp_so3(phi[..., None, :] * tau[:, None])  # (..., 32, 3, 3)
+    w = dt * torch.exp(sigma[..., None] * tau)  # (..., 32)
+    return torch.sum(w[..., None, None] * R, dim=-3)
+
+
+def exp_sim3(xi: torch.Tensor):
+    """sim(3) -> Sim(3). ``xi = [rho (3), phi (3), sigma (1)]``."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    V = _sim3_V(phi, sigma)
+    return exp_so3(phi), torch.einsum("...ij,...j->...i", V, rho), torch.exp(sigma)
+
+
+def log_sim3(R, t, s):
+    """Sim(3) -> sim(3), inverting V on the translation."""
+    phi = log_so3(R)
+    sigma = torch.log(s)
+    rho = torch.linalg.solve(_sim3_V(phi, sigma), t[..., None])[..., 0]
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)

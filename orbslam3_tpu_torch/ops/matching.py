@@ -120,10 +120,11 @@ def match_nn(desc_a, desc_b, valid_a=None, valid_b=None, max_dist: float = TH_LO
 
 
 def search_by_projection(desc_query, uv_query, valid_query, desc_kp, uv_kp, valid_kp,
-                         radius, octave_kp, octave_lo, octave_hi,
+                         radius, octave_kp=None, octave_lo=None, octave_hi=None,
                          max_dist: float = TH_HIGH, ratio: float = 0.9) -> Matches:
     """Project-and-match: pixel window + octave band, ratio test within the
-    window (kernel B1 on CUDA tensors)."""
+    window (kernel B1 on CUDA tensors). Without `octave_kp` (or one side of
+    the band) the band is open, as in the reference's `window_mask`."""
     from orbslam3_tpu_torch.ops import cuda_match
 
     r = torch.as_tensor(radius, dtype=torch.float32, device=uv_query.device)

@@ -1,5 +1,8 @@
-"""Two-view reconstruction for monocular initialization on torch tensors —
-the H/F part of `orbslam3_tpu/ops/ransac.py` (`TwoViewReconstruction.cc`).
+"""Robust estimation on torch tensors — the port of
+`orbslam3_tpu/ops/ransac.py`: two-view reconstruction for monocular
+initialization (`TwoViewReconstruction.cc`), PnP RANSAC with its MLPnP
+polish for relocalization, and Horn's Sim3 with its RANSAC for loop
+closing.
 
 The reference's `vmap`s over the 200 hypotheses and the 12 motion
 candidates are batched tensor ops here. All geometry is in normalized
@@ -23,6 +26,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from orbslam3_tpu_torch.ops import lie
 
 TH_H_PX = 5.991
 TH_F_PX = 3.841
@@ -273,3 +278,205 @@ def reconstruct_two_views(p1: torch.Tensor, p2: torch.Tensor, valid: torch.Tenso
                & (second < 0.75 * n_best))
     return TwoViewResult(success=success, R=Rs[best], t=ts[best], points=X[best],
                          is_good=good[best], used_homography=use_H)
+
+
+# ---------------------------------------------------------------------------
+# PnP RANSAC: relocalization (`Tracking::Relocalization`)
+# ---------------------------------------------------------------------------
+#
+# The reference draws its minimal sets with `jax.random.categorical` over
+# `log(valid + 1e-9)`: uniformly over the valid rows, with replacement. The
+# port draws the same distribution with `torch.multinomial` from an explicit
+# generator, or takes the draws as `samples`.
+
+
+def _draw(valid: torch.Tensor, n_hyp: int, k: int, generator, samples):
+    if samples is None:
+        samples = torch.multinomial(valid.to(torch.float32), n_hyp * k, replacement=True,
+                                    generator=generator)
+    return samples.reshape(n_hyp, k).to(torch.int64)
+
+
+def _homog(X: torch.Tensor) -> torch.Tensor:
+    return torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)
+
+
+def _pnp_rows(Xh: torch.Tensor, rays: torch.Tensor, w=None) -> torch.Tensor:
+    """The (..., 2n, 12) DLT system of x ~ P X; rows weighted by `w`."""
+    z = torch.zeros_like(Xh)
+    r1 = torch.cat([Xh, z, -rays[..., 0:1] * Xh], dim=-1)
+    r2 = torch.cat([z, Xh, -rays[..., 1:2] * Xh], dim=-1)
+    if w is not None:
+        r1, r2 = r1 * w[..., None], r2 * w[..., None]
+    return torch.cat([r1, r2], dim=-2)
+
+
+def _pose_from_P(P: torch.Tensor, Xh: torch.Tensor, w=None):
+    """(R, t) of a DLT projection matrix (..., 3, 4): the global sign that
+    makes the projective depths positive (cheirality), then the polar
+    decomposition M = s R. The singular vectors' signs do not matter: P's
+    is fixed here, and U diag(1, 1, det) V^T is the same for any SVD."""
+    depth = torch.einsum("...nj,...j->...n", Xh, P[..., 2, :])
+    if w is not None:
+        depth = depth * w
+    sgn = torch.where(torch.sign(depth).sum(-1) < 0, -1.0, 1.0)
+    P = P * sgn[..., None, None]
+    U, S, Vt = torch.linalg.svd(P[..., :3])
+    det = torch.linalg.det(U @ Vt)
+    D = torch.diag_embed(torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1))
+    R = U @ D @ Vt
+    scale = S.mean(-1) * det
+    scale = torch.where(torch.abs(scale) < 1e-12, torch.full_like(scale, 1e-12), scale)
+    return R, P[..., 3] / scale[..., None]
+
+
+def _dlt_pnp(Xw: torch.Tensor, rays: torch.Tensor):
+    """Camera pose from >= 6 2D-3D pairs (leading axes batch): projection
+    DLT (the last right singular vector of the 12-column system) and
+    `_pose_from_P`."""
+    Xh = _homog(Xw)
+    A = _pnp_rows(Xh, rays)
+    _, _, vt = torch.linalg.svd(A, full_matrices=A.shape[-2] < 12)
+    return _pose_from_P(vt[..., -1, :].reshape(*A.shape[:-2], 3, 4), Xh)
+
+
+def _bearing_nullspace(b: torch.Tensor):
+    """Orthonormal (r, s) spanning the tangent plane of unit bearings b
+    (n, 3), from the axis least aligned with each."""
+    e = torch.nn.functional.one_hot(torch.argmin(torch.abs(b), dim=-1), 3).to(b.dtype)
+    r = torch.linalg.cross(b, e, dim=-1)
+    r = r / torch.clamp(torch.linalg.norm(r, dim=-1, keepdim=True), min=1e-12)
+    return r, torch.linalg.cross(b, r, dim=-1)
+
+
+def mlpnp_refine(R, t, Xw, rays, mask, iters: int = 5):
+    """The maximum-likelihood polish of `pnp_ransac` (`MLPnPsolver.cpp:
+    139-160`): Gauss-Newton on the projections of the predicted bearing
+    onto the observed bearing's nullspace, over a left-multiplied se(3)
+    twist; the Jacobian by forward-mode autodiff, as the reference's
+    `jax.jacfwd`."""
+    b = _homog(rays)
+    b = b / torch.linalg.norm(b, dim=-1, keepdim=True)
+    nr, ns = _bearing_nullspace(b)
+    w = mask.to(Xw.dtype)
+    eye6 = torch.eye(6, dtype=Xw.dtype, device=Xw.device)
+
+    def residuals(d, R, t):
+        Rc = lie.exp_so3(d[None, :3])[0] @ R  # 1-d intermediates (`optim/sim3.py`)
+        v = Xw @ Rc.T + (t + d[3:])
+        v = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-9)
+        return (torch.stack([(nr * v).sum(-1), (ns * v).sum(-1)], -1) * w[:, None]).reshape(-1)
+
+    zero = torch.zeros(6, dtype=Xw.dtype, device=Xw.device)
+    for _ in range(iters):
+        e = residuals(zero, R, t)
+        J = torch.func.jacfwd(residuals)(zero, R, t)
+        d = -torch.linalg.solve(J.T @ J + 1e-9 * eye6, J.T @ e)
+        R, t = lie.exp_so3(d[:3]) @ R, t + d[3:]
+    return R, t
+
+
+def pnp_ransac(Xw: torch.Tensor, rays: torch.Tensor, valid: torch.Tensor, sigma_norm: float,
+               generator: Optional[torch.Generator] = None, n_hyp: int = 256, sample: int = 6,
+               min_inliers: int = 15, samples: Optional[torch.Tensor] = None):
+    """RANSAC pose from 2D-3D matches (`Tracking.cc:3307-3344`): `n_hyp`
+    DLT poses on 6-point samples, the best by a loose gate (16x), two
+    refits on shrinking inlier sets (4x), the MLPnP polish, the strict
+    count. Returns (ok, R, t, inlier mask)."""
+    idx = _draw(valid, n_hyp, sample, generator, samples)
+    Rs, ts = _dlt_pnp(Xw[idx], rays[idx])
+    th = 5.991 * sigma_norm * sigma_norm
+
+    def count(R, t, factor):
+        Xc = torch.einsum("...ij,nj->...ni", R, Xw) + t[..., None, :]
+        proj = Xc[..., :2] / torch.clamp(Xc[..., 2:3], min=1e-9)
+        e = torch.sum((proj - rays) ** 2, dim=-1)
+        inl = valid & (Xc[..., 2] > 1e-3) & (e < th * factor)
+        return inl.to(torch.int32).sum(-1), inl
+
+    counts, inls = count(Rs, ts, 16.0)
+    mask = inls[torch.argmax(counts)]
+    Xh = _homog(Xw)
+
+    def refit(mask):
+        wm = mask.to(Xw.dtype)
+        A = _pnp_rows(Xh, rays, wm)
+        _, _, vt = torch.linalg.svd(A, full_matrices=A.shape[-2] < 12)
+        return _pose_from_P(vt[-1].reshape(3, 4), Xh, wm)
+
+    R, t = refit(mask)
+    R, t = refit(count(R, t, 4.0)[1])
+    R, t = mlpnp_refine(R, t, Xw, rays, count(R, t, 4.0)[1])
+    n_final, inl_final = count(R, t, 1.0)
+    return n_final >= min_inliers, R, t, inl_final
+
+
+# ---------------------------------------------------------------------------
+# Sim3 RANSAC (Horn's closed form): loop closing
+# ---------------------------------------------------------------------------
+
+
+def _horn_N(M: torch.Tensor) -> torch.Tensor:
+    """Horn's symmetric 4x4 matrix of a cross-covariance M (..., 3, 3)."""
+    Sxx, Sxy, Sxz = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    Syx, Syy, Syz = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    Szx, Szy, Szz = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    return torch.stack([
+        torch.stack([Sxx + Syy + Szz, Szy - Syz, Sxz - Szx, Syx - Sxy], -1),
+        torch.stack([Szy - Syz, Sxx - Syy - Szz, Sxy + Syx, Szx + Sxz], -1),
+        torch.stack([Sxz - Szx, Sxy + Syx, -Sxx + Syy - Szz, Syz + Szy], -1),
+        torch.stack([Syx - Sxy, Szx + Sxz, Syz + Szy, -Sxx - Syy + Szz], -1),
+    ], -2)
+
+
+def _horn_from_centred(X, Y, c1, c2, fix_scale: bool):
+    """(R, t, s) of Y ~= s R X from centred points (..., n, 3) and their
+    centroids. The quaternion is the top eigenvector of Horn's N (its sign
+    does not change R)."""
+    M = Y.transpose(-1, -2) @ X  # maps 1 -> 2
+    _, vecs = torch.linalg.eigh(_horn_N(M))
+    R = lie.mat_from_quat(vecs[..., :, -1])
+    if fix_scale:
+        s = torch.ones(R.shape[:-2], dtype=X.dtype, device=X.device)
+    else:
+        s = (torch.sum(Y * (X @ R.transpose(-1, -2)), dim=(-2, -1))
+             / torch.clamp(torch.sum(X * X, dim=(-2, -1)), min=1e-12))
+    t = c2 - s[..., None] * torch.einsum("...ij,...j->...i", R, c1)
+    return R, t, s
+
+
+def horn_sim3(P1: torch.Tensor, P2: torch.Tensor, fix_scale: bool = False):
+    """Closed-form similarity P2 ~= s R P1 + t from >= 3 pairs (Horn's
+    quaternion method, `Sim3Solver::ComputeSim3`); leading axes batch."""
+    c1, c2 = P1.mean(-2), P2.mean(-2)
+    return _horn_from_centred(P1 - c1[..., None, :], P2 - c2[..., None, :], c1, c2, fix_scale)
+
+
+def sim3_ransac(X1, X2, valid, err_px1, err_px2, project1, project2, uv1, uv2,
+                fix_scale: bool = False, generator: Optional[torch.Generator] = None,
+                n_hyp: int = 128, min_inliers: int = 20, samples: Optional[torch.Tensor] = None):
+    """Batched Sim3 RANSAC (`Sim3Solver::iterate`): `n_hyp` Horn fits on
+    3-point samples, the dual-reprojection inlier test (`CheckInliers`:
+    X1 -> image 2 within `err_px2`, X2 -> image 1 within `err_px1`), a
+    refit on the winner's inliers. Returns (ok, R, t, s, inlier mask) with
+    X2 ~= s R X1 + t."""
+    idx = _draw(valid, n_hyp, 3, generator, samples)
+    Rs, ts, ss = horn_sim3(X1[idx], X2[idx], fix_scale)
+
+    def count(R, t, s):
+        X1in2 = s[..., None, None] * torch.einsum("...ij,nj->...ni", R, X1) + t[..., None, :]
+        e2 = torch.sum((project2(X1in2) - uv2) ** 2, dim=-1)
+        X2in1 = (torch.einsum("...ji,...nj->...ni", R, X2 - t[..., None, :])
+                 / torch.clamp(s, min=1e-12)[..., None, None])
+        e1 = torch.sum((project1(X2in1) - uv1) ** 2, dim=-1)
+        inl = valid & (e1 < err_px1) & (e2 < err_px2)
+        return inl.to(torch.int32).sum(-1), inl
+
+    counts, inls = count(Rs, ts, ss)
+    wm = inls[torch.argmax(counts)].to(X1.dtype)[:, None]
+    nm = torch.clamp(wm.sum(), min=3.0)
+    c1 = (X1 * wm).sum(0) / nm
+    c2 = (X2 * wm).sum(0) / nm
+    R, t, s = _horn_from_centred((X1 - c1) * wm, (X2 - c2) * wm, c1, c2, fix_scale)
+    n_refit, inl_refit = count(R, t, s)
+    return n_refit >= min_inliers, R, t, s, inl_refit

@@ -1,8 +1,9 @@
 """Bundle adjustment on torch tensors — the dense-Schur path of
 `orbslam3_tpu/optim/ba.py` (`_solve_ba_dense`) on one device, with its
 residuals (`_linearize`, mono and stereo-`ur` rows), robust cost and
-closed-form 3x3 Cholesky. The matrix-free PCG path waits for ROADMAP A9,
-the two-camera rig rows for A12 and the sharded layouts for A15.
+closed-form 3x3 Cholesky. The matrix-free PCG path (with `lm.pcg`) waits
+for ROADMAP A15, where maps outgrow `auto_dense_schur`'s budget; the
+two-camera rig rows wait for A12 and the sharded layouts for A15.
 
 The problem is a fixed-shape batch: cameras (C), points (P), observations
 (O) with validity masks. Per LM iteration the reduced camera system
@@ -287,6 +288,14 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
                     cost=lin.cost)
 
 
+def auto_dense_schur(C: int, P: int, hbm_budget_bytes: int = 4 << 30) -> bool:
+    """The reference's choice of the explicit reduced camera system: its peak
+    memory, about 3 coupling tensors of C * P * 18 float32, within the
+    budget (C cameras, P points). At config 1's Kmax 256 and Pmax 16384
+    that is 0.9 GB, so global BA takes the dense path."""
+    return 3 * C * P * 18 * 4 <= hbm_budget_bytes
+
+
 def solve_ba(model: cam.CameraModel, params: torch.Tensor, prob: BAProblem, bf: float = 0.0,
              iters: int = 10, point_damping: float = 1e-6, dense_schur: bool = False,
              n_opt_prefix: Optional[int] = None, obs_per_cam: Optional[int] = None,
@@ -294,7 +303,8 @@ def solve_ba(model: cam.CameraModel, params: torch.Tensor, prob: BAProblem, bf: 
     """LM bundle adjustment. Only the dense-Schur path is ported."""
     if not dense_schur:
         raise NotImplementedError(
-            "the matrix-free PCG path of solve_ba is not ported yet (ROADMAP A9)")
+            "the matrix-free PCG path of solve_ba (maps beyond auto_dense_schur's budget) is "
+            "ROADMAP A15")
     return _solve_ba_dense(model, params, prob, bf, iters, point_damping,
                            n_opt_prefix=n_opt_prefix, obs_per_cam=obs_per_cam,
                            early_stop_tol=early_stop_tol)

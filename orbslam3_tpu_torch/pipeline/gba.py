@@ -1,0 +1,193 @@
+"""Global bundle adjustment over a whole map on torch tensors — the port of
+`orbslam3_tpu/pipeline/gba.py` (`RunGlobalBundleAdjustment`,
+`LoopClosing.cc:2513`) on one device; the distributed branches are ROADMAP
+A15.
+
+Every feature slot with a map point is one observation row, so at config
+1's Kmax 256 the problem has 256 cameras and 256 x Nf rows, and
+`auto_dense_schur` picks the dense path: a (6 Kmax)^2 reduced camera system
+in float32 (`optim/ba.py::_solve_ba_dense`, every camera in it).
+
+`AsyncGBA` is the reference's interruptible GBA: the map is snapshotted at
+`start`, each `tick` launches `chunk` LM iterations on the snapshot with no
+host read (nothing is read from them until `_finish`), `abort` drops the
+solve, and `_finish` reads the result back once and folds it into the
+current map, carrying the keyframes and points made meanwhile through
+their anchors (`LoopClosing.cc:2559-2680`).
+"""
+
+from __future__ import annotations
+
+import weakref
+
+import numpy as np
+import torch
+
+from orbslam3_tpu_torch.atlas import store as st
+from orbslam3_tpu_torch.optim import ba as ba_mod
+from orbslam3_tpu_torch.pipeline.tracking import fetch_bundle
+
+
+def build_gba_problem(state: st.MapState, fixed: torch.Tensor, sigma2_table) -> ba_mod.BAProblem:
+    """The whole-map `BAProblem` of a `MapState`: one observation row per
+    feature slot, valid where it holds a map point of a valid keyframe."""
+    K, Nf = state.Kmax, state.Nf
+    dev = state.kf_R.device
+    obs_mp = state.kf_mp.reshape(-1)
+    obs_cam = torch.arange(K, dtype=torch.int32, device=dev).repeat_interleave(Nf)
+    obs_valid = ((obs_mp >= 0) & state.kf_feat_valid.reshape(-1)
+                 & state.kf_valid[obs_cam.to(torch.int64)])
+    octave = torch.clamp(state.kf_octave.reshape(-1), 0, sigma2_table.shape[0] - 1)
+    return ba_mod.BAProblem(
+        cam_R=state.kf_R, cam_t=state.kf_t, cam_fixed=fixed, points=state.mp_pos,
+        point_valid=state.mp_valid, obs_cam=obs_cam, obs_point=torch.clamp(obs_mp, min=0),
+        obs_uv=state.kf_uv.reshape(-1, 2), obs_ur=state.kf_ur.reshape(-1),
+        obs_sigma2=sigma2_table[octave.to(torch.int64)], obs_valid=obs_valid)
+
+
+def gba_step(model, params, state: st.MapState, fixed, sigma2_table, bf: float, iters: int):
+    """`iters` LM iterations of the whole-map BA (the reference's `_gba_jit`):
+    (new state with the free poses and the valid points moved, cost)."""
+    prob = build_gba_problem(state, fixed, sigma2_table)
+    res = ba_mod.solve_ba(model, params, prob, bf=bf, iters=iters,
+                          dense_schur=ba_mod.auto_dense_schur(state.Kmax, state.Pmax))
+    new_state = state._replace(
+        kf_R=torch.where(fixed[:, None, None], state.kf_R, res.cam_R),
+        kf_t=torch.where(fixed[:, None], state.kf_t, res.cam_t),
+        mp_pos=torch.where(state.mp_valid[:, None], res.points, state.mp_pos),
+    )
+    return new_state, res.cost
+
+
+def _fixed(store: st.MapStore, fix_first: bool = True) -> torch.Tensor:
+    fixed = ~store.state.kf_valid
+    if fix_first:
+        fixed = fixed.clone()
+        fixed[0] = True
+    return fixed
+
+
+class AsyncGBA:
+    """Interruptible global BA, time-sliced from the frame loop (the
+    reference's transient GBA thread, `LoopClosing.cc:1323`, abort flag
+    `mbStopGBA`, `:1099-1118`)."""
+
+    def __init__(self, model, params, sigma2_table, bf: float = 0.0, iters: int = 10,
+                 chunk: int = 2):
+        self.model = model
+        self.params = params
+        self.sigma2_table = sigma2_table
+        self.bf = bf
+        self.iters = iters
+        self.chunk = chunk
+        self._state = None  # the in-flight optimized snapshot (device)
+        self.n_finished = 0
+        self.n_aborted = 0
+        self.n_chunks = 0  # chunks launched
+
+    @property
+    def running(self) -> bool:
+        return self._state is not None
+
+    def start(self, store: st.MapStore):
+        """Snapshot the map and begin the solve (a running one is aborted,
+        `LoopClosing.cc:1099`)."""
+        if self.running:
+            self.abort()
+        s = store.state
+        self._state = s
+        self._fixed = _fixed(store)
+        self._it = 0
+        # Host mirrors for the finish-time propagation guard.
+        self._valid0_kf = s.kf_valid.cpu().numpy().copy()
+        self._valid0_mp = s.mp_valid.cpu().numpy().copy()
+        self._first0 = s.mp_first_kf.cpu().numpy().copy()
+        self._ts0 = store.kf_ts.copy()
+        self._store_ref = weakref.ref(store)  # the snapshot's map, while it lives
+        self._R0, self._t0 = s.kf_R, s.kf_t
+
+    def abort(self):
+        """Drop the in-flight solve; the map keeps its pose-graph state."""
+        if self.running:
+            self._state = None
+            self.n_aborted += 1
+
+    def tick(self, store: st.MapStore) -> bool:
+        """Launch one chunk of iterations; True when the solve just finished
+        and its result was folded into `store`."""
+        if not self.running:
+            return False
+        if self._store_ref() is not store:  # reset: the snapshot is another map's
+            self.abort()
+            return False
+        n = min(self.chunk, self.iters - self._it)
+        self._state, _ = gba_step(self.model, self.params, self._state, self._fixed,
+                                  self.sigma2_table, self.bf, n)
+        self._it += n
+        self.n_chunks += 1
+        if self._it < self.iters:
+            return False
+        self._finish(store)
+        return True
+
+    def join(self, store: st.MapStore):
+        """Run to completion (`System::Shutdown`, `System.cc:474-500`)."""
+        while self.running:
+            self.tick(store)
+
+    def _finish(self, store: st.MapStore):
+        """Fold the optimized snapshot into the current map with the
+        spanning-tree propagation of `LoopClosing.cc:2559-2680`: keyframes
+        of the snapshot (same slot, same timestamp) take their GBA pose; a
+        keyframe made meanwhile keeps its pose relative to the snapshot
+        keyframe before it in time; points of the snapshot take their GBA
+        position, points made meanwhile ride their first keyframe's
+        correction from its current pose. One read-back of everything."""
+        opt = self._state
+        self._state = None
+        s = store.state
+        h = fetch_bundle(dict(Rg=opt.kf_R, tg=opt.kf_t, pg=opt.mp_pos, R0=self._R0, t0=self._t0,
+                              Rc=s.kf_R, tc=s.kf_t, pc=s.mp_pos, valid_kf=s.kf_valid,
+                              valid_mp=s.mp_valid, first_now=s.mp_first_kf))
+        Rg, tg, pg, R0, t0, Rc, tc, pc = (h[k] for k in ("Rg", "tg", "pg", "R0", "t0", "Rc", "tc",
+                                                         "pc"))
+        valid_kf, valid_mp, first_now = h["valid_kf"], h["valid_mp"], h["first_now"]
+        in_gba = self._valid0_kf & valid_kf & (self._ts0 == store.kf_ts)
+        newR, newt = Rc.copy(), tc.copy()
+        newR[in_gba] = Rg[in_gba]
+        newt[in_gba] = tg[in_gba]
+        gba_ids = np.flatnonzero(in_gba)
+        if len(gba_ids):
+            order = gba_ids[np.argsort(store.kf_ts[gba_ids])]
+            for k in np.flatnonzero(valid_kf & ~in_gba):
+                pos = np.searchsorted(store.kf_ts[order], store.kf_ts[k])
+                a = order[min(max(pos - 1, 0), len(order) - 1)]
+                R_rel = Rc[k] @ R0[a].T  # T_k T_a^-1
+                t_rel = tc[k] - R_rel @ t0[a]
+                newR[k] = R_rel @ Rg[a]
+                newt[k] = R_rel @ tg[a] + t_rel
+        in_gba_mp = self._valid0_mp & valid_mp & (self._first0 == first_now)
+        newp = pc.copy()
+        newp[in_gba_mp] = pg[in_gba_mp]
+        for p in np.flatnonzero(valid_mp & ~in_gba_mp):
+            a = first_now[p]
+            if a < 0 or not valid_kf[a]:
+                continue
+            Xc = Rc[a] @ newp[p] + tc[a]  # the anchor's frame before the correction
+            newp[p] = newR[a].T @ (Xc - newt[a])
+        T = store.tensor
+        store.state = s._replace(kf_R=T(newR.astype(np.float32)), kf_t=T(newt.astype(np.float32)),
+                                 mp_pos=T(newp.astype(np.float32)))
+        store.bump()
+        self.n_finished += 1
+
+
+def global_ba(store: st.MapStore, model, params, sigma2_table, bf: float = 0.0, iters: int = 10,
+              fix_first: bool = True) -> float:
+    """Whole-map BA in one go (10 iterations, `LoopClosing.cc:2520`);
+    mutates the store, returns the final robust cost (a host read)."""
+    new_state, cost = gba_step(model, params, store.state, _fixed(store, fix_first),
+                               sigma2_table, bf, iters)
+    store.state = new_state
+    store.bump()
+    return float(cost)

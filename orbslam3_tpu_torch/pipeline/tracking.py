@@ -3,8 +3,9 @@ path of `orbslam3_tpu/pipeline/tracking.py`: the device programs of one
 tracked frame (`_track_last_frame` (motion model), `_track_reference_kf`
 (fallback), `_local_point_mask`, `_track_local_map_match`,
 `_pose_opt_from_assoc`, `compute_obs_count` and `_track_step`, which chains
-them), the initialization matcher `_match_for_initialization`, and the host
-state machine `Tracker` (two-view initialization, tracking, the keyframe
+them), the initialization matcher `_match_for_initialization`,
+relocalization's `_projection_rescue_match`, and the host state machine
+`Tracker` (two-view initialization, tracking, relocalization, the keyframe
 policy, keyframe insertion).
 
 Scatters with duplicate indices (fault C6). The reference writes
@@ -121,6 +122,31 @@ def _track_local_map_match(model, params, R, t, state: st.MapState, local_mask,
     m = matching.assign_unique(m, f_cur.desc.shape[0])
     src = torch.arange(state.Pmax, dtype=torch.int32, device=cur_assoc.device)
     return st.scatter_rows(cur_assoc, m.idx, m.valid, src), visible
+
+
+def _projection_rescue_match(model, params, R, t, state: st.MapState, point_mask,
+                             f_cur: feat.Features, cur_assoc, img_wh, base_radius: float,
+                             max_dist: float, n_levels: int = 8):
+    """Relocalization's guided second chance (`Tracking.cc:3376-3424`,
+    `ORBmatcher::SearchByProjection(Frame, KeyFrame*, ...)`): project the
+    candidate keyframe's points at the coarse pose and match them into the
+    frame's free keypoints inside base_radius x 1.2^level, octave-gated,
+    with a plain Hamming budget and no ratio test (kernel B1 over all Pmax
+    queries); the found rows are merged into `cur_assoc`."""
+    uv, visible, lvl, _ = fr.frustum_and_scale(
+        model, params, R, t, state.mp_pos, state.mp_valid & point_mask, state.mp_normal,
+        state.mp_min_dist, state.mp_max_dist, img_wh, n_levels=n_levels,
+    )
+    already = st.flag(state.Pmax, torch.clamp(cur_assoc, min=0), cur_assoc >= 0)
+    r = base_radius * 1.2 ** lvl.to(torch.float32)
+    m = matching.search_by_projection(
+        state.mp_desc, uv, visible & ~already, f_cur.desc, f_cur.uv, f_cur.valid & (cur_assoc < 0),
+        radius=r, octave_kp=f_cur.octave, octave_lo=torch.clamp(lvl - 1, min=0),
+        octave_hi=lvl + 1, max_dist=max_dist, ratio=1.0,
+    )
+    m = matching.assign_unique(m, f_cur.desc.shape[0])
+    src = torch.arange(state.Pmax, dtype=torch.int32, device=cur_assoc.device)
+    return st.scatter_rows(cur_assoc, m.idx, m.valid, src)
 
 
 def _pose_opt_from_assoc(model, params, R0, t0, assoc, f_cur: feat.Features, mp_pos,
@@ -283,8 +309,9 @@ class Tracker:
     (`Tracking::Track`): NO_IMAGES_YET -> NOT_INITIALIZED -> OK <->
     RECENTLY_LOST -> LOST. Stereo, RGB-D and the two-camera rig (A10, A12)
     and the inertial branches (A11) are not ported: their entry points
-    raise. Relocalization needs a keyframe database (A9); without one it
-    fails, as the reference's does.
+    raise. Relocalization needs a keyframe database (place recognition,
+    `System.enable_place_recognition`); without one it fails, as the
+    reference's does.
 
     Host synchronisations: a tracked frame that inserts no keyframe makes
     `HOST_SYNCS_PER_FRAME` = 2, both inside `_track_step`: the read of the
@@ -322,7 +349,7 @@ class Tracker:
         self.trajectory = []  # (ts, store, ref kf, R_cr, t_cr)
         self.new_kf_callback = None  # set by System: runs local mapping
         self.anomaly_cb = None  # set by System: called with "reorder" (timestamp went back)
-        self.kfdb = None  # keyframe database (place recognition, A9)
+        self.kfdb = None  # keyframe database (set by enable_place_recognition)
         # NeedNewKeyFrame policy state (ref `Tracking.cc:2577-2715`).
         self.max_frames = max(1, int(round(fps)))  # ref mMaxFrames = fps
         self.min_frames = 0  # ref mMinFrames
@@ -651,11 +678,66 @@ class Tracker:
         return True
 
     def _relocalize(self, cur: fr.FrameData) -> bool:
-        """`Tracking::Relocalization` needs the keyframe database of place
-        recognition (A9); without one it fails, as the reference's does."""
+        """`Tracking::Relocalization` (`Tracking.cc:3248`): keyframe-database
+        candidates, then per candidate the reference-keyframe match (kernel
+        B1 twice), PnP RANSAC (its samples from a generator seeded with the
+        frame id, as the reference's `PRNGKey(frame_id)`), the pose solve,
+        and below the accept threshold the 10 px and 3 px projection passes
+        (B1 over all Pmax points). Without a keyframe database (no place
+        recognition) it fails, as the reference's does. Its host reads are
+        the reference's, one sync each on the card."""
         if self.kfdb is None:
             return False
-        raise NotImplementedError("relocalization is ROADMAP A9")
+        s = self.store.state
+        f = cur.features
+        covis = self.store.tensor(self.store.covisibility_np())
+        cand_ids, _ = self.kfdb.query_frame(f.desc, f.valid, covis)
+        rays = cam.unproject(self.model, self.params, f.uv)[:, :2]
+        # The reference's nGood >= 50 (`Tracking.cc:3430`) scaled to the
+        # feature budget, floored at 15.
+        thr = max(15, int(round(50 * self.orb.n_features / 1000.0)))
+
+        def solve(R, t, assoc):
+            return _pose_opt_from_assoc(self.model, self.params, R, t, assoc, f, s.mp_pos,
+                                        s.mp_valid, self.sigma2_table)
+
+        def rescue(res, assoc, kf_mask, radius, max_dist):
+            assoc = torch.where(res.inlier, assoc, torch.full_like(assoc, -1))
+            assoc = _projection_rescue_match(self.model, self.params, res.R, res.t, s, kf_mask, f,
+                                             assoc, self.img_wh_t, base_radius=radius,
+                                             max_dist=max_dist, n_levels=self.orb.n_levels)
+            return solve(res.R, res.t, assoc), assoc
+
+        for c in cand_ids.cpu().numpy():
+            if c < 0:
+                continue
+            c = int(c)
+            assoc, n = _track_reference_kf(s.kf_desc[c], s.kf_feat_valid[c], s.kf_mp[c],
+                                           s.mp_valid, f)
+            if int(n) < 15:
+                continue
+            Xw = s.mp_pos[torch.clamp(assoc, min=0).to(torch.int64)]
+            gen = torch.Generator(device=self.device).manual_seed(int(cur.frame_id))
+            ok, R, t, _ = ransac.pnp_ransac(Xw, rays, (assoc >= 0) & f.valid,
+                                            sigma_norm=1.0 / self.focal, generator=gen)
+            if not bool(ok):
+                continue
+            res = solve(R, t, assoc)
+            n_good = int(res.n_inliers)
+            if n_good < thr:
+                kf_mask = _local_point_mask(s, self.store.tensor(np.asarray([c], np.int32)))
+                res, assoc = rescue(res, assoc, kf_mask, 10.0, float(matching.TH_HIGH))
+                n_good = int(res.n_inliers)
+                if thr * 0.6 <= n_good < thr:
+                    res, assoc = rescue(res, assoc, kf_mask, 3.0, float(matching.TH_LOW))
+                    n_good = int(res.n_inliers)
+            if n_good >= thr:
+                cur.R = res.R.cpu().numpy()
+                cur.t = res.t.cpu().numpy()
+                cur.mp_assoc = torch.where(res.inlier, assoc, -1).cpu().numpy()
+                self.ref_kf = c
+                return True
+        return False
 
     def _need_new_keyframe(self, cur: fr.FrameData, n_inl: int, ref_matches: int) -> bool:
         """`NeedNewKeyFrame` for a monocular, visual tracker with the

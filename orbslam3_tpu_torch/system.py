@@ -7,11 +7,14 @@ wires a `Tracker` and a synchronous `LocalMapper` over one `MapStore` on
 is none and never falls back), the CPU (the kernels' plain versions) only
 when the caller asks for it with `device="cpu"`.
 `track_monocular(img, timestamp)` runs a frame (and, on a new
-keyframe, its mapping pass; a frame older than the last one first resets
-the active map) and `get_trajectory()` reads the camera centres back
-through the current keyframe poses. Not ported yet: the other sensors
-(stereo and RGB-D A10, inertial A11), the fisheye model (A12), place
-recognition and loop closing (A9), multi-map, atlas save/load and the
+keyframe, its mapping pass, then the keyframe's hand-off to loop closing;
+a frame older than the last one first resets the active map) and
+`get_trajectory()` reads the camera centres back through the current
+keyframe poses. `enable_place_recognition(vocabulary)` attaches a keyframe
+database and a `LoopCloser` (relocalization of a lost map, loop closing,
+the background global BA, one chunk of it after each frame), all on the
+system's device. Not ported yet: the other sensors (stereo and RGB-D A10,
+inertial A11), the fisheye model (A12), multi-map, atlas save/load and the
 trajectory writers (A13, A14), asynchronous mapping and localization mode
 (A14).
 """
@@ -66,10 +69,54 @@ class System:
         self.mapper.tracker = self.tracker
         self.tracker.new_kf_callback = self._on_new_keyframe
         self.tracker.anomaly_cb = self._on_timestamp_anomaly
+        self.loop_closer = None
+        # Consumers of a keyframe after its mapping pass (the LocalMapping ->
+        # LoopClosing hand-off, `LocalMapping.cc:280`).
+        self._kf_downstream = []
         self._lost_streak = 0
 
     def _on_new_keyframe(self, slot: int, initial: bool = False):
         self.mapper.process_keyframe(slot, initial=initial)
+        for d in self._kf_downstream:
+            d(slot)
+
+    def enable_place_recognition(self, vocabulary, run_gba: bool = True,
+                                 min_bow_matches: int = 20, min_sim3_inliers: int = 20,
+                                 consecutive: int = 3, async_gba: bool = True):
+        """Attach a vocabulary (`ops/bow.py::Vocabulary`, moved to the
+        system's device): a keyframe database for relocalization and a
+        `LoopCloser` fed every keyframe after its mapping pass
+        (`System.cc:83-95`). `consecutive` keyframes must confirm a loop
+        (`LoopClosing.cc:367`); `async_gba` runs the global BA in chunks
+        after the frames instead of at once."""
+        from orbslam3_tpu_torch.atlas.kfdb import KeyFrameDB
+        from orbslam3_tpu_torch.ops import bow
+        from orbslam3_tpu_torch.pipeline.gba import AsyncGBA
+        from orbslam3_tpu_torch.pipeline.loop_closing import LoopCloser
+
+        voc = bow.to_device(vocabulary, self.device)
+        kfdb = KeyFrameDB(voc, Kmax=self.store.state.Kmax)
+        self.tracker.kfdb = kfdb
+        t = self.tracker
+        self.loop_closer = LoopCloser(
+            t.model, t.params, self.store, kfdb, t.sigma2_table, run_gba=run_gba,
+            min_bow_matches=min_bow_matches, min_sim3_inliers=min_sim3_inliers,
+            consecutive=consecutive, img_wh=t.img_wh_t, scale_table=t.scale_table,
+            mapper=self.mapper)
+        if run_gba and async_gba:
+            self.loop_closer.gba_async = AsyncGBA(t.model, t.params, t.sigma2_table)
+        self._kf_downstream.append(self.loop_closer.process_keyframe)
+
+    @property
+    def n_loops_closed(self) -> int:
+        return 0 if self.loop_closer is None else self.loop_closer.n_loops_closed
+
+    def shutdown(self):
+        """`System::Shutdown` (`System.cc:474`): run a background GBA to its
+        end."""
+        lc = self.loop_closer
+        if lc is not None and lc.gba_async is not None:
+            lc.gba_async.join(self.store)
 
     def _on_timestamp_anomaly(self, kind: str):
         """`Tracking::Track` (Tracking.cc:987-996): a reordered frame
@@ -85,7 +132,15 @@ class System:
         return out
 
     def _post_frame(self):
+        self._tick_gba()
         self._lost_recovery_fallback()
+
+    def _tick_gba(self):
+        """One chunk of a running background GBA after each frame (the
+        reference's transient GBA thread, time-sliced)."""
+        lc = self.loop_closer
+        if lc is not None and lc.gba_async is not None and lc.gba_async.running:
+            lc.gba_async.tick(self.store)
 
     def _lost_recovery_fallback(self):
         """Hard-LOST policy without a multi-map atlas: a map of <= 10
@@ -116,6 +171,17 @@ class System:
         self.tracker.store = new
         self.mapper.store = new
         self.mapper.recent_mp = []
+        lc = self.loop_closer
+        if lc is not None:  # a fresh database for the fresh map
+            from orbslam3_tpu_torch.atlas.kfdb import KeyFrameDB
+
+            kfdb = KeyFrameDB(lc.kfdb.voc, Kmax=new.state.Kmax)
+            lc.kfdb = kfdb
+            lc.store = new
+            lc._pending = None
+            lc.last_loop_kf = -10_000
+            lc.loop_edges = []
+            self.tracker.kfdb = kfdb
 
     @property
     def tracking_state(self) -> TrackState:

@@ -275,3 +275,104 @@ def test_system_tracks_2000_features_on_card(dev):
         cuda_match.hamming_top2 = wrapped
     assert "OK" in rep.states and rep.states[-1] == "OK"
     assert calls and max(calls) == 2000
+
+
+# --- Place recognition on the card --------------------------------------
+
+
+def test_bow_transform_on_card_equals_cpu(dev):
+    """The 97k-word tree's descent on the card equals the CPU's, word for
+    word, on random descriptors, on the tree's own nodes and on invalid
+    rows (the per-level argmin takes the first child on ties in both)."""
+    import os
+
+    from orbslam3_tpu_torch.io.vocab_io import load_binary_vocabulary
+    from orbslam3_tpu_torch.ops import bow
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets",
+                        "ORBvoc_synth_100k.bin")
+    voc = load_binary_vocabulary(path, dev)
+    voc_h = bow.to_device(voc, "cpu")
+    rng = np.random.default_rng(0)
+    d = np.concatenate([rng.integers(0, 256, (1000, 32), dtype=np.uint8),
+                        voc_h.node_desc[rng.integers(1, voc.node_desc.shape[0], 500)].numpy()])
+    valid = rng.random(len(d)) > 0.1
+    got = bow.transform(voc, torch.from_numpy(d).to(dev), torch.from_numpy(valid).to(dev))
+    ref = bow.transform(voc_h, torch.from_numpy(d), torch.from_numpy(valid))
+    assert torch.equal(got.cpu(), ref) and (ref[torch.from_numpy(valid)] >= 0).all()
+    v_c, v_h = bow.bow_vector(voc, got), bow.bow_vector(voc_h, ref)
+    assert float((v_c.cpu() - v_h).abs().max()) <= 1e-6
+
+
+def test_pose_graph_on_card_equals_cpu(dev):
+    """The essential graph at config 1's Kmax 256 (a 1792 x 1792 float32
+    solve): a drifted 256-keyframe chain with 2-hop edges and a loop edge,
+    on the card within 1e-4 of the CPU."""
+    from orbslam3_tpu_torch.ops import lie
+    from orbslam3_tpu_torch.optim import pose_graph as pg
+
+    K = 256
+    rng = np.random.default_rng(1)
+    ang = np.linspace(0, 2 * np.pi, K, endpoint=False)
+    w = np.stack([np.zeros(K), ang, np.zeros(K)], -1).astype(np.float32)
+    R_true = lie.exp_so3(torch.from_numpy(w)).numpy().transpose(0, 2, 1)
+    c = np.stack([3 * np.sin(ang), np.zeros(K), 3 - 3 * np.cos(ang)], -1)
+    t_true = -np.einsum("kij,kj->ki", R_true, c).astype(np.float32)
+    drift = lie.exp_so3(torch.from_numpy(rng.normal(0, 2e-3, (K, 3)).astype(np.float32))).numpy()
+    R_est = np.einsum("kij,kjl->kil", np.cumprod(np.ones(K))[:, None, None] * drift, R_true)
+    t_est = (t_true + np.cumsum(rng.normal(0, 5e-3, (K, 3)), 0)).astype(np.float32)
+    ei, ej = [], []
+    for hop in (1, 2):
+        ei += list(range(K - hop))
+        ej += list(range(hop, K))
+    ei, ej = np.asarray(ei + [K - 1]), np.asarray(ej + [0])
+    Rba = np.einsum("eij,ekj->eik", R_est[ej], R_est[ei])
+    tba = t_est[ej] - np.einsum("eij,ej->ei", Rba, t_est[ei])
+    Rba[-1] = R_true[0] @ R_true[K - 1].T
+    tba[-1] = t_true[0] - Rba[-1] @ t_true[K - 1]
+    arrays = dict(R=R_est.astype(np.float32), t=t_est, s=np.ones(K, np.float32),
+                  fixed=np.arange(K) == 0, edge_i=ei.astype(np.int32), edge_j=ej.astype(np.int32),
+                  edge_R=Rba.astype(np.float32), edge_t=tba.astype(np.float32),
+                  edge_s=np.ones(len(ei), np.float32), edge_valid=np.ones(len(ei), bool),
+                  edge_weight=np.r_[np.ones(len(ei) - 1), 5.0].astype(np.float32))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        g = pg.PoseGraph(**{k: torch.from_numpy(np.array(v)).to(where) for k, v in arrays.items()})
+        out[where.type] = [x.cpu() for x in pg.solve_pose_graph(g, iters=12)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.isfinite(a).all()
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-4)
+
+
+def test_global_ba_256_cameras_on_card_equals_cpu(dev):
+    """Global BA at config 1's Kmax 256: every camera in the dense reduced
+    system (1536 x 1536), 256 x 256 observation rows, on the card within
+    1e-4 of the CPU (`tests/loop_scene.py::make_ba_map`, stereo rows on
+    every eighth keyframe fix the scale)."""
+    import loop_scene as LS
+
+    from orbslam3_tpu_torch.atlas import store as st
+    from orbslam3_tpu_torch.optim import ba as ba_mod
+    from orbslam3_tpu_torch.pipeline import gba
+
+    K = 256
+    arrays, info = LS.make_ba_map(K=K, Kmax=K, Pmax=2048, stereo=tuple(range(1, K, 8)))
+    rng = np.random.default_rng(2)
+    arrays["kf_t"][1:K] += rng.normal(0, 0.02, (K - 1, 3)).astype(np.float32)
+    arrays["mp_pos"][1:info["n_mp"]] += rng.normal(0, 0.05, (info["n_mp"] - 1, 3)).astype(
+        np.float32)
+    assert ba_mod.auto_dense_schur(K, 16384)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        store = st.MapStore(Kmax=K, Pmax=2048, Nf=256, device=where)
+        store.state = st.MapState(**{k: torch.from_numpy(np.array(v)).to(where)
+                                     for k, v in arrays.items()})
+        store.n_kf, store.n_mp, store.kf_ts = K, info["n_mp"], info["kf_ts"]
+        t0 = store.state.kf_t.clone()
+        gba.global_ba(store, CameraModel.PINHOLE, torch.from_numpy(LS.PARAMS.copy()).to(where),
+                      torch.from_numpy(feat.sigma2(feat.OrbParams(n_levels=4))).to(where), bf=30.0)
+        out[where.type] = store.state
+        assert float((store.state.kf_t - t0).abs().max()) > 1e-3
+    for k in ("kf_R", "kf_t", "mp_pos"):
+        np.testing.assert_allclose(getattr(out["cuda"], k).cpu().numpy(),
+                                   getattr(out["cpu"], k).numpy(), rtol=0, atol=1e-4, err_msg=k)

@@ -30,9 +30,9 @@ def _xla_masked(case):
     """The reference's masked distance matrix of one case."""
     D = mj._mask_matrix(mj.hamming_matrix(jnp.asarray(case["da"]), jnp.asarray(case["db"])),
                         None, jnp.asarray(case["vb"]))
-    if "uvq" in case:
-        m = mj.window_mask(*(jnp.asarray(case[k]) for k in ("uvq", "uvk", "rad", "octk", "lo",
-                                                             "hi")))
+    if "uvq" in case:  # without "octk", no octave gate (the open band)
+        m = mj.window_mask(*(None if case.get(k) is None else jnp.asarray(case[k])
+                             for k in ("uvq", "uvk", "rad", "octk", "lo", "hi")))
         D = jnp.where(m, D, mj.INF)
     return np.asarray(D)
 
@@ -190,3 +190,51 @@ def test_main_path_callers_pass_the_kernels_types(monkeypatch, n_features):
     assert len(seen) == 4 + mcfg.n_nb  # one fuse launch per neighbour
     if n_features > 1024:
         assert all(m == n_features for _, m, _ in seen)
+
+
+@pytest.mark.parametrize("missing", ["band", "octave_lo", "octave_hi"])
+def test_kernel_takes_the_open_octave_band(missing):
+    """A window without octaves (the loop closer's Sim3 projection), or
+    without one side of the band, passes the kernel's checks: the wrapper
+    fills the open band (octave 0 for every key, [INT32_MIN, INT32_MAX] for
+    every query), and leaves a given side as it is."""
+    w = _meta_args(m=1000)["window"]
+    w = w._replace(**({"octave_k": None, "octave_lo": None, "octave_hi": None}
+                      if missing == "band" else {missing: None}))
+    a = _meta_args(m=1000)
+    assert cuda_match.kernel_args(a["desc_a"], a["desc_b"], a["valid_b"], w) == (16, 1000, 1)
+    cpu = cuda_match.MatchWindow(*(None if x is None else torch.zeros(x.shape, dtype=x.dtype)
+                                   for x in w))
+    filled = cuda_match.open_band(cpu, 16, 1000)
+    lo, hi = torch.iinfo(torch.int32).min, torch.iinfo(torch.int32).max
+    if missing == "band":
+        assert (filled.octave_k == 0).all() and filled.octave_k.shape == (1000,)
+    assert (filled.octave_lo == (lo if missing != "octave_hi" else 0)).all()
+    assert (filled.octave_hi == (hi if missing != "octave_lo" else 0)).all()
+    assert all(x.dtype == torch.int32 for x in filled[3:])
+    assert cuda_match.open_band(filled, 16, 1000) is filled
+
+
+@pytest.mark.parametrize("name", ["open_band_r8", "open_band_per_query"])
+def test_search_by_projection_without_octaves_equals_reference(name):
+    """The port's `search_by_projection` called as the loop closer calls it
+    (one radius or one per query, no octave arguments, ratio 1.0) equals the
+    reference's, row for row: `idx` and `valid` everywhere, `dist` on the
+    valid queries (the port leaves query validity to the match's flags, as
+    B1 does; the reference also writes 1e9 into an invalid query's dist)."""
+    case = CASES[name]
+    rng = np.random.default_rng(3)
+    vq = rng.random(len(case["da"])) > 0.1
+    kw = dict(max_dist=mj.TH_HIGH, ratio=1.0)
+    got = tracking.matching.search_by_projection(
+        *(torch.from_numpy(np.array(case[k])) for k in ("da", "uvq")), torch.from_numpy(vq),
+        *(torch.from_numpy(np.array(case[k])) for k in ("db", "uvk", "vb")),
+        radius=torch.from_numpy(np.array(case["rad"])), **kw)
+    ref = mj.search_by_projection(
+        *(jnp.asarray(case[k]) for k in ("da", "uvq")), jnp.asarray(vq),
+        *(jnp.asarray(case[k]) for k in ("db", "uvk", "vb")), radius=jnp.asarray(case["rad"]),
+        **kw)
+    np.testing.assert_array_equal(got.idx.numpy(), np.asarray(ref.idx))
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
+    np.testing.assert_array_equal(got.dist.numpy()[vq], np.asarray(ref.dist)[vq])
+    assert got.valid.sum() > 50

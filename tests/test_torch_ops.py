@@ -178,3 +178,49 @@ def test_kernel_wrappers_never_fall_back_off_cpu(monkeypatch):
     # The CPU path runs the plain version and counts no launch.
     cuda_fast.fast_score_nms(torch.zeros((16, 16)), 7.0, 20.0)
     assert cuda_fast.LAUNCHES == n0
+
+
+def _near(rng, theta, n=16):
+    """Rotations at angle theta plus tiny offsets, random axes."""
+    axis = rng.normal(size=(n, 3))
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    ang = theta + rng.uniform(-1e-5, 1e-5, (n, 1)) * (theta > 0)
+    return np.asarray(lie_j.exp_so3(jnp.asarray((axis * ang).astype(np.float32))))
+
+
+@pytest.mark.parametrize("theta", [0.0, 1e-5, 0.7, 2.5, np.pi - 5e-4, np.pi])
+def test_log_so3_matches(theta):
+    """log_so3 within 1e-5 on every branch: at 0, the small-angle Taylor
+    branch, the generic one, and near and at pi (the axis from the
+    diagonal)."""
+    R = _near(np.random.default_rng(7), theta)
+    got = lie_t.log_so3(_t(R)).numpy()
+    ref = np.asarray(lie_j.log_so3(jnp.asarray(R)))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(lie_t.vee(lie_t.hat(_t(ref))).numpy(), ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("scale", [1e-6, 0.3, 2.0])
+def test_sim3_functions_match(scale):
+    """exp_sim3, log_sim3, sim3_apply, sim3_inv and sim3_compose within 1e-5
+    (the 32-point quadrature of V summed in the same order)."""
+    rng = np.random.default_rng(8)
+    xi = (rng.normal(size=(20, 7)) * scale).astype(np.float32)
+    xi[:, 6] = np.clip(xi[:, 6], -0.7, 0.7)
+    Rj, tj, sj = lie_j.exp_sim3(jnp.asarray(xi))
+    Rt, tt, st = lie_t.exp_sim3(_t(xi))
+    for a, b in ((Rt, Rj), (tt, tj), (st, sj)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lie_t.log_sim3(Rt, tt, st).numpy(),
+                               np.asarray(lie_j.log_sim3(Rj, tj, sj)), rtol=0, atol=1e-5)
+    p = rng.normal(size=(20, 3)).astype(np.float32)
+    np.testing.assert_allclose(lie_t.sim3_apply(Rt, tt, st, _t(p)).numpy(),
+                               np.asarray(lie_j.sim3_apply(Rj, tj, sj, jnp.asarray(p))),
+                               rtol=1e-5, atol=1e-5)
+    for a, b in zip(lie_t.sim3_inv(Rt, tt, st), lie_j.sim3_inv(Rj, tj, sj)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)
+    perm = rng.permutation(20)
+    got = lie_t.sim3_compose(Rt, tt, st, Rt[perm], tt[perm], st[perm])
+    ref = lie_j.sim3_compose(Rj, tj, sj, Rj[perm], tj[perm], sj[perm])
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)

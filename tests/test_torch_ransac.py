@@ -1,6 +1,6 @@
 """Port parity: monocular two-view initialization (`ops/ransac.py`'s H/F
-part), the rotation-consistency filter and the initialization matcher,
-against the JAX package on the CPU.
+part), PnP RANSAC and Horn's Sim3 with its RANSAC, the rotation-consistency
+filter and the initialization matcher, against the JAX package on the CPU.
 
 The port gets the reference's own minimal sets (`samples`, drawn here
 exactly as `reconstruct_two_views` draws them with `jax.random`).
@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from orbslam3_tpu.ops import features as feat_j
+from orbslam3_tpu.ops import lie as lie_j
 from orbslam3_tpu.ops import matching as mt_j
 from orbslam3_tpu.ops import ransac as rs_j
 from orbslam3_tpu.pipeline import tracking as trk_j
@@ -29,6 +30,10 @@ from orbslam3_tpu_torch.pipeline import tracking as trk_t
 from test_ransac import two_view_scene
 
 torch.set_num_threads(1)  # the tier-1 run has 6 xdist workers
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
 
 
 def _jax_samples(key, valid):
@@ -161,3 +166,116 @@ def test_match_for_initialization_exact(seed):
     np.testing.assert_array_equal(got.idx.numpy(), np.asarray(ref.idx))
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
     np.testing.assert_array_equal(got.dist.numpy(), np.asarray(ref.dist))
+
+
+# --- PnP and Sim3 (relocalization, loop closing) ---------------------------
+# The port gets the reference's own draws (`samples`, as `jax.random.
+# categorical` draws them from the key): the outcome (ok, inlier set) must
+# be equal and the pose within 1e-4.
+
+
+def _categorical(key, valid, shape):
+    logits = jnp.log(jnp.asarray(valid, jnp.float32) + 1e-9)
+    return np.array(jax.random.categorical(key, logits[None, None, :], shape=shape))
+
+
+def _pnp_scene(seed, n=200, out_frac=0.25):
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), rng.uniform(3, 8, n)],
+                   -1).astype(np.float32)
+    R = np.asarray(lie_j.exp_so3(jnp.asarray(rng.normal(0, 0.2, 3), jnp.float32)))
+    t = rng.normal(0, 0.4, 3).astype(np.float32)
+    Xw = ((pts - t) @ R).astype(np.float32)
+    rays = pts[:, :2] / pts[:, 2:3] + rng.normal(0, 1.0 / 450, (n, 2))
+    bad = rng.choice(n, int(n * out_frac), replace=False)
+    rays[bad] += rng.uniform(0.05, 0.2, (len(bad), 2)) * np.sign(rng.normal(size=(len(bad), 2)))
+    valid = rng.random(n) > 0.1
+    return Xw, rays.astype(np.float32), valid, R, t, bad
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pnp_ransac_matches_reference(seed):
+    Xw, rays, valid, R, t, bad = _pnp_scene(seed)
+    key = jax.random.PRNGKey(seed + 3)
+    ok_j, R_j, t_j, inl_j = rs_j.pnp_ransac(jnp.asarray(Xw), jnp.asarray(rays), jnp.asarray(valid),
+                                            key, sigma_norm=1.0 / 450)
+    samples = torch.from_numpy(_categorical(key, valid, (256, 6)))
+    ok_t, R_t, t_t, inl_t = rs_t.pnp_ransac(_t(Xw), _t(rays), _t(valid), sigma_norm=1.0 / 450,
+                                            samples=samples)
+    assert bool(ok_t) == bool(ok_j) is True
+    np.testing.assert_array_equal(inl_t.numpy(), np.asarray(inl_j))
+    np.testing.assert_allclose(R_t.numpy(), np.asarray(R_j), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(t_t.numpy(), np.asarray(t_j), rtol=0, atol=1e-4)
+    assert np.abs(R_t.numpy() - R).max() < 0.02 and inl_t.numpy()[bad].mean() < 0.2
+
+
+def test_pnp_ransac_own_sampler_and_failure():
+    """With its own generator the port finds the pose; on pure outliers it
+    fails, as the reference does."""
+    Xw, rays, valid, R, t, _ = _pnp_scene(4)
+    gen = torch.Generator().manual_seed(0)
+    ok, R_t, t_t, _ = rs_t.pnp_ransac(_t(Xw), _t(rays), _t(valid), 1.0 / 450, generator=gen)
+    assert bool(ok) and np.abs(R_t.numpy() - R).max() < 0.02
+    noise = np.random.default_rng(5).uniform(-0.5, 0.5, rays.shape).astype(np.float32)
+    ok_t = rs_t.pnp_ransac(_t(Xw), _t(noise), _t(valid), 1.0 / 450, generator=gen)[0]
+    ok_j = rs_j.pnp_ransac(jnp.asarray(Xw), jnp.asarray(noise), jnp.asarray(valid),
+                           jax.random.PRNGKey(0), sigma_norm=1.0 / 450)[0]
+    assert not bool(ok_t) and not bool(ok_j)
+
+
+@pytest.mark.parametrize("fix_scale", [False, True])
+def test_horn_sim3_matches(fix_scale):
+    rng = np.random.default_rng(9)
+    P1 = rng.normal(size=(40, 3)).astype(np.float32)
+    R = np.asarray(lie_j.exp_so3(jnp.asarray([0.3, -0.5, 0.2], jnp.float32)))
+    P2 = (1.7 * P1 @ R.T + [0.3, 1.0, -2.0] + rng.normal(0, 0.01, P1.shape)).astype(np.float32)
+    for sl in (slice(0, 3), slice(0, 40)):
+        got = rs_t.horn_sim3(_t(P1[sl]), _t(P2[sl]), fix_scale)
+        ref = rs_j.horn_sim3(jnp.asarray(P1[sl]), jnp.asarray(P2[sl]), fix_scale)
+        for a, b in zip(got, ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-5)
+    got = rs_t.horn_sim3(_t(P1[None, :5]), _t(P2[None, :5]), fix_scale)  # batched
+    ref = rs_j.horn_sim3(jnp.asarray(P1[:5]), jnp.asarray(P2[:5]), fix_scale)
+    np.testing.assert_allclose(got[0][0].numpy(), np.asarray(ref[0]), rtol=0, atol=1e-5)
+
+
+def _sim3_scene(seed, n=150, n_out=40):
+    rng = np.random.default_rng(seed)
+    params = np.asarray([400.0, 400.0, 320.0, 240.0, 0, 0, 0, 0], np.float32)
+    X1 = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), rng.uniform(3, 9, n)],
+                  -1).astype(np.float32)
+    R = np.asarray(lie_j.exp_so3(jnp.asarray(rng.normal(0, 0.1, 3), jnp.float32)))
+    X2 = (1.2 * X1 @ R.T + [0.2, -0.1, 0.3]).astype(np.float32)
+    X2[:n_out] += rng.normal(0, 0.5, (n_out, 3)).astype(np.float32)
+
+    def proj(X):
+        return np.stack([400 * X[:, 0] / X[:, 2] + 320, 400 * X[:, 1] / X[:, 2] + 240], -1)
+
+    uv1 = (proj(X1) + rng.normal(0, 0.3, (n, 2))).astype(np.float32)
+    uv2 = (proj(1.2 * X1 @ R.T + [0.2, -0.1, 0.3]) + rng.normal(0, 0.3, (n, 2))).astype(np.float32)
+    valid = rng.random(n) > 0.05
+    err = np.full(n, 9.21 * 1.44, np.float32)
+    return params, X1, X2, uv1, uv2, valid, err, R, n_out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sim3_ransac_matches_reference(seed):
+    from orbslam3_tpu.ops import cameras as cam_j
+    from orbslam3_tpu_torch.ops import cameras as cam_t
+
+    params, X1, X2, uv1, uv2, valid, err, R, n_out = _sim3_scene(seed)
+    key = jax.random.PRNGKey(seed)
+    pj = jnp.asarray(params)
+    proj_j = lambda X: cam_j.project(cam_j.CameraModel.PINHOLE, pj, X)  # noqa: E731
+    proj_t = lambda X: cam_t.project(cam_t.CameraModel.PINHOLE, _t(params), X)  # noqa: E731
+    out_j = rs_j.sim3_ransac(jnp.asarray(X1), jnp.asarray(X2), jnp.asarray(valid), key,
+                             jnp.asarray(err), jnp.asarray(err), proj_j, proj_j,
+                             jnp.asarray(uv1), jnp.asarray(uv2))
+    out_t = rs_t.sim3_ransac(_t(X1), _t(X2), _t(valid), _t(err), _t(err), proj_t, proj_t,
+                             _t(uv1), _t(uv2),
+                             samples=torch.from_numpy(_categorical(key, valid, (128, 3))))
+    assert bool(out_t[0]) == bool(out_j[0]) is True
+    np.testing.assert_array_equal(out_t[4].numpy(), np.asarray(out_j[4]))
+    for a, b in zip(out_t[1:4], out_j[1:4]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-4)
+    assert abs(float(out_t[3]) - 1.2) < 0.01 and out_t[4].numpy()[:n_out].mean() < 0.1

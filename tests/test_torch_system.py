@@ -367,13 +367,90 @@ def test_system_takes_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing the System, the entry points and the kernel bench (and
-    loading the synthetic sequence's script) leaves JAX and the JAX package
-    out of the process."""
+    """Importing the System, the entry points, the kernel bench and place
+    recognition's modules (and loading the synthetic sequence's script)
+    leaves JAX and the JAX package out of the process."""
     code = ("import sys, orbslam3_tpu_torch.system, orbslam3_tpu_torch.entry as E, "
-            "orbslam3_tpu_torch.kernel_bench; "
+            "orbslam3_tpu_torch.kernel_bench, orbslam3_tpu_torch.pipeline.loop_closing, "
+            "orbslam3_tpu_torch.pipeline.gba, orbslam3_tpu_torch.io.vocab_io; "
             "E.synth_euroc(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'orbslam3_tpu')]; "
             "assert not bad, bad")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=300)
+
+
+# --- Place recognition: a kidnap, relocalization, reset -----------------
+
+KIDNAP = [2, 3, 4, 5]  # after frame 11, the images of these frames at 1.2 s, 1.3 s, ...
+
+
+@pytest.fixture(scope="module")
+def kidnap():
+    """Both systems with place recognition at the reference's defaults (the
+    9,975-word tree) over the 12 frames, then the kidnap."""
+    from orbslam3_tpu.io import vocab_io as vio_j
+
+    params, imgs, gt = _frames()
+    voc_j = vio_j.load_binary_vocabulary(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "ORBvoc_synth.bin"))
+    seq = [(k, k * 0.1) for k in range(N_FRAMES)] + [
+        (k, N_FRAMES * 0.1 + 0.1 * i) for i, k in enumerate(KIDNAP)]
+    slam_j = System_j(Sensor_j.MONOCULAR, cam_j.CameraModel.PINHOLE, params, (scene.W, scene.H),
+                      orb_params=feat_j.OrbParams(**ORB), Kmax=32, Pmax=4096)
+    _avoid_c6_j(slam_j)
+    slam_j.enable_place_recognition(voc_j)
+    slam_t = _port_system(params)
+    _avoid_c6_t(slam_t)
+    slam_t.enable_place_recognition(convert.vocabulary(voc_j, "cpu"))
+    out = {}
+    for name, slam in (("jax", slam_j), ("port", slam_t)):
+        states = []
+        for k, t in seq:
+            slam.track_monocular(imgs[k], t)
+            states.append(slam.tracking_state.name)
+        ts, pos = slam.get_trajectory()
+        out[name] = dict(states=states, ts=ts, pos=pos, slam=slam)
+    out["gt"] = (np.asarray([t for _, t in seq]), gt[[k for k, _ in seq]])
+    return out
+
+
+def test_kidnap_loses_track_and_relocalizes_as_the_reference(kidnap):
+    """Both systems go LOST on the first kidnapped frame and relocalize on
+    the next (keyframe database, PnP RANSAC, pose solve), with the same
+    state on every frame; afterwards both trajectories agree with the
+    truth and with each other (Sim3-aligned, within 0.02 m RMS)."""
+    sj, sp = kidnap["jax"], kidnap["port"]
+    assert sp["states"] == sj["states"]
+    assert sp["states"][N_FRAMES] != "OK" and sp["states"][N_FRAMES + 1] == "OK"
+    assert all(x == "OK" for x in sp["states"][N_FRAMES + 1:])
+    gt_ts, gt = kidnap["gt"]
+    a_p = _aligned(sp["ts"], sp["pos"], gt_ts, gt)
+    a_r = _aligned(sj["ts"], sj["pos"], gt_ts, gt)
+    after = [round(float(t), 6) for t in gt_ts[N_FRAMES + 1:]]
+    assert set(after) <= set(a_p) and set(after) <= set(a_r)
+    rms = np.sqrt(np.mean([np.sum((a_p[t] - a_r[t]) ** 2) for t in after]))
+    assert rms < 0.02, rms
+    err = ate_t.ate_rmse(sp["ts"], sp["pos"], gt_ts, gt, with_scale=True, max_dt=0.01)
+    assert err < 0.05, err
+    assert kidnap["port"]["slam"].tracker.last_reloc_frame_id == N_FRAMES + 1
+
+
+def test_place_recognition_defaults_and_reset_recreate_the_database(kidnap):
+    """`enable_place_recognition` takes the reference's defaults (GBA on,
+    in the background, 3 consecutive keyframes); every keyframe reached the
+    database; a reset gives the loop closer and the tracker one fresh,
+    empty database."""
+    slam = kidnap["port"]["slam"]
+    lc = slam.loop_closer
+    assert lc.run_gba and lc.gba_async is not None and lc.consecutive == 3
+    assert lc.min_bow_matches == 20 and lc.min_sim3_inliers == 20
+    assert slam.tracker.kfdb is lc.kfdb
+    n_kf = slam.n_keyframes
+    assert int(lc.kfdb.valid.sum()) == n_kf - 1  # all but keyframe 0, as the reference
+    assert slam.n_loops_closed == 0
+    old = lc.kfdb
+    slam.reset()
+    assert lc.kfdb is not old and slam.tracker.kfdb is lc.kfdb and lc.store is slam.store
+    assert not lc.kfdb.valid.any() and lc.loop_edges == [] and lc._pending is None
+    assert lc.kfdb.voc is old.voc
