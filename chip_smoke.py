@@ -13,7 +13,7 @@ the reference's scene and on a variant where triangulation and fuse find
 planted points, counts its host syncs, and times an amortized loop of
 tracked frames with a mapping pass every 14th. Phase 6 drives the
 monocular `System` end to end (`entry.mono_replay`: two-view
-initialization, tracking, keyframes and their mapping passes) over 120
+initialization, tracking, keyframes and their mapping passes) over 60
 frames of the synthetic EuRoC sequence at 752x480 / 1000 features, checks
 the map, the states and the Sim3 ATE against its gate, the kernels'
 launches and the host syncs per frame, compares a 20-frame prefix through
@@ -48,9 +48,27 @@ and through the plain versions (equal counts and associations, Sim3 and
 pose within 1e-4); it prints the ms of each verification, correction,
 SearchAndFuse, GBA chunk and of the relocalizing frame, the host syncs per
 frame kind, B1's launches per call site, and times B1 at place
-recognition's five calls. Every phase prints its lines; any failure ends
-the run with a non-zero exit. Without a CUDA device it exits non-zero and
-prints no result.
+recognition's five calls.
+
+Phase 11 drives the stereo `System` (config 2: `entry.replay(cuda, "stereo",
+120)`, the rectified pair at a 0.11 m baseline, bf 50.38) over 120 frames:
+initialization from frame 0 alone, no frame lost, the SE3 (unscaled) ATE
+within max(2 x the JAX `System`'s on the same frames, 0.01 m) and the Sim3
+scale within 2% of 1; 3 host syncs per tracked frame; B2 on both atlases of
+every frame, the right atlas's output exact against the plain version and
+timed; B1 launches and device times at its calls; the stereo match's ms per
+frame; the local BA's dense-Schur bytes with every observation kept; and
+its first 30 frames (initialization and the JAX System's second keyframe)
+equal through the kernels and through the plain versions (states,
+associations, `kf_ur` and `kf_mp` rows, map points; poses and points within
+1e-4). Phase 12 drives RGB-D (`track_rgbd` on the left image and its
+ray-cast depth, 60 frames, the same gates against the JAX `System(RGBD)`,
+its first 12 frames kernels vs plain) and raw stereo
+(`enable_rectification`, 30 frames: the remap on the card within 1e-4 of
+the CPU's, every frame OK, the SE3 ATE under phase 11's gate).
+
+Every phase prints its lines; any failure ends the run with a non-zero
+exit. Without a CUDA device it exits non-zero and prints no result.
 
     python3 chip_smoke.py --save-inputs FILE
 
@@ -85,11 +103,14 @@ N_HIDDEN = 100  # points only the local-map stage can find in phase 4
 N_PASSES = 5  # timed mapping passes in phase 5
 KF_EVERY = 14  # a mapping pass every 14th frame (bench.py's amortized cadence)
 N_AMORTIZED = 2 * KF_EVERY  # frames of the amortized loop
-N_REPLAY = 120  # frames of the monocular replay in phase 6 (6 s of camera)
+# Frames of the monocular replay in phase 6 (3 s of camera; cut from 120 for
+# the time limit: phase 10 drives the mono path over 260 frames).
+N_REPLAY = 60
 N_PREFIX = 20  # frames of its kernels-vs-plain prefix
-# Sim3 ATE gate of the replay: max(2 x the JAX System's ATE on the same 120
-# frames on a CPU, 0.01 m) (PERF.md, phase 6).
-ATE_GATE = 0.0186
+# Sim3 ATE gate of the replay: max(2 x the JAX System's ATE on the same 60
+# frames on a CPU, 0.01 m): 0.008386 m from `python tests/jax_stereo_replay.py
+# --mode mono --frames 60`.
+ATE_GATE = max(2 * 0.008386, 0.01)
 
 
 N_WIDE = 20  # frames of the 2000-feature System in phase 8
@@ -121,6 +142,23 @@ LAP_KIDNAP = (240, 40)  # from frame 240 on, the images of frames 40, 41, ...
 JAX_LAP_LOOP = (67, 5)  # the JAX System's closing keyframe pair
 JAX_LAP_ATE = 0.012894
 LAP_ATE_GATE = max(2 * JAX_LAP_ATE, 0.01)
+
+
+# Phases 11-12: the JAX `System` on the same frames on a CPU
+# (`python tests/jax_stereo_replay.py --mode stereo --frames 120`, `--mode rgbd
+# --frames 60`, `--mode raw --frames 30`): stereo initialized at frame 0,
+# keyframes at frames 28, 52, 106 and 114, SE3 ATE 0.011602 m, Sim3 scale
+# 1.0061; RGB-D SE3 ATE 0.005120 m, scale 1.0000; raw stereo 0.011558 m.
+N_STEREO = 120
+N_STEREO_PREFIX = 30  # frame 0's initialization and the JAX System's second keyframe (28)
+JAX_STEREO_ATE_SE3 = 0.011602
+STEREO_ATE_GATE = max(2 * JAX_STEREO_ATE_SE3, 0.01)
+N_RGBD = 60
+N_RGBD_PREFIX = 12
+JAX_RGBD_ATE_SE3 = 0.005120
+RGBD_ATE_GATE = max(2 * JAX_RGBD_ATE_SE3, 0.01)
+N_RAW = 30
+SCALE_TOL = 0.02  # |scale - 1|, the gate of tests/test_stereo_at_scale.py
 
 
 @contextlib.contextmanager
@@ -422,6 +460,11 @@ def phase10_loop_lap(dev) -> dict:
               f"phase 10: B1 never launched at {site}: {sites}")
     sysm = rep.system
 
+    # What the gates read, printed first so that a failed gate shows it.
+    print(f"phase 10 outcome: initialized at frame {rep.states.index('OK')}, loops "
+          f"{rep.loops}, GBA {rep.gba_finished} finished, {rep.gba_aborted} aborted; not OK "
+          f"after the kidnap at {rep.lost}, relocalized at {rep.relocalized}; ATE {rep.ate:.6f} m "
+          f"over {len(rep.ts)} poses", flush=True)
     # Gates.
     check(len(rep.loops) >= 1, f"no loop closed: states {rep.states}")
     lp = rep.loops[0]
@@ -521,6 +564,257 @@ def phase10_loop_lap(dev) -> dict:
                 n_levels=tr.orb.n_levels)
         args["reloc rescue"] = extra[0][1]
     return dict(rep=rep, sites=sites, launches=launches, args=args)
+
+
+@contextlib.contextmanager
+def _b2_calls(calls: list, frame: list):
+    """Within the block, append (frame, "left atlas" or "right atlas", atlas
+    or None) for every B2 wrapper call that launches: a frame's first call
+    is its left image's, the second its right's; the first right atlas is
+    kept. The wrapper runs unchanged, launch count included."""
+    from orbslam3_tpu_torch.ops import _build, cuda_fast
+
+    wrapped = cuda_fast.fast_score_nms
+
+    def recording(img, min_th, ini_th):
+        if _build.use_kernel(img):
+            right = any(f == frame[0] for f, _, _ in calls)
+            keep = right and not any(a is not None for _, _, a in calls)
+            calls.append((frame[0], "right atlas" if right else "left atlas",
+                          img.clone() if keep else None))
+        return wrapped(img, min_th, ini_th)
+
+    cuda_fast.fast_score_nms = recording
+    try:
+        yield calls
+    finally:
+        cuda_fast.fast_score_nms = wrapped
+
+
+def _prefix_recorder(n: int, into: dict):
+    """An `on_frame` for `entry.replay` that keeps, for the first `n` frames,
+    each frame's associations and pose, and after frame n - 1 the map's
+    keyframe rows and points (host copies, read after the frame's timing)."""
+    def on_frame(k, slam):
+        if k >= n:
+            return
+        f = slam.tracker.last_frame
+        into.setdefault("frames", []).append((f.mp_assoc.copy(), np.array(f.R), np.array(f.t)))
+        if k == n - 1:
+            s = slam.store.state
+            into["map"] = {name: getattr(s, name).cpu().numpy() for name in (
+                "kf_valid", "kf_ur", "kf_mp", "kf_R", "kf_t", "mp_valid", "mp_pos")}
+    return on_frame
+
+
+def _same_prefix(rec_k: dict, rec_p: dict, states_k, states_p, what: str) -> str:
+    """Gate a prefix through the kernels against the same through the plain
+    versions: states, associations, keyframe rows (`kf_ur`, `kf_mp`) and
+    point validity equal; poses and points within 1e-4."""
+    n = len(rec_p["frames"])
+    check(states_k[:n] == states_p[:n], f"{what}: states {states_k[:n]} vs {states_p[:n]}")
+    dP = 0.0
+    for k, ((a_k, R_k, t_k), (a_p, R_p, t_p)) in enumerate(zip(rec_k["frames"], rec_p["frames"])):
+        check(np.array_equal(a_k, a_p), f"{what}: associations of frame {k} differ")
+        dP = max(dP, float(np.abs(R_k - R_p).max()), float(np.abs(t_k - t_p).max()))
+    m_k, m_p = rec_k["map"], rec_p["map"]
+    kf = m_p["kf_valid"]
+    for name in ("kf_valid", "kf_ur", "kf_mp", "mp_valid"):
+        check(np.array_equal(m_k[name][kf] if name.startswith("kf_") else m_k[name],
+                             m_p[name][kf] if name.startswith("kf_") else m_p[name]),
+              f"{what}: {name} differs")
+    v = m_p["mp_valid"]
+    dP = max(dP, float(np.abs(m_k["kf_R"][kf] - m_p["kf_R"][kf]).max()),
+             float(np.abs(m_k["kf_t"][kf] - m_p["kf_t"][kf]).max()))
+    dX = float(np.abs(m_k["mp_pos"][v] - m_p["mp_pos"][v]).max())
+    check(dP <= 1e-4 and dX <= 1e-4, f"{what}: poses within {dP}, points within {dX}")
+    return (f"{n} frames: states and associations equal on every frame; {int(kf.sum())} keyframes "
+            f"({int((m_p['kf_ur'][kf] >= 0).sum())} stereo rows), kf_ur, kf_mp rows and "
+            f"{int(v.sum())} points' validity equal; poses within {dP:.1e}, points within {dX:.1e}")
+
+
+def _replay_gates(rep, what: str, ate_gate: float, jax_ate: float):
+    """Initialization from frame 0, no frame lost after it, SE3 ATE under
+    the gate, Sim3 scale within SCALE_TOL, host syncs of the tracked
+    frames; returns the per-kind lines' material."""
+    from orbslam3_tpu_torch.pipeline.tracking import Tracker
+
+    check(rep.states[0] == "OK", f"{what}: not initialized on frame 0: {rep.states[:5]}")
+    check(all(x == "OK" for x in rep.states), f"{what}: a frame not OK: {rep.states}")
+    check(rep.pos.shape == (len(rep.ts), 3) and np.isfinite(rep.pos).all(),
+          f"{what}: trajectory not finite or misshapen")
+    check(rep.ate_se3 <= ate_gate, f"{what}: SE3 ATE {rep.ate_se3} m above the gate {ate_gate} m")
+    check(abs(rep.scale - 1) < SCALE_TOL, f"{what}: Sim3 scale {rep.scale}")
+    kinds = rep.frame_kinds()
+    by_kind = {}
+    for kind, n_sync, m in zip(kinds, rep.syncs, rep.ms):
+        by_kind.setdefault(kind, []).append((n_sync, m))
+    tracked = sorted(set(n for n, _ in by_kind.get("tracked", [])))
+    check(tracked == [Tracker.HOST_SYNCS_PER_STEREO_FRAME],
+          f"{what}: host syncs per tracked non-keyframe frame {tracked}, documented "
+          f"{Tracker.HOST_SYNCS_PER_STEREO_FRAME}")
+    med = statistics.median
+    print(f"{what}: initialized at frame 0 from one frame, all {len(rep.states)} frames OK, "
+          f"{rep.n_kf} keyframes (at frames {[k for k, x in enumerate(rep.keyframe) if x]}), "
+          f"{rep.n_mp} map points; SE3 ATE {rep.ate_se3:.6f} m (gate {ate_gate:.6f} m: 2 x the "
+          f"JAX System's {jax_ate} m, or 0.01), Sim3 ATE {rep.ate:.6f} m, scale {rep.scale:.5f}; "
+          f"{len(rep.states) / (sum(rep.ms) / 1e3):.2f} frames/s "
+          f"({rep.render_s:.1f} s of rendering)")
+    print(f"{what} host syncs and ms per frame kind: " + "; ".join(
+        f"{kind} {len(v)} frames, syncs median {med([n for n, _ in v])} (max "
+        f"{max(n for n, _ in v)}), ms median {med([m for _, m in v]):.2f}"
+        for kind, v in sorted(by_kind.items())))
+
+
+def phase11_stereo(dev) -> dict:
+    """Phase 11: the stereo `System` over N_STEREO frames at full width,
+    through `entry.replay(cuda, "stereo", ...)`; gates and lines as in the
+    module docstring. Returns the kernels' launches on the main path, the
+    B1 calls by site with one call's arguments each, the right atlas, and
+    the prefix's line."""
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch.ops import _build, cuda_fast, cuda_match
+    from orbslam3_tpu_torch.ops import features as feat
+    from orbslam3_tpu_torch.ops import stereo as stereo_mod
+    from orbslam3_tpu_torch.optim import ba as ba_mod
+    from orbslam3_tpu_torch.pipeline import local_mapping as lmap
+
+    frame = [0]
+    spans, lbas = [], []
+    match, local_ba = stereo_mod.match_stereo_rectified, lmap.local_ba
+
+    def timed_match(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = match(*a, **kw)
+        ev[1].record()
+        spans.append((frame[0], ev, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def sized_local_ba(model, params, state, window_ids, fixed_ids, sigma2, **kw):
+        C = window_ids.shape[0] + fixed_ids.shape[0]
+        cap = kw.get("obs_cap")
+        cap = min(lmap.OBS_CAP if cap is None else cap, state.Nf)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = local_ba(model, params, state, window_ids, fixed_ids, sigma2, **kw)
+        lbas.append((C, min(lmap.POINT_CAP, state.Pmax), C * cap,
+                     torch.cuda.max_memory_allocated() - base))
+        return out
+
+    rec_k, rec_p = {}, {}
+    prefix = _prefix_recorder(N_STEREO_PREFIX, rec_k)
+
+    def on_frame(k, slam):
+        prefix(k, slam)
+        frame[0] = k + 1
+
+    torch.cuda.synchronize()
+    cuda_fast.LAUNCHES = 0
+    cuda_match.LAUNCHES = 0
+    stereo_mod.match_stereo_rectified, lmap.local_ba = timed_match, sized_local_ba
+    try:
+        with _b1_calls([], keep_args=set(B1_SITES.values())) as calls, \
+                _b2_calls([], frame) as b2_calls:
+            rep = E.replay(dev, "stereo", N_STEREO, on_frame=on_frame)
+    finally:
+        stereo_mod.match_stereo_rectified, lmap.local_ba = match, local_ba
+    launches = {"fast_nms": cuda_fast.LAUNCHES, "hamming_top2": cuda_match.LAUNCHES}
+    sites = {site: sum(c[0] == site for c in calls) for site in B1_SITES.values()}
+    check(sum(sites.values()) == launches["hamming_top2"] > 0, f"phase 11 B1 calls {sites}")
+    check(launches["fast_nms"] == 2 * N_STEREO and all(n == 2 for n in rep.b2),
+          f"phase 11 B2 launches {launches['fast_nms']}, per frame {sorted(set(rep.b2))}")
+    b2_sides = {side: sum(c[1] == side for c in b2_calls) for side in ("left atlas", "right atlas")}
+    check(b2_sides == {"left atlas": N_STEREO, "right atlas": N_STEREO}, f"B2 by side {b2_sides}")
+    _replay_gates(rep, "phase 11 stereo", STEREO_ATE_GATE, JAX_STEREO_ATE_SE3)
+    Nf = rep.system.store.state.Nf
+    match_ms = [ev[0].elapsed_time(ev[1]) for _, ev, _ in spans]
+    host_ms = [h for _, _, h in spans]
+    check(len(spans) == N_STEREO, f"{len(spans)} stereo matches in {N_STEREO} frames")
+    print(f"phase 11 stereo match (dense {Nf}x{Nf} Hamming with the scanline gates, SAD, "
+          f"parabola, median cut): median {statistics.median(match_ms):.3f} ms per frame on the "
+          f"device stream (CUDA events), max {max(match_ms):.3f}; host issue median "
+          f"{statistics.median(host_ms):.3f} ms")
+    check(lbas, "phase 11: no local BA ran")
+    C, P, O, peak = max(lbas, key=lambda x: (x[2], x[3]))
+    check(all(o == c * Nf for c, _, o, _ in lbas), f"local BA observation slots {lbas}")
+    check(ba_mod.auto_dense_schur(C, P), f"local BA {C} cameras x {P} points refused dense Schur")
+    print(f"phase 11 local BA: {len(lbas)} calls, every observation kept (obs_cap = Nf = {Nf}): at "
+          f"most {C} cameras x {P} points, {O} observation slots; dense-Schur estimate "
+          f"{ba_mod.dense_schur_bytes(C, P)} bytes (auto_dense_schur: within the 4 GiB budget); "
+          f"measured peak {max(x[3] for x in lbas)} bytes above the map "
+          f"(torch.cuda.max_memory_allocated)")
+    print(f"phase 11 launches on the main path {launches}; B1 by call {sites}; B2 by atlas "
+          f"{b2_sides}")
+
+    with _build.force_plain():
+        pre_p = E.replay(dev, "stereo", N_STEREO_PREFIX,
+                         on_frame=_prefix_recorder(N_STEREO_PREFIX, rec_p))
+    kf_in_prefix = sum(rep.keyframe[:N_STEREO_PREFIX])  # frame 0 is the first
+    check(kf_in_prefix >= 2, f"phase 11 prefix holds {kf_in_prefix} keyframes")
+    line = _same_prefix(rec_k, rec_p, rep.states, pre_p.states, "phase 11 prefix")
+    print(f"phase 11 kernels vs plain prefix: {line}")
+
+    right = next(a for _, side, a in b2_calls if a is not None)
+    got = cuda_fast.fast_score_nms(right, 7.0, 20.0)
+    ref = feat.fast_score_nms_plain(right, 7.0, 20.0)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+          "B2 right atlas differs from plain")
+    print(f"phase 11 B2 right atlas {tuple(right.shape)} of frame 0: exact (tolerance 0) vs plain, "
+          f"{int((got[0] > 0).sum())} corners after NMS")
+    args = {site: next(c[1] for c in calls if c[0] == site) for site in B1_SITES.values()
+            if sites[site]}
+    return dict(rep=rep, launches=launches, sites=sites, args=args, right=right,
+                match_ms=match_ms)
+
+
+def phase12_rgbd_raw(dev) -> dict:
+    """Phase 12: RGB-D over N_RGBD frames (gates as phase 11's, its first
+    N_RGBD_PREFIX frames kernels vs plain) and raw stereo over N_RAW frames
+    through `enable_rectification` (the remap card vs CPU, every frame OK,
+    the SE3 ATE under phase 11's gate). Returns the launches of each run."""
+    from orbslam3_tpu_torch import convert
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch.ops import _build, cuda_fast, cuda_match
+    from orbslam3_tpu_torch.ops.rectify import StereoRectifier
+
+    rec_k, rec_p = {}, {}
+    torch.cuda.synchronize()
+    cuda_fast.LAUNCHES = 0
+    cuda_match.LAUNCHES = 0
+    rep = E.replay(dev, "rgbd", N_RGBD, on_frame=_prefix_recorder(N_RGBD_PREFIX, rec_k))
+    rgbd = {"fast_nms": cuda_fast.LAUNCHES, "hamming_top2": cuda_match.LAUNCHES}
+    check(rgbd["fast_nms"] == N_RGBD and rgbd["hamming_top2"] > 0, f"RGB-D launches {rgbd}")
+    _replay_gates(rep, "phase 12 RGB-D", RGBD_ATE_GATE, JAX_RGBD_ATE_SE3)
+    with _build.force_plain():
+        pre_p = E.replay(dev, "rgbd", N_RGBD_PREFIX,
+                         on_frame=_prefix_recorder(N_RGBD_PREFIX, rec_p))
+    print(f"phase 12 RGB-D launches on the main path {rgbd}; kernels vs plain prefix: "
+          f"{_same_prefix(rec_k, rec_p, rep.states, pre_p.states, 'phase 12 RGB-D prefix')}")
+
+    _, imgs, _ = E.euroc_frames(1, raw=True)
+    rig = E.raw_stereo_rig()
+    got = StereoRectifier(*rig, dev)(imgs[0, 0], imgs[0, 1])
+    want = StereoRectifier(*rig, "cpu")(imgs[0, 0], imgs[0, 1])
+    d_remap = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    check(d_remap <= 1e-4, f"remap_bilinear card vs CPU: {d_remap}")
+    torch.cuda.synchronize()
+    cuda_fast.LAUNCHES = 0
+    cuda_match.LAUNCHES = 0
+    raw = E.replay(dev, "raw_stereo", N_RAW)
+    raw_l = {"fast_nms": cuda_fast.LAUNCHES, "hamming_top2": cuda_match.LAUNCHES}
+    check(raw_l["fast_nms"] == 2 * N_RAW and raw_l["hamming_top2"] > 0, f"raw launches {raw_l}")
+    check(all(x == "OK" for x in raw.states), f"raw stereo: a frame not OK: {raw.states}")
+    check(np.isfinite(raw.pos).all() and raw.ate_se3 <= STEREO_ATE_GATE,
+          f"raw stereo: SE3 ATE {raw.ate_se3} m above the gate {STEREO_ATE_GATE} m")
+    print(f"phase 12 raw stereo: remap_bilinear of a raw pair on the card within {d_remap:.1e} of "
+          f"the CPU's (tolerance 1e-4); {N_RAW} frames through enable_rectification, all OK, "
+          f"{raw.n_kf} keyframes, {raw.n_mp} map points, SE3 ATE {raw.ate_se3:.6f} m (gate "
+          f"{STEREO_ATE_GATE:.6f} m), scale {raw.scale:.4f}, median "
+          f"{statistics.median(raw.ms):.2f} ms per frame; launches on the main path {raw_l}")
+    return dict(rgbd=rgbd, raw=raw_l)
 
 
 def check(ok, what: str) -> None:
@@ -1031,6 +1325,59 @@ def main(argv=None) -> int:
               f"profiler {t['profiler_us']} us, bound {bd['bound_us']:.3f} us ({bd['bound_by']}; "
               f"{bd['bytes']} bytes, {bd['pairs']} pairs to popcount), plain {plain_ms:.4f} ms; "
               f"{n10} launches in the phase-10 replay [{card}]")
+    # --- Phase 11: the stereo System; phase 12: RGB-D and raw stereo ------
+    p11 = phase11_stereo(dev)
+    right = p11["right"]
+    b2_rows = [{"call": "left atlas (phase 7)", "shape": list(atlas.shape), **b2_t,
+                "plain_ms": b2_plain_ms, "bound_us": b2_b["bound_us"], "bound_by": b2_b["bound_by"],
+                "launches_per_stereo_frame": 1,
+                "launches_per_replay": p11["launches"]["fast_nms"] // 2}]
+    t = KB.time_b2(right, orb.min_th, orb.ini_th)
+    with _build.force_plain():
+        plain_ms = KB.call_us(lambda: cuda_fast.fast_score_nms(right, orb.min_th, orb.ini_th),
+                              iters=10) / 1e3
+    bd = KB.b2_bound(right)
+    b2_rows.append({"call": "right atlas (phase 11)", "shape": list(right.shape), **t,
+                    "plain_ms": plain_ms, "bound_us": bd["bound_us"], "bound_by": bd["bound_by"],
+                    "launches_per_stereo_frame": 1,
+                    "launches_per_replay": p11["launches"]["fast_nms"] // 2})
+    print(f"phase 11 B2 right atlas {tuple(right.shape)}: device {t['device_us']:.2f} us (graph of "
+          f"{KB.GRAPH_CALLS}), call {t['call_us']:.2f} us, profiler {t['profiler_us']} us, bound "
+          f"{bd['bound_us']:.2f} us ({bd['bound_by']}), plain {plain_ms:.4f} ms; 1 launch per "
+          f"stereo frame, {p11['launches']['fast_nms'] // 2} in the replay (left atlas: "
+          f"{b2_t['device_us']:.2f} us in phase 7) [{card}]")
+    n_tracked = sum(k in ("tracked", "keyframe") for k in p11["rep"].frame_kinds())
+    n_kf11 = sum(p11["rep"].keyframe)
+    for site, a in p11["args"].items():  # B1 at the stereo replay's calls
+        got = cuda_match.hamming_top2(*a)
+        with _build.force_plain():
+            ref = cuda_match.hamming_top2(*a)
+        torch.cuda.synchronize()
+        for what, k_, p_ in zip(("d1", "d2", "j1"), got, ref):
+            check(torch.equal(k_, p_), f"B1 {site} (phase 11): {what} differs from plain")
+        err_b1 = max(err_b1, float((got[0] - ref[0]).abs().max()),
+                     float((got[1] - ref[1]).abs().max()))
+        t = KB.time_b1(a)
+        with _build.force_plain():
+            plain_ms = KB.call_us(lambda: cuda_match.hamming_top2(*a), iters=10) / 1e3
+        bd = KB.b1_bound(*a)
+        n11 = p11["sites"][site]
+        fuse = site.startswith("fuse")
+        per = n11 / max(n_kf11 if fuse else n_tracked, 1)
+        b1_rows.append({"call": site, "shape": [a[0].shape[0], a[1].shape[0]],
+                        "windowed": a[3] is not None, **t, "plain_ms": plain_ms,
+                        "bound_us": bd["bound_us"], "bound_by": bd["bound_by"],
+                        "in_window_pairs": bd["pairs"], "launches_per_replay": n11,
+                        "replay": "phase 11",
+                        ("launches_per_keyframe" if fuse else "launches_per_tracked_frame"): per})
+        print(f"phase 11 B1 {site} {a[0].shape[0]}x{a[1].shape[0]} "
+              f"{'windowed' if a[3] is not None else 'unwindowed'}: exact vs plain; device "
+              f"{t['device_us']:.2f} us, call {t['call_us']:.2f} us, bound {bd['bound_us']:.3f} us "
+              f"({bd['bound_by']}), plain {plain_ms:.4f} ms; {n11} launches in the stereo replay "
+              f"({per:.2f} per "
+              f"{'keyframe' if fuse else 'tracked frame'}) [{card}]")
+    p12 = phase12_rgbd_raw(dev)
+
     if opts.save_inputs:
         per_replay = {**per_site, **p10["sites"]}
         torch.save({"b2": {"atlas": atlas.cpu(), "min_th": orb.min_th, "ini_th": orb.ini_th},
@@ -1038,10 +1385,9 @@ def main(argv=None) -> int:
                            for site, a in b1_shapes.items()]},
                    opts.save_inputs)
 
-    launches["fast_nms"] += (launches6["fast_nms"] + launches8["fast_nms"]
-                             + p10["launches"]["fast_nms"])
-    launches["hamming_top2"] += (launches5["hamming_top2"] + launches6["hamming_top2"]
-                                 + launches8["hamming_top2"] + p10["launches"]["hamming_top2"])
+    for k in launches:
+        launches[k] += sum(run[k] for run in (launches5, launches6, launches8, p10["launches"],
+                                              p11["launches"], p12["rgbd"], p12["raw"]))
     lm = next(r for r in b1_rows if r["call"] == "local map")  # the kernel's headline call
     record = {"kernels": [
         {"name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",
@@ -1049,7 +1395,8 @@ def main(argv=None) -> int:
          "max_abs_err": err_b2, "ms": b2_t["device_us"] / 1e3, "plain_ms": b2_plain_ms,
          "bound_ms": b2_b["bound_us"] / 1e3, "bound_by": b2_b["bound_by"], "library_ms": None,
          "device_us": b2_t["device_us"], "call_us": b2_t["call_us"],
-         "bound_us": b2_b["bound_us"], "launches_per_replay": launches6["fast_nms"]},
+         "bound_us": b2_b["bound_us"], "launches_per_replay": launches6["fast_nms"],
+         "calls": b2_rows},
         {"name": "hamming_top2", "route": "cuda",
          "source": "orbslam3_tpu_torch/csrc/hamming_top2.cu",
          "replaces": "orbslam3_tpu/ops/pallas_match.py:155",

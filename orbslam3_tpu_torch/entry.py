@@ -15,13 +15,16 @@ candidate points into those neighbours, and the dense-Schur local BA over a
 48-keyframe window with a fixed bucket of 32 (24 valid), on a 128-keyframe
 map whose observations are consistent projections.
 
-The monocular `System` end to end (`mono_replay`) is the counterpart of
-`scripts/drive_slam.py` at EuRoC width: `System.track_monocular` on a
-stream of frames rendered by `scripts/make_synth_euroc.py` (752x480, the
-synthetic room's circle), 1000 features on 8 levels, Kmax 256, Pmax 16384,
-scored by the Sim3 ATE against the rendered camera centres; with a
-vocabulary, place recognition on, over a shortened lap and a kidnap (earlier
-images at later timestamps).
+The `System` end to end (`replay`; `mono_replay` for the monocular one) is
+the counterpart of `scripts/drive_slam.py` and `drive_slam_stereo.py` at
+EuRoC width: `System.track_monocular`, `track_stereo` (config 2: the
+rectified pair at a 0.11 m baseline, or the raw pair through
+`enable_rectification`) or `track_rgbd` (the left image and its ray-cast
+depth) on a stream of frames rendered by `scripts/make_synth_euroc.py`
+(752x480, the synthetic room's circle), 1000 features on 8 levels, Kmax
+256, Pmax 16384, scored by the Sim3 and the SE3 ATE against the rendered
+camera centres; with a vocabulary, place recognition on, over a shortened
+lap and a kidnap (earlier images at later timestamps).
 
 Scenes are built with numpy from a seed (`make_scene`, `make_mapping_scene`
 draw from the generator in the reference's order), so a test can hand the
@@ -489,6 +492,9 @@ def fetch_mapping(out: MappingOut) -> dict:
 
 EUROC_MONO = dict(camera=[458.0, 458.0, 376.0, 240.0, 0.0, 0.0, 0.0, 0.0], img_wh=(752, 480),
                   orb=feat.OrbParams(), Kmax=256, Pmax=16384, fps=20.0)
+# Config 2: the script's `--stereo` settings, Camera.bf = FX * 0.11 m (ThDepth
+# 35, so the close/far cutoff is 3.85 m). RGB-D uses the same bf.
+EUROC_STEREO = dict(EUROC_MONO, bf=458.0 * 0.11)
 _SYNTH = Path(__file__).resolve().parent.parent / "scripts" / "make_synth_euroc.py"
 
 
@@ -502,30 +508,100 @@ def synth_euroc():
 
 
 def euroc_frames(n_frames: int, seed: int = 0, t_loop: float | None = None,
-                 kidnap: tuple[int, int] | None = None):
-    """(timestamps (n,), uint8 images (n, 480, 752), camera centres (n, 3))
-    of the synthetic sequence, rendered as the script's `main` renders
-    them: t = k / 20 s, then sensor noise of 1.5 grey levels from the same
-    generator as the textures. `t_loop` sets the script's lap length
-    (`T_LOOP`, seconds; its default 60 s when None). `kidnap` = (at, src):
-    frame k >= at shows the scene of frame src + k - at, still at time
-    k / 20 s (a camera carried back along its path, timestamps increasing),
-    and its centre is that frame's."""
+                 kidnap: tuple[int, int] | None = None, stereo: bool = False,
+                 raw: bool = False, depth: bool = False):
+    """(timestamps (n,), uint8 images, camera centres (n, 3)) of the synthetic
+    sequence, rendered as the script's `main` renders them: t = k / 20 s,
+    then sensor noise of 1.5 grey levels from the same generator as the
+    textures. The images are (n, 480, 752), or with `stereo` (n, 2, 480, 752)
+    left and right: the right camera's centre is the left's plus
+    R_wc (0.11, 0, 0) m, and each frame draws the left image's noise, then
+    the right's (the script's `--stereo` output). `raw` renders the pair
+    unrectified as `--raw-stereo` does (radial-tangential distortion, both
+    cameras pitched by the script's 2 degrees); `raw_stereo_rig()` holds
+    its rectification. `depth` appends a fourth output, the left camera's
+    z-depth in metres (n, 480, 752) float32, noise-free (`ray_depth`).
+
+    `t_loop` sets the script's lap length (`T_LOOP`, seconds; its default
+    60 s when None). `kidnap` = (at, src): frame k >= at shows the scene of
+    frame src + k - at, still at time k / 20 s (a camera carried back along
+    its path, timestamps increasing), and its centre is that frame's."""
     M = synth_euroc()
     if t_loop is not None:
         M.T_LOOP = float(t_loop)
     rng = np.random.default_rng(seed)
     tex = M.make_textures(rng)
-    ts, imgs, centres = [], [], []
+    R_raw, dirs = np.eye(3), None
+    if raw:
+        stereo = True
+        c, s = np.cos(np.radians(M.RAW_PITCH_DEG)), np.sin(np.radians(M.RAW_PITCH_DEG))
+        R_raw = np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+        dirs = M.radtan_dir_grid((M.W, M.H), (M.FX, M.FY, M.CX, M.CY), M.RAW_DIST)
+
+    def noisy(img):
+        return np.clip(img + rng.normal(0, 1.5, img.shape), 0, 255).astype(np.uint8)
+
+    ts, imgs, centres, depths = [], [], [], []
     for k in range(n_frames):
         t = k / M.CAM_HZ
         src = k if kidnap is None or k < kidnap[0] else kidnap[1] + k - kidnap[0]
         R_wc, p = M.pose_at(src / M.CAM_HZ)
-        img = M.render(tex, R_wc, p)
-        imgs.append(np.clip(img + rng.normal(0, 1.5, img.shape), 0, 255).astype(np.uint8))
+        R_render = R_wc @ R_raw if raw else R_wc
+        img = noisy(M.render(tex, R_render, p, dirs=dirs))
+        if stereo:
+            p_r = p + R_wc @ np.array([M.BASELINE_M, 0.0, 0.0])
+            img = np.stack([img, noisy(M.render(tex, R_render, p_r, dirs=dirs))])
+        imgs.append(img)
+        if depth:
+            depths.append(ray_depth(M, R_wc, p))
         ts.append(t)
         centres.append(p)
-    return np.asarray(ts), np.stack(imgs), np.asarray(centres)
+    out = (np.asarray(ts), np.stack(imgs), np.asarray(centres))
+    return out + (np.stack(depths),) if depth else out
+
+
+def ray_depth(M, R_wc: np.ndarray, p: np.ndarray) -> np.ndarray:
+    """(480, 752) float32 z-depth of the pinhole camera at (R_wc, p) in the
+    synthetic room: the nearest hit of each pixel's ray (z = 1) on the box's
+    faces, which is the parameter `best_t` of `M.render`'s ray cast. `M` is
+    the loaded script (`synth_euroc()`), for its room and camera."""
+    u, v = np.meshgrid(np.arange(M.W, dtype=np.float32), np.arange(M.H, dtype=np.float32))
+    d_w = np.stack([(u - M.CX) / M.FX, (v - M.CY) / M.FY, np.ones_like(u)], axis=-1) @ R_wc.T
+    o = p.astype(np.float32)
+    best = np.full((M.H, M.W), np.inf, np.float32)
+    for ax, hi in M.FACES:
+        bound = (M.BOX_HI if hi else M.BOX_LO)[ax]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = (bound - o[ax]) / d_w[..., ax]
+        best = np.where((t > 1e-3) & np.isfinite(t) & (t < best), t, best)
+    return best.astype(np.float32)
+
+
+class RectifySide(NamedTuple):
+    """One camera's rectification block (the reference's LEFT./RIGHT. K/D/R/P
+    settings), as `ops/rectify.StereoRectifier` takes it."""
+
+    K: np.ndarray
+    D: np.ndarray
+    R: np.ndarray
+    P: np.ndarray
+    width: int
+    height: int
+
+
+def raw_stereo_rig():
+    """(left, right) `RectifySide`s of `euroc_frames(..., raw=True)`: the
+    script's `raw_stereo_yaml` blocks (its K, RAW_DIST, the 2-degree R, and
+    the two P with the right's -FX * 0.11 translation)."""
+    M = synth_euroc()
+    c, s = np.cos(np.radians(M.RAW_PITCH_DEG)), np.sin(np.radians(M.RAW_PITCH_DEG))
+    R = np.array([[1.0, 0.0, 0.0], [0.0, c, -s], [0.0, s, c]])
+    K = np.array([[M.FX, 0.0, M.CX], [0.0, M.FY, M.CY], [0.0, 0.0, 1.0]])
+    return tuple(
+        RectifySide(K=K, D=np.asarray(M.RAW_DIST), R=R,
+                    P=np.array([[M.FX, 0.0, M.CX, pr3], [0.0, M.FY, M.CY, 0.0],
+                                [0.0, 0.0, 1.0, 0.0]]), width=M.W, height=M.H)
+        for pr3 in (0.0, -M.FX * M.BASELINE_M))
 
 
 class ReplayResult(NamedTuple):
@@ -537,7 +613,7 @@ class ReplayResult(NamedTuple):
     gt_pos: np.ndarray  # (n_frames, 3) rendered camera centres
     states: list  # TrackState name after each frame
     keyframe: list  # whether the frame inserted a keyframe (its mapping pass ran)
-    ms: list  # host-clock ms of each `track_monocular`, the device drained after it
+    ms: list  # host-clock ms of each frame's `track_*` call, the device drained after it
     syncs: list  # host synchronisations inside it (None off CUDA)
     b2: list  # kernel B2 launches inside it
     b1: list  # kernel B1 launches inside it
@@ -545,6 +621,8 @@ class ReplayResult(NamedTuple):
     n_kf: int
     n_mp: int
     ate: float  # Sim3-aligned ATE RMSE (m)
+    ate_se3: float  # SE3-aligned (unscaled) ATE RMSE (m): stereo and RGB-D observe metric depth
+    scale: float  # the Sim3 alignment's scale
     render_s: float
     # Place recognition (empty / 0 / None without a vocabulary):
     loops: list  # per closure: dict(kf, loop_kf, frame, ate_before, ate_after)
@@ -577,15 +655,27 @@ class ReplayResult(NamedTuple):
         return kinds
 
 
-def mono_replay(device, n_frames: int, seed: int = 0,
-                orb: feat.OrbParams = EUROC_MONO["orb"], vocabulary: str | None = None,
-                t_loop: float | None = None, kidnap: tuple[int, int] | None = None,
-                on_frame: Callable | None = None) -> ReplayResult:
-    """Drive `System(MONOCULAR)` with ORB parameters `orb` through
-    `track_monocular` over the first `n_frames` of the synthetic EuRoC
-    sequence on `device` and score it. On a CUDA device every frame runs
-    with PyTorch's sync debug mode at "warn", and the synchronisations each
-    frame makes are counted.
+SENSORS = ("mono", "stereo", "rgbd", "raw_stereo")
+
+
+def mono_replay(device, n_frames: int, **kw) -> ReplayResult:
+    """`replay(device, "mono", n_frames, ...)`."""
+    return replay(device, "mono", n_frames, **kw)
+
+
+def replay(device, sensor: str, n_frames: int, seed: int = 0,
+           orb: feat.OrbParams = EUROC_MONO["orb"], vocabulary: str | None = None,
+           t_loop: float | None = None, kidnap: tuple[int, int] | None = None,
+           on_frame: Callable | None = None) -> ReplayResult:
+    """Drive the `System` of `sensor` with ORB parameters `orb` over the
+    first `n_frames` of the synthetic EuRoC sequence on `device` and score
+    it against the rendered camera centres. `sensor` is one of `SENSORS`:
+    "mono" (`track_monocular`), "stereo" (config 2, `track_stereo` on the
+    rectified pair, bf = 50.38), "rgbd" (`track_rgbd` on the left image and
+    its ray-cast depth, the same bf) or "raw_stereo" (the unrectified pair
+    through `enable_rectification` and `track_stereo`). On a CUDA device
+    every frame runs with PyTorch's sync debug mode at "warn", and the
+    synchronisations each frame makes are counted.
 
     With `vocabulary` (the path of a DBoW2 binary vocabulary) place
     recognition runs at the reference's defaults, and the ATE is read
@@ -593,18 +683,35 @@ def mono_replay(device, n_frames: int, seed: int = 0,
     sequence (`euroc_frames`); after the last frame a running background
     GBA is run to its end (`System.shutdown`). `on_frame(k, system)` is
     called after each frame."""
+    from orbslam3_tpu_torch.ate import associate, umeyama
     from orbslam3_tpu_torch.io.vocab_io import load_binary_vocabulary
     from orbslam3_tpu_torch.ops import cuda_fast, cuda_match
     from orbslam3_tpu_torch.system import Sensor, System
 
+    if sensor not in SENSORS:
+        raise ValueError(f"sensor {sensor!r} is not one of {SENSORS}")
     t0 = time.perf_counter()
-    gt_ts, imgs, gt_pos = euroc_frames(n_frames, seed, t_loop=t_loop, kidnap=kidnap)
+    frames = euroc_frames(n_frames, seed, t_loop=t_loop, kidnap=kidnap,
+                          stereo=sensor == "stereo", raw=sensor == "raw_stereo",
+                          depth=sensor == "rgbd")
+    gt_ts, imgs, gt_pos = frames[:3]
     render_s = time.perf_counter() - t0
     dev = torch.device(device)
     cuda = dev.type == "cuda"
-    cfg = EUROC_MONO
-    slam = System(Sensor.MONOCULAR, cam.CameraModel.PINHOLE, cfg["camera"], cfg["img_wh"],
-                  orb, device=dev, Kmax=cfg["Kmax"], Pmax=cfg["Pmax"], fps=cfg["fps"])
+    cfg = EUROC_MONO if sensor == "mono" else EUROC_STEREO
+    kind = {"mono": Sensor.MONOCULAR, "rgbd": Sensor.RGBD}.get(sensor, Sensor.STEREO)
+    slam = System(kind, cam.CameraModel.PINHOLE, cfg["camera"], cfg["img_wh"], orb, device=dev,
+                  bf=cfg.get("bf", 0.0), Kmax=cfg["Kmax"], Pmax=cfg["Pmax"], fps=cfg["fps"])
+    if sensor == "raw_stereo":
+        slam.enable_rectification(*raw_stereo_rig())
+
+    def track(k, t):
+        if sensor == "mono":
+            return slam.track_monocular(imgs[k], t)
+        if sensor == "rgbd":
+            return slam.track_rgbd(imgs[k], frames[3][k], t)
+        return slam.track_stereo(imgs[k, 0], imgs[k, 1], t)
+
     loops = []
     if vocabulary is not None:
         slam.enable_place_recognition(load_binary_vocabulary(vocabulary, dev))
@@ -622,7 +729,7 @@ def mono_replay(device, n_frames: int, seed: int = 0,
         slam.loop_closer.on_correction = on_correction
     gba = slam.loop_closer.gba_async if slam.loop_closer is not None else None
     states, keyframe, ms, syncs, b2, b1, chunks = [], [], [], [], [], [], []
-    for k, (t, img) in enumerate(zip(gt_ts, imgs)):
+    for k, t in enumerate(gt_ts):
         if vocabulary is not None:
             frame_no[0] = k
         n2, n1 = cuda_fast.LAUNCHES, cuda_match.LAUNCHES
@@ -633,7 +740,7 @@ def mono_replay(device, n_frames: int, seed: int = 0,
         start = time.perf_counter()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            frame = slam.track_monocular(img, float(t))
+            frame = track(k, float(t))
         if cuda:
             torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize(dev)
@@ -649,6 +756,9 @@ def mono_replay(device, n_frames: int, seed: int = 0,
     slam.shutdown()
     ts, pos = slam.get_trajectory()
     ate = ate_rmse(ts, pos, gt_ts, gt_pos, with_scale=True, max_dt=0.01)
+    ia, ib = associate(ts, gt_ts, 0.01)
+    scale = (float(umeyama(pos[ia], gt_pos[ib], with_scale=True)[0]) if len(ia) >= 3
+             else float("nan"))
     lost, reloc = [], None
     if kidnap is not None:
         lost = [k for k in range(kidnap[0], n_frames) if states[k] != "OK"]
@@ -657,7 +767,8 @@ def mono_replay(device, n_frames: int, seed: int = 0,
     return ReplayResult(ts=ts, pos=pos, gt_ts=gt_ts, gt_pos=gt_pos, states=states,
                         keyframe=keyframe, ms=ms, syncs=syncs, b2=b2, b1=b1, gba_chunk=chunks,
                         n_kf=slam.n_keyframes, n_mp=slam.n_map_points, ate=ate,
-                        render_s=render_s, loops=loops,
+                        ate_se3=ate_rmse(ts, pos, gt_ts, gt_pos, with_scale=False, max_dt=0.01),
+                        scale=scale, render_s=render_s, loops=loops,
                         gba_finished=gba.n_finished if gba is not None else 0,
                         gba_aborted=gba.n_aborted if gba is not None else 0,
                         lost=lost, relocalized=reloc, system=slam)

@@ -288,12 +288,18 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
                     cost=lin.cost)
 
 
+def dense_schur_bytes(C: int, P: int) -> int:
+    """The reference's estimate of the explicit reduced camera system's peak
+    memory: about 3 coupling tensors of C * P * 18 float32 (C cameras, P
+    points; the observation count does not enter)."""
+    return 3 * C * P * 18 * 4
+
+
 def auto_dense_schur(C: int, P: int, hbm_budget_bytes: int = 4 << 30) -> bool:
     """The reference's choice of the explicit reduced camera system: its peak
-    memory, about 3 coupling tensors of C * P * 18 float32, within the
-    budget (C cameras, P points). At config 1's Kmax 256 and Pmax 16384
-    that is 0.9 GB, so global BA takes the dense path."""
-    return 3 * C * P * 18 * 4 <= hbm_budget_bytes
+    memory (`dense_schur_bytes`) within the budget. At config 1's Kmax 256
+    and Pmax 16384 that is 0.9 GB, so global BA takes the dense path."""
+    return dense_schur_bytes(C, P) <= hbm_budget_bytes
 
 
 def solve_ba(model: cam.CameraModel, params: torch.Tensor, prob: BAProblem, bf: float = 0.0,

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -18,8 +19,9 @@ from orbslam3_tpu_torch.ops import lie
 
 @dataclass
 class FrameData:
-    """One processed frame: its features stay on the device; the pose and
-    the associations are host numpy, as the control logic reads them."""
+    """One processed frame: its features stay on the device; the pose, the
+    associations and a stereo or RGB-D frame's `ur` and `depth` are host
+    numpy, as the control logic reads them."""
 
     features: feat.Features
     timestamp: float
@@ -27,6 +29,8 @@ class FrameData:
     R: np.ndarray  # (3,3) Tcw estimate
     t: np.ndarray  # (3,)
     mp_assoc: np.ndarray  # (Nf,) int32 map-point id per feature (-1 none)
+    ur: Optional[np.ndarray] = None  # (Nf,) stereo right-u (-1 none); stereo and RGB-D
+    depth: Optional[np.ndarray] = None  # (Nf,) stereo or RGB-D depth (-1 none)
 
     @property
     def n_features(self) -> int:

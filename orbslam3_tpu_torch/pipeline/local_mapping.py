@@ -1,5 +1,5 @@
 """The per-keyframe mapping pass on torch tensors — the port of the
-monocular, non-inertial part of `orbslam3_tpu/pipeline/local_mapping.py`:
+visual (non-inertial) part of `orbslam3_tpu/pipeline/local_mapping.py`:
 the device programs of one pass (two-view triangulation against the
 covisible neighbours, `triangulate_pair`, `triangulate_batch`; the fuse of
 candidate points into keyframes, `fuse_into_kf`, `_fuse_batch`, kernel B1
@@ -219,14 +219,20 @@ def _first_true(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
 
 
 def local_ba(model, params, state: st.MapState, window_ids, fixed_ids, sigma2_table,
-             iters: int = 8):
+             bf: float = 0.0, iters: int = 8, obs_cap: int | None = None):
     """Assemble and solve the local BA (`Optimizer::LocalBundleAdjustment`):
     the window keyframes are optimized, the fixed ones anchor; observations
     are every feature of both sets whose point the window sees, compacted
-    per camera to `OBS_CAP` slots (valid first, in slot order), and the
-    point axis is compacted to the window's points. Writes back the window
-    poses and points and erases the outlier observations. Returns
-    (new state, cost, number of erased observations)."""
+    per camera to `obs_cap` slots (valid first, in slot order; `OBS_CAP`
+    when None, at most Nf), and the point axis is compacted to the window's
+    points. An observation with a right u (`kf_ur` >= 0) adds the stereo
+    row u_r = u - bf / z. Writes back the window poses and points and erases
+    the outlier observations. Returns (new state, cost, number of erased
+    observations).
+
+    Stereo and RGB-D callers pass `obs_cap=Nf` and keep every observation:
+    their rows carry the metric constraints (the reference's A/B on its
+    600-frame stereo replay: dropping the tail doubled the ATE)."""
     dev = state.kf_R.device
     W = window_ids.shape[0]
     all_ids = torch.cat([window_ids, fixed_ids])
@@ -242,7 +248,7 @@ def local_ba(model, params, state: st.MapState, window_ids, fixed_ids, sigma2_ta
                        wok.reshape(-1)) & state.mp_valid
 
     Nf = state.Nf
-    cap = min(OBS_CAP, Nf)
+    cap = min(OBS_CAP if obs_cap is None else obs_cap, Nf)
     kf_mp_w = state.kf_mp[ids]  # (C,Nf)
     valid_w = ((kf_mp_w >= 0) & state.kf_feat_valid[ids] & ok_kf[:, None]
                & win_mask[torch.clamp(kf_mp_w, min=0).to(torch.int64)])
@@ -273,7 +279,7 @@ def local_ba(model, params, state: st.MapState, window_ids, fixed_ids, sigma2_ta
         obs_cam=obs_cam, obs_point=torch.clamp(sel_of, max=CAP - 1), obs_uv=obs_uv,
         obs_ur=obs_ur, obs_sigma2=obs_s2, obs_valid=obs_valid,
     )
-    res = ba_mod.solve_ba(model, params, prob, iters=iters, dense_schur=True,
+    res = ba_mod.solve_ba(model, params, prob, bf=bf, iters=iters, dense_schur=True,
                           n_opt_prefix=W, obs_per_cam=cap, early_stop_tol=LBA_TOL)
 
     new_state = st.update_poses_points(
@@ -352,17 +358,21 @@ def resolve_and_replace(store: st.MapStore, conflicts_src, conflicts_dst, anchor
 
 
 class LocalMapper:
-    """Synchronous local mapping, monocular and visual only: one pass per
-    keyframe insertion (`LocalMapping::Run`). The inertial stages (IMU
-    initialization, visual-inertial BA) are ROADMAP A11; the sliced
-    asynchronous form is A14."""
+    """Synchronous local mapping, visual only: one pass per keyframe
+    insertion (`LocalMapping::Run`). With a baseline (`bf` > 0, stereo and
+    RGB-D) the local BA adds the stereo rows and keeps every observation
+    (`stereo_like`). The inertial stages (IMU initialization,
+    visual-inertial BA) are ROADMAP A11; the sliced asynchronous form is
+    A14."""
 
     NB_BATCH = 10  # covisible neighbours of triangulation and fuse
 
     def __init__(self, model, params: torch.Tensor, img_wh, store: st.MapStore,
-                 orb_params: feat.OrbParams = feat.OrbParams()):
+                 orb_params: feat.OrbParams = feat.OrbParams(), bf: float = 0.0):
         self.model = model
         self.params = params
+        self.bf = bf
+        self.stereo_like = bf > 0  # set by System for the sensor
         self.device = params.device
         self.img_wh = convert.tensor(np.asarray(img_wh, np.float32), self.device)
         self.store = store
@@ -604,9 +614,15 @@ class LocalMapper:
                     fix_pad[len(fix_pad) // 2] = 0
         T = self.store.tensor
         new_state, _, _ = local_ba(self.model, self.params, self.store.state, T(win_pad),
-                                   T(fix_pad), self.sigma2_table)
+                                   T(fix_pad), self.sigma2_table, bf=self.bf,
+                                   obs_cap=self._obs_cap())
         self.store.state = new_state
         self.store.bump()
+
+    def _obs_cap(self):
+        """Observation slots per camera of the local BA: every feature for a
+        stereo-like sensor, else `OBS_CAP`."""
+        return self.store.state.Nf if self.stereo_like else None
 
     def _cull_keyframes(self, kf_id: int, keep_recent: int = 3):
         """`KeyFrameCulling`: erase covisible keyframes whose points are >=
@@ -696,7 +712,8 @@ class LocalMapper:
         fix[0] = 0
         T = self.store.tensor
         self.store.state, _, _ = local_ba(self.model, self.params, self.store.state, T(win),
-                                          T(fix), self.sigma2_table, iters=12)
+                                          T(fix), self.sigma2_table, bf=self.bf, iters=12,
+                                          obs_cap=self._obs_cap())
         s = self.store.state
         pos = _np(s.mp_pos)[_np(s.mp_valid)]
         if len(pos):

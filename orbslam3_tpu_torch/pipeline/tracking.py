@@ -1,12 +1,13 @@
-"""Per-frame tracking on torch tensors — the port of the monocular, visual
-path of `orbslam3_tpu/pipeline/tracking.py`: the device programs of one
-tracked frame (`_track_last_frame` (motion model), `_track_reference_kf`
-(fallback), `_local_point_mask`, `_track_local_map_match`,
-`_pose_opt_from_assoc`, `compute_obs_count` and `_track_step`, which chains
-them), the initialization matcher `_match_for_initialization`,
-relocalization's `_projection_rescue_match`, and the host state machine
-`Tracker` (two-view initialization, tracking, relocalization, the keyframe
-policy, keyframe insertion).
+"""Per-frame tracking on torch tensors — the port of the visual path of
+`orbslam3_tpu/pipeline/tracking.py` for monocular, rectified stereo and
+RGB-D pinhole cameras: the device programs of one tracked frame
+(`_track_last_frame` (motion model), `_track_reference_kf` (fallback),
+`_local_point_mask`, `_track_local_map_match`, `_pose_opt_from_assoc`,
+`compute_obs_count` and `_track_step`, which chains them), the
+initialization matcher `_match_for_initialization`, relocalization's
+`_projection_rescue_match`, and the host state machine `Tracker` (two-view
+or single-frame stereo initialization, tracking, relocalization, the
+keyframe policy, keyframe insertion with the stereo depth points).
 
 Scatters with duplicate indices (fault C6). The reference writes
 ``assoc.at[clip(idx, 0)].set(where(valid, q, assoc[clip(idx, 0)]))``: every
@@ -27,7 +28,7 @@ from orbslam3_tpu_torch import convert
 from orbslam3_tpu_torch.atlas import store as st
 from orbslam3_tpu_torch.ops import cameras as cam
 from orbslam3_tpu_torch.ops import features as feat
-from orbslam3_tpu_torch.ops import lie, matching, ransac
+from orbslam3_tpu_torch.ops import lie, matching, ransac, stereo
 from orbslam3_tpu_torch.optim import pose_only
 from orbslam3_tpu_torch.pipeline import frame as fr
 
@@ -305,31 +306,42 @@ def fetch_bundle(bundle: dict) -> dict:
 
 
 class Tracker:
-    """Host-side loop of the tracking state machine, monocular and visual only
+    """Host-side loop of the tracking state machine, visual only
     (`Tracking::Track`): NO_IMAGES_YET -> NOT_INITIALIZED -> OK <->
-    RECENTLY_LOST -> LOST. Stereo, RGB-D and the two-camera rig (A10, A12)
-    and the inertial branches (A11) are not ported: their entry points
-    raise. Relocalization needs a keyframe database (place recognition,
-    `System.enable_place_recognition`); without one it fails, as the
-    reference's does.
+    RECENTLY_LOST -> LOST, for a monocular (`process_frame`), rectified
+    stereo (`process_stereo_frame`) or RGB-D (`process_rgbd_frame`) pinhole
+    camera. A stereo or RGB-D frame carries each keypoint's right-image u
+    and depth: it initializes the map on its own, adds the (u, v, u_right)
+    rows to the pose solves, and seeds depth points at each keyframe. The
+    two-camera fisheye rig (A12) and the inertial branches (A11) are not
+    ported: their entry points raise. Relocalization needs a keyframe
+    database (place recognition, `System.enable_place_recognition`);
+    without one it fails, as the reference's does.
 
-    Host synchronisations: a tracked frame that inserts no keyframe makes
-    `HOST_SYNCS_PER_FRAME` = 2, both inside `_track_step`: the read of the
-    motion model's success and the one fetch of the decision bundle. The
-    frame's inputs go up through pinned memory without a sync
-    (`convert.tensor`); the reference keyframe's pose for the trajectory
-    log rides in the bundle; extraction is not waited for. Initialization
-    and keyframe frames read more (the two-view result, the mapping pass)."""
+    Host synchronisations: a tracked monocular frame that inserts no
+    keyframe makes `HOST_SYNCS_PER_FRAME` = 2, both inside `_track_step`:
+    the read of the motion model's success and the one fetch of the
+    decision bundle. A stereo or RGB-D frame adds one, the fetch of its
+    stacked `ur` and depth (`HOST_SYNCS_PER_STEREO_FRAME` = 3). The frame's
+    inputs go up through pinned memory without a sync (`convert.tensor`);
+    the reference keyframe's pose for the trajectory log rides in the
+    bundle; extraction is not waited for. Initialization and keyframe
+    frames read more (the two-view result, the depth points, the mapping
+    pass)."""
 
     HOST_SYNCS_PER_FRAME = 2
+    HOST_SYNCS_PER_STEREO_FRAME = 3
 
     def __init__(self, model: cam.CameraModel, params: torch.Tensor, img_wh: Tuple[int, int],
                  store: st.MapStore, orb_params: feat.OrbParams = feat.OrbParams(),
-                 fps: float = 20.0):
+                 bf: float = 0.0, fps: float = 20.0):
         self.model = model
         self.params = params
         self.device = params.device
         self.focal = float(params[0])
+        self.bf = bf  # stereo baseline x fx (pixels x metres); 0 for monocular
+        self.th_depth = 35.0  # ref ThDepth: close points lie under th_depth baselines
+        self.is_stereo_like = False  # stereo or RGB-D (set by System)
         self.img_wh_t = convert.tensor(np.asarray(img_wh, np.float32), self.device)
         self.store = store
         self.orb = orb_params
@@ -347,9 +359,14 @@ class Tracker:
         self._obs_cache = None  # ((id(store), change_index), obs_count)
         self.frame_id = 0
         self.trajectory = []  # (ts, store, ref kf, R_cr, t_cr)
-        self.new_kf_callback = None  # set by System: runs local mapping
+        self.new_kf_callback = None  # set by System: mapping pass, loop closing -> corrected?
         self.anomaly_cb = None  # set by System: called with "reorder" (timestamp went back)
         self.kfdb = None  # keyframe database (set by enable_place_recognition)
+        # The mapper's state for the keyframe decision (`LocalMapping::
+        # AcceptKeyFrames`, `KeyframesInQueue`): None is a synchronous mapper,
+        # always idle with an empty queue.
+        self.mapper_idle_query = None  # callable -> bool
+        self.mapping_queue_len = None  # callable -> int
         # NeedNewKeyFrame policy state (ref `Tracking.cc:2577-2715`).
         self.max_frames = max(1, int(round(fps)))  # ref mMaxFrames = fps
         self.min_frames = 0  # ref mMinFrames
@@ -380,9 +397,16 @@ class Tracker:
             self.trajectory = [e for e in self.trajectory if e[1] is not self.store]
 
     # -- helpers --------------------------------------------------------
-    def _extract(self, img: np.ndarray) -> feat.Features:
-        """Features of a host image, left in flight on the device."""
-        return feat.extract(convert.tensor(img, self.device, torch.float32), self.orb)
+    def _image(self, img) -> torch.Tensor:
+        """A host image (or a tensor already on the device, as the
+        rectifier returns) as a float32 tensor on the device."""
+        if isinstance(img, torch.Tensor):
+            return img.to(self.device, torch.float32)
+        return convert.tensor(img, self.device, torch.float32)
+
+    def _extract(self, img) -> feat.Features:
+        """Features of an image, left in flight on the device."""
+        return feat.extract(self._image(img), self.orb)
 
     def _kf_pose(self, kf: int):
         """Host copy of keyframe `kf`'s pose: from the last bundle when it
@@ -455,29 +479,42 @@ class Tracker:
         return out
 
     # -- entries that wait for their slices -----------------------------
-    def process_stereo_frame(self, img_left, img_right, timestamp):
-        raise NotImplementedError("stereo tracking is ROADMAP A10")
-
-    def process_rgbd_frame(self, img, depth_map, timestamp):
-        raise NotImplementedError("RGB-D tracking is ROADMAP A10")
-
     def process_stereo_fisheye_frame(self, img_left, img_right, timestamp):
         raise NotImplementedError("the two-camera fisheye rig is ROADMAP A12")
 
     def grab_imu(self, t, acc, gyro):
         raise NotImplementedError("inertial tracking is ROADMAP A11")
 
-    def _initialize_stereo(self, cur):
-        raise NotImplementedError("stereo initialization is ROADMAP A10")
-
-    def _create_depth_points(self, cur, slot):
-        raise NotImplementedError("stereo/RGB-D point creation is ROADMAP A10")
-
     # -- main entry -----------------------------------------------------
     def process_frame(self, img: np.ndarray, timestamp: float) -> fr.FrameData:
         return self._process_with_features(self._extract(img), timestamp)
 
-    def _process_with_features(self, f: feat.Features, timestamp: float) -> fr.FrameData:
+    def process_stereo_frame(self, img_left, img_right, timestamp: float) -> fr.FrameData:
+        """`GrabImageStereo`: features of both images (kernel B2 on each
+        atlas), the scanline match for each left keypoint's right u and
+        depth (one fetch of both), then the frame as a stereo one. Every
+        positive depth is kept: the close/far rule applies where points are
+        created and in the keyframe census, not here."""
+        il, ir = self._image(img_left), self._image(img_right)
+        f = self._extract(il)
+        f_r = self._extract(ir)
+        sm = stereo.match_stereo_rectified(f, f_r, il, ir, self.bf, self.scale_table)
+        ur, depth = torch.stack([sm.ur, sm.depth]).cpu().numpy()
+        return self._process_with_features(f, timestamp, ur=ur, depth=depth)
+
+    def process_rgbd_frame(self, img, depth_map, timestamp: float) -> fr.FrameData:
+        """`GrabImageRGBD`: features of the image, then each keypoint's depth
+        from the registered depth map (metres, <= 0 none) and its virtual
+        right u = u - bf / depth (one fetch of both)."""
+        f = self._extract(img)
+        d = convert.tensor(depth_map, self.device, torch.float32)
+        sm = stereo.depth_to_ur(f.uv, f.valid, d, self.bf)
+        ur, depth = torch.stack([sm.ur, sm.depth]).cpu().numpy()
+        return self._process_with_features(f, timestamp, ur=ur, depth=depth)
+
+    def _process_with_features(self, f: feat.Features, timestamp: float,
+                               ur: Optional[np.ndarray] = None,
+                               depth: Optional[np.ndarray] = None) -> fr.FrameData:
         # A frame older than the last one resets the active map, and then
         # goes on as the first frame of a new one (`Tracking::Track`,
         # Tracking.cc:987-996). The >1 s gap branches are inertial (A11).
@@ -486,10 +523,13 @@ class Tracker:
             self.anomaly_cb("reorder")
         cur = fr.FrameData(features=f, timestamp=timestamp, frame_id=self.frame_id,
                            R=np.eye(3, dtype=np.float32), t=np.zeros(3, np.float32),
-                           mp_assoc=np.full(f.n, -1, np.int32))
+                           mp_assoc=np.full(f.n, -1, np.int32), ur=ur, depth=depth)
         self.frame_id += 1
         if self.state in (TrackState.NO_IMAGES_YET, TrackState.NOT_INITIALIZED):
-            self._initialize_mono(cur)
+            if cur.ur is not None:
+                self._initialize_stereo(cur)
+            else:
+                self._initialize_mono(cur)
         elif self._track_state_machine(cur):
             self.state = TrackState.OK
         if self.state == TrackState.OK:
@@ -522,6 +562,52 @@ class Tracker:
         return False
 
     # -- initialization --------------------------------------------------
+    def _initialize_stereo(self, cur: fr.FrameData, min_features: int = 300):
+        """`StereoInitialization`: a frame with >= `min_features` keypoints
+        and >= 100 depths seeds the map alone. It becomes keyframe 0 at the
+        identity pose with its `ur` row, and every keypoint with a depth
+        becomes a point at its back-projection (metric scale from the
+        baseline). No mapping pass runs on it, as in the reference."""
+        if cur.n_features < min_features or cur.depth is None:
+            return
+        f = cur.features
+        depth = cur.depth
+        kp_ok = f.valid.cpu().numpy() & (depth > 0)
+        n_new = int(kp_ok.sum())
+        if n_new < 100:
+            return
+        rays = cam.unproject(self.model, self.params, f.uv).cpu().numpy()
+        sel = np.flatnonzero(kp_ok)
+        pos = (rays * depth[:, None])[sel]  # the identity pose: camera frame = world
+        slots = self.store.alloc_mps(n_new)
+        dist = np.linalg.norm(pos, axis=-1)
+        normal = pos / np.maximum(dist[:, None], 1e-9)
+        sf = self.scale_np
+        max_d = dist * sf[np.clip(f.octave.cpu().numpy()[sel], 0, len(sf) - 1)]
+        min_d = max_d / sf[-1]
+        k0 = self.store.alloc_kf()
+        assoc = np.full(f.n, -1, np.int32)
+        assoc[sel] = slots
+        T = self.store.tensor
+        s = st.add_keyframe(self.store.state, k0, torch.eye(3, device=self.device),
+                            torch.zeros(3, device=self.device), f.uv,
+                            T(cur.ur.astype(np.float32)), f.octave, f.angle, f.desc, f.valid,
+                            T(assoc), prev_kf=-1)
+        self.store.state = st.add_points(
+            s, T(slots), T(pos.astype(np.float32)), f.desc[T(sel)],
+            T(normal.astype(np.float32)), T(min_d.astype(np.float32)),
+            T(max_d.astype(np.float32)), T(np.full(n_new, k0, np.int32)),
+            T(np.ones(n_new, bool)))
+        self.store.kf_ts[k0] = cur.timestamp
+        self.store.bump()
+        cur.mp_assoc = assoc
+        self.ref_kf = k0
+        self.last_kf_id = k0
+        self.velocity = None
+        self.state = TrackState.OK
+        self.last_kf_frame_id = cur.frame_id
+        self.init_frame = None
+
     def _initialize_mono(self, cur: fr.FrameData):
         """`MonocularInitialization`: the first frame with >= 100 keypoints
         becomes the reference; a later one with >= 100 matches to it tries
@@ -651,6 +737,7 @@ class Tracker:
             up(self.ref_kf, np.int32), up(R_last, np.float32), up(t_last, np.float32),
             self.scale_table, self.sigma2_table, self.img_wh_t,
             up(3 if self.store.n_kf > 2 else 2, np.int32),
+            ur=up(cur.ur, np.float32) if cur.ur is not None else None, bf=self.bf,
             obs_count=self._obs_count_cached(), n_levels=self.orb.n_levels,
         )
         b = fetch_bundle(bundle)  # the frame's one round trip
@@ -740,39 +827,115 @@ class Tracker:
         return False
 
     def _need_new_keyframe(self, cur: fr.FrameData, n_inl: int, ref_matches: int) -> bool:
-        """`NeedNewKeyFrame` for a monocular, visual tracker with the
-        synchronous (always idle) mapper: the reloc gate, the c1a/c1b frame
-        gates and the 0.9 ratio to `ref_matches`, the reference keyframe's
-        well-observed points (0.4 while the map has < 2 keyframes)."""
+        """`NeedNewKeyFrame` for a visual tracker: the reloc gate; for
+        stereo and RGB-D the close-point census (close: a depth under
+        `_close_depth_cutoff`; fewer than 100 tracked close points and more
+        than 70 untracked ones need a keyframe); the ratio to `ref_matches`,
+        the reference keyframe's well-observed points (0.9 monocular, 0.75
+        stereo-like, 0.4 while the map has < 2 keyframes); the c1a/c1b frame
+        gates and, for stereo-like sensors, c1c (a quarter of
+        `ref_matches`, or the census). A busy mapper queues a stereo-like
+        keyframe while fewer than 3 wait, and refuses a monocular one."""
         if self.ref_kf < 0:
             return False
+        idle = self.mapper_idle_query is None or bool(self.mapper_idle_query())
         nkf = self.store.n_kf - len(self.store.free_kf_slots)
         if (cur.frame_id < self.last_reloc_frame_id + self.max_frames
                 and nkf > self.max_frames):
             return False
-        th_ratio = 0.4 if nkf < 2 else 0.9
+        mono_like = not self.is_stereo_like
+        need_close = False
+        if not mono_like and cur.depth is not None:
+            close = (cur.depth > 0) & (cur.depth < self._close_depth_cutoff())
+            tracked_close = int(np.sum(close & (cur.mp_assoc >= 0)))
+            untracked_close = int(np.sum(close & (cur.mp_assoc < 0)))
+            need_close = tracked_close < 100 and untracked_close > 70
+        th_ratio = 0.9 if mono_like else 0.75
+        if nkf < 2:
+            th_ratio = 0.4
         c1a = cur.frame_id >= self.last_kf_frame_id + self.max_frames
-        c1b = cur.frame_id >= self.last_kf_frame_id + self.min_frames
-        c2 = (n_inl < ref_matches * th_ratio) and n_inl > 15
-        return (c1a or c1b) and c2
+        c1b = cur.frame_id >= self.last_kf_frame_id + self.min_frames and idle
+        c1c = not mono_like and (n_inl < ref_matches * 0.25 or need_close)
+        c2 = ((n_inl < ref_matches * th_ratio) or need_close) and n_inl > 15
+        if not ((c1a or c1b or c1c) and c2):
+            return False
+        if idle:
+            return True
+        if not mono_like:
+            q = 0 if self.mapping_queue_len is None else int(self.mapping_queue_len())
+            return q < 3
+        return False
+
+    def _close_depth_cutoff(self) -> float:
+        """ThDepth baselines, in metres (`Tracking.cc:1616, 2624`)."""
+        return self.th_depth * (self.bf / self.focal)
+
+    def _create_depth_points(self, cur: fr.FrameData, slot: int):
+        """Stereo and RGB-D points at a new keyframe (`CreateNewKeyFrame`,
+        `Tracking.cc:2756-2830`): of the keypoints with a depth and no map
+        point, nearest first, every close one, and at least 100 whatever
+        their depth, as far as free point slots allow. Each becomes a point
+        at its back-projection through the frame's pose, associated in the
+        keyframe's row (at those keypoints only) and in the frame."""
+        depth = cur.depth
+        f = cur.features
+        cand = np.flatnonzero(f.valid.cpu().numpy() & (depth > 0) & (cur.mp_assoc < 0))
+        if len(cand) == 0:
+            return
+        order = cand[np.argsort(depth[cand])]
+        n_close = int(np.searchsorted(depth[order], self._close_depth_cutoff()))
+        sel = order[:max(n_close, min(100, len(order)))]
+        free = int((~self.store.state.mp_valid).sum()) - 1  # the dump slot is not free
+        if free < len(sel):  # the capacity guard: the nearest first
+            sel = sel[:max(free, 0)]
+        if len(sel) == 0:
+            return
+        T = self.store.tensor
+        rays = cam.unproject(self.model, self.params, f.uv[T(sel)]).cpu().numpy()
+        Xw = (rays * depth[sel][:, None] - cur.t) @ cur.R  # X_w = R^T (X_c - t)
+        centre = -cur.R.T @ cur.t
+        dist = np.linalg.norm(Xw - centre, axis=-1)
+        normal = (Xw - centre) / np.maximum(dist[:, None], 1e-9)
+        sf = self.scale_np
+        max_d = dist * sf[np.clip(f.octave.cpu().numpy()[sel], 0, len(sf) - 1)]
+        min_d = max_d / sf[-1]
+        slots = self.store.alloc_mps(len(sel))
+        s = st.add_points(self.store.state, T(slots), T(Xw.astype(np.float32)), f.desc[T(sel)],
+                          T(normal.astype(np.float32)), T(min_d.astype(np.float32)),
+                          T(max_d.astype(np.float32)), T(np.full(len(sel), slot, np.int32)),
+                          T(np.ones(len(sel), bool)))
+        kf_mp = s.kf_mp.clone()
+        kf_mp[slot, T(sel)] = T(slots.astype(np.int32))
+        self.store.state = s._replace(kf_mp=kf_mp)
+        cur.mp_assoc = cur.mp_assoc.copy()
+        cur.mp_assoc[sel] = slots
 
     def _create_keyframe(self, cur: fr.FrameData):
-        """`CreateNewKeyFrame`: insert the frame as a keyframe and run its
-        mapping pass (the reference's `_create_keyframe_impl`)."""
+        """`CreateNewKeyFrame`: insert the frame as a keyframe (with its `ur`
+        row; for stereo and RGB-D, its depth points), then run its mapping
+        pass (the reference's `_create_keyframe_impl`)."""
         slot = self.store.alloc_kf()
         T = self.store.tensor
         f = cur.features
+        ur = (T(cur.ur.astype(np.float32)) if cur.ur is not None
+              else torch.full((f.n,), -1.0, device=self.device))
         self.store.state = st.add_keyframe(
             self.store.state, slot, T(cur.R.astype(np.float32)), T(cur.t.astype(np.float32)),
-            f.uv, torch.full((f.n,), -1.0, device=self.device), f.octave, f.angle, f.desc,
-            f.valid, T(cur.mp_assoc.astype(np.int32)), prev_kf=self.last_kf_id,
+            f.uv, ur, f.octave, f.angle, f.desc, f.valid, T(cur.mp_assoc.astype(np.int32)),
+            prev_kf=self.last_kf_id,
         )
         self.store.kf_ts[slot] = cur.timestamp
+        if self.is_stereo_like and cur.depth is not None:
+            self._create_depth_points(cur, slot)
         self.store.bump()
         self.ref_kf = slot
         self.last_kf_id = slot
         self.last_kf_frame_id = cur.frame_id
-        if self.new_kf_callback is not None:
-            self.new_kf_callback(slot, initial=False)
+        if self.new_kf_callback is not None and self.new_kf_callback(slot, initial=False):
+            # A loop correction moved the map under this frame (fault C12):
+            # the frame takes its keyframe's corrected pose, as ORB-SLAM3's
+            # UpdateLastFrame gives it to the next frame's motion model.
+            cur.R = self.store.state.kf_R[slot].cpu().numpy()
+            cur.t = self.store.state.kf_t[slot].cpu().numpy()
         # The mapping pass may have fused points into this keyframe.
         cur.mp_assoc = self.store.state.kf_mp[slot].cpu().numpy()

@@ -1,22 +1,26 @@
 """The public entry of the port — `System` of `orbslam3_tpu/system.py`
-(`ORB_SLAM3::System`) for a monocular pinhole camera.
+(`ORB_SLAM3::System`) for a monocular, rectified stereo or RGB-D pinhole
+camera.
 
-`System(Sensor.MONOCULAR, CameraModel.PINHOLE, params, (W, H), orb, device)`
+`System(sensor, CameraModel.PINHOLE, params, (W, H), orb, device, bf=...)`
 wires a `Tracker` and a synchronous `LocalMapper` over one `MapStore` on
 `device`: the first CUDA card when `device` is None (it raises where there
 is none and never falls back), the CPU (the kernels' plain versions) only
-when the caller asks for it with `device="cpu"`.
-`track_monocular(img, timestamp)` runs a frame (and, on a new
-keyframe, its mapping pass, then the keyframe's hand-off to loop closing;
-a frame older than the last one first resets the active map) and
-`get_trajectory()` reads the camera centres back through the current
-keyframe poses. `enable_place_recognition(vocabulary)` attaches a keyframe
-database and a `LoopCloser` (relocalization of a lost map, loop closing,
-the background global BA, one chunk of it after each frame), all on the
-system's device. Not ported yet: the other sensors (stereo and RGB-D A10,
-inertial A11), the fisheye model (A12), multi-map, atlas save/load and the
-trajectory writers (A13, A14), asynchronous mapping and localization mode
-(A14).
+when the caller asks for it with `device="cpu"`. `bf` is the stereo
+baseline times fx (ORB-SLAM3's `Camera.bf`), for `Sensor.STEREO` and
+`Sensor.RGBD`. `track_monocular(img, t)`, `track_stereo(left, right, t)`
+and `track_rgbd(img, depth, t)` run a frame (and, on a new keyframe, its
+mapping pass, then the keyframe's hand-off to loop closing; a frame older
+than the last one first resets the active map) and `get_trajectory()`
+reads the camera centres back through the current keyframe poses.
+`enable_rectification(left, right)` remaps raw stereo pairs on the device
+before `track_stereo`. `enable_place_recognition(vocabulary)` attaches a
+keyframe database and a `LoopCloser` (relocalization of a lost map, loop
+closing, the background global BA, one chunk of it after each frame), all
+on the system's device. Not ported yet: the inertial sensors (A11), the
+fisheye model and the two-camera rig (A12), multi-map, atlas save/load and
+the trajectory writers (A13, A14), asynchronous mapping and localization
+mode (A14).
 """
 
 from __future__ import annotations
@@ -45,28 +49,34 @@ class Sensor(enum.Enum):
     IMU_STEREO = 4
 
 
-_NOT_PORTED = {
-    Sensor.STEREO: "A10", Sensor.RGBD: "A10", Sensor.IMU_MONOCULAR: "A11",
-    Sensor.IMU_STEREO: "A11",
-}
+_NOT_PORTED = {Sensor.IMU_MONOCULAR: "A11", Sensor.IMU_STEREO: "A11"}
 
 
 class System:
     def __init__(self, sensor: Sensor, camera_model: cam.CameraModel, camera_params,
                  img_wh: Tuple[int, int], orb_params: feat.OrbParams = feat.OrbParams(),
-                 device=None, Kmax: int = 256, Pmax: int = 16384, fps: float = 20.0):
+                 device=None, bf: float = 0.0, camera2=None, Kmax: int = 256,
+                 Pmax: int = 16384, fps: float = 20.0):
         if sensor in _NOT_PORTED:
             raise NotImplementedError(f"{sensor.name} is ROADMAP {_NOT_PORTED[sensor]}")
         if camera_model != cam.CameraModel.PINHOLE:
             raise NotImplementedError("the Kannala-Brandt model is ROADMAP A12")
+        if camera2 is not None:
+            raise NotImplementedError("the two-camera rig (camera2) is ROADMAP A12")
         self.sensor = sensor
         self.device = require_cuda() if device is None else torch.device(device)
         self.store = MapStore(Kmax=Kmax, Pmax=Pmax, Nf=sum(feat.level_budgets(orb_params)),
                               device=self.device)
         params = torch.from_numpy(np.array(camera_params, np.float32)).to(self.device)
-        self.tracker = Tracker(camera_model, params, img_wh, self.store, orb_params, fps=fps)
-        self.mapper = LocalMapper(camera_model, params, img_wh, self.store, orb_params)
+        self.tracker = Tracker(camera_model, params, img_wh, self.store, orb_params, bf=bf,
+                               fps=fps)
+        self.mapper = LocalMapper(camera_model, params, img_wh, self.store, orb_params, bf=bf)
+        # Metric-depth sensors keep every observation in the local BA.
+        stereo_like = sensor in (Sensor.STEREO, Sensor.RGBD)
+        self.tracker.is_stereo_like = stereo_like
+        self.mapper.stereo_like = stereo_like
         self.mapper.tracker = self.tracker
+        self.rectifier = None
         self.tracker.new_kf_callback = self._on_new_keyframe
         self.tracker.anomaly_cb = self._on_timestamp_anomaly
         self.loop_closer = None
@@ -75,10 +85,14 @@ class System:
         self._kf_downstream = []
         self._lost_streak = 0
 
-    def _on_new_keyframe(self, slot: int, initial: bool = False):
+    def _on_new_keyframe(self, slot: int, initial: bool = False) -> bool:
+        """The keyframe's mapping pass, then its hand-off to loop closing.
+        Returns whether a loop correction moved the map (fault C12)."""
         self.mapper.process_keyframe(slot, initial=initial)
+        loops = self.n_loops_closed
         for d in self._kf_downstream:
             d(slot)
+        return self.n_loops_closed > loops
 
     def enable_place_recognition(self, vocabulary, run_gba: bool = True,
                                  min_bow_matches: int = 20, min_sim3_inliers: int = 20,
@@ -102,9 +116,9 @@ class System:
             t.model, t.params, self.store, kfdb, t.sigma2_table, run_gba=run_gba,
             min_bow_matches=min_bow_matches, min_sim3_inliers=min_sim3_inliers,
             consecutive=consecutive, img_wh=t.img_wh_t, scale_table=t.scale_table,
-            mapper=self.mapper)
+            mapper=self.mapper, bf=t.bf)
         if run_gba and async_gba:
-            self.loop_closer.gba_async = AsyncGBA(t.model, t.params, t.sigma2_table)
+            self.loop_closer.gba_async = AsyncGBA(t.model, t.params, t.sigma2_table, bf=t.bf)
         self._kf_downstream.append(self.loop_closer.process_keyframe)
 
     @property
@@ -124,12 +138,48 @@ class System:
         the active map."""
         self.reset_active_map()
 
+    def enable_rectification(self, rect_left, rect_right):
+        """Raw (unrectified) pinhole stereo: the reference's LEFT./RIGHT.
+        K/D/R/P blocks (any objects with K, D, R, P, width and height). The
+        grids are built once on the host; `track_stereo` then remaps each
+        raw pair on the device before extraction. Returns the rectifier."""
+        from orbslam3_tpu_torch.ops.rectify import StereoRectifier
+
+        if self.sensor != Sensor.STEREO:
+            raise ValueError(f"rectification needs Sensor.STEREO, not {self.sensor.name}")
+        self.rectifier = StereoRectifier(rect_left, rect_right, self.device)
+        return self.rectifier
+
     def track_monocular(self, img: np.ndarray, timestamp: float):
         """`System::TrackMonocular`: one grey image (H, W) and its time in
         seconds. Returns the frame's `FrameData`."""
+        self._require(Sensor.MONOCULAR)
         out = self.tracker.process_frame(img, timestamp)
         self._post_frame()
         return out
+
+    def track_stereo(self, img_left, img_right, timestamp: float):
+        """`System::TrackStereo`: a rectified grey pair (H, W), remapped
+        first when `enable_rectification` was called. Returns the left
+        frame's `FrameData`."""
+        self._require(Sensor.STEREO)
+        if self.rectifier is not None:
+            img_left, img_right = self.rectifier(img_left, img_right)
+        out = self.tracker.process_stereo_frame(img_left, img_right, timestamp)
+        self._post_frame()
+        return out
+
+    def track_rgbd(self, img, depth_map, timestamp: float):
+        """`System::TrackRGBD`: a grey image and its registered depth map
+        (H, W) in metres, <= 0 where there is none."""
+        self._require(Sensor.RGBD)
+        out = self.tracker.process_rgbd_frame(img, depth_map, timestamp)
+        self._post_frame()
+        return out
+
+    def _require(self, sensor: Sensor):
+        if self.sensor != sensor:
+            raise ValueError(f"a {self.sensor.name} System takes no {sensor.name} frame")
 
     def _post_frame(self):
         self._tick_gba()

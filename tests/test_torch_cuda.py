@@ -376,3 +376,36 @@ def test_global_ba_256_cameras_on_card_equals_cpu(dev):
     for k in ("kf_R", "kf_t", "mp_pos"):
         np.testing.assert_allclose(getattr(out["cuda"], k).cpu().numpy(),
                                    getattr(out["cpu"], k).numpy(), rtol=0, atol=1e-4, err_msg=k)
+
+
+def test_stereo_match_and_remap_on_card_equal_cpu(dev):
+    """The scanline match on a rendered pair of the stereo test scene, from
+    the same features, and the raw-stereo remap of one synthetic EuRoC pair:
+    the card's results equal the CPU's (valid sets equal; `ur` and depth
+    within 1e-4; the remap within 1e-4 grey levels)."""
+    import stereo_scene as scene
+    from orbslam3_tpu_torch.ops import stereo
+    from orbslam3_tpu_torch.ops.rectify import StereoRectifier
+
+    pts, shades = scene.make_world()
+    R, t = scene.camera_path()[8]
+    imgs = [scene.render(R, t - np.array([b, 0, 0], np.float32), pts, shades)
+            for b in (0.0, scene.BASELINE)]
+    orb = feat.OrbParams(n_features=400, n_levels=3)
+    scale = feat.scale_factors(orb)
+    il, ir = (convert.tensor(x, dev) for x in imgs)
+    fl, fr_ = feat.extract(il, orb), feat.extract(ir, orb)
+    got = stereo.match_stereo_rectified(fl, fr_, il, ir, scene.BF, convert.tensor(scale, dev))
+    cpu = lambda f: type(f)(*(x.cpu() for x in f))  # noqa: E731 (the card's features)
+    want = stereo.match_stereo_rectified(cpu(fl), cpu(fr_), torch.from_numpy(imgs[0]),
+                                         torch.from_numpy(imgs[1]), scene.BF,
+                                         torch.from_numpy(scale))
+    np.testing.assert_array_equal(got.valid.cpu().numpy(), want.valid.numpy())
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4, rtol=0)
+    assert int(want.valid.sum()) > 50
+    _, raw, _ = E.euroc_frames(1, raw=True)
+    rig = E.raw_stereo_rig()
+    for a, b in zip(StereoRectifier(*rig, dev)(raw[0, 0], raw[0, 1]),
+                    StereoRectifier(*rig, "cpu")(raw[0, 0], raw[0, 1])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4, rtol=0)

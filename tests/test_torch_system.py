@@ -349,6 +349,52 @@ def test_mono_replay_initializes_on_the_cpu():
     assert rep.n_kf >= 2 and rep.n_mp > 200 and rep.ate < 0.05
 
 
+def test_loop_correction_moves_the_closing_frame_c12():
+    """Fault C12: when a keyframe's hand-off closes a loop (the System's
+    callback reports that `n_loops_closed` grew), the frame that inserted the
+    keyframe takes the keyframe's corrected pose, so its trajectory entry is
+    the keyframe's and the next frame predicts from the corrected map. After
+    a mapping pass alone the tracked pose stays, as in the reference."""
+    from types import SimpleNamespace
+
+    params, imgs, _ = _frames()
+    slam = _port_system(params)
+    for k in range(3):
+        slam.track_monocular(imgs[k], k * 0.1)
+    assert slam.tracking_state == TrackState.OK
+    tr = slam.tracker
+    lc = SimpleNamespace(n_loops_closed=0)
+    slam.loop_closer = lc
+    shift = np.array([0.05, -0.02, 0.01], np.float32)
+
+    def correct(slot):  # a loop correction: the new keyframe moves
+        s = slam.store.state
+        slam.store.state = s._replace(kf_t=s.kf_t.index_add(0, torch.tensor([slot]),
+                                                            torch.from_numpy(shift)[None]))
+        lc.n_loops_closed += 1
+
+    slam.mapper.process_keyframe = lambda slot, initial=False: None
+    for closes in (False, True):
+        slam._kf_downstream = [correct] if closes else []
+        last = tr.last_frame
+        cur = fr_t.FrameData(features=last.features, timestamp=last.timestamp + 0.01,
+                             frame_id=tr.frame_id, R=last.R.copy(), t=last.t.copy(),
+                             mp_assoc=last.mp_assoc.copy())
+        tracked_t = cur.t.copy()
+        tr._create_keyframe(cur)
+        slot = tr.last_kf_id
+        kf_t = slam.store.state.kf_t[slot].numpy()
+        if closes:
+            np.testing.assert_allclose(kf_t, tracked_t + shift, atol=1e-6)
+            np.testing.assert_array_equal(cur.t, kf_t)
+        else:
+            np.testing.assert_array_equal(cur.t, tracked_t)
+        tr._record_pose(cur.timestamp, cur.R, cur.t)
+        centre = tr.reconstructed_trajectory()[-1][2]
+        R_kf = slam.store.state.kf_R[slot].numpy()
+        np.testing.assert_allclose(centre, -R_kf.T @ kf_t, atol=1e-5)
+
+
 def test_system_takes_the_card_unless_asked_for_the_cpu(monkeypatch):
     """`System` (and its `MapStore`) without a device take the first CUDA
     card and raise where there is none, never falling back to the CPU; with
@@ -367,12 +413,13 @@ def test_system_takes_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing the System, the entry points, the kernel bench and place
-    recognition's modules (and loading the synthetic sequence's script)
-    leaves JAX and the JAX package out of the process."""
+    """Importing the System, the entry points, the kernel bench, place
+    recognition's modules and the stereo ones (and loading the synthetic
+    sequence's script) leaves JAX and the JAX package out of the process."""
     code = ("import sys, orbslam3_tpu_torch.system, orbslam3_tpu_torch.entry as E, "
             "orbslam3_tpu_torch.kernel_bench, orbslam3_tpu_torch.pipeline.loop_closing, "
-            "orbslam3_tpu_torch.pipeline.gba, orbslam3_tpu_torch.io.vocab_io; "
+            "orbslam3_tpu_torch.pipeline.gba, orbslam3_tpu_torch.io.vocab_io, "
+            "orbslam3_tpu_torch.ops.stereo, orbslam3_tpu_torch.ops.rectify; "
             "E.synth_euroc(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'orbslam3_tpu')]; "
             "assert not bad, bad")
