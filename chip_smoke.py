@@ -67,6 +67,26 @@ its first 12 frames kernels vs plain) and raw stereo
 (`enable_rectification`, 30 frames: the remap on the card within 1e-4 of
 the CPU's, every frame OK, the SE3 ATE under phase 11's gate).
 
+Phase 13 drives the mono-inertial `System` (config 3: `entry.replay(cuda,
+"mono_vi", N_VI)`, IMU_MONOCULAR at full width with the synthetic sequence's
+200 Hz IMU) long enough to pass the IMU initialization and VIBA1: the IMU
+initialized within 2 keyframes of the JAX `System`'s keyframe count at its
+initialization, VIBA1 run, no frame lost after the map's initialization,
+the SE3 and Sim3 ATE each under max(2 x the JAX `System`'s on the same
+frames, 0.01 m) and the Sim3 scale within max(2 x |1 - JAX's|, 0.02) of 1,
+the pose-inertial result taken on at least 80% of the tracked frames after
+the IMU initialization (the exact share printed), the host syncs per
+tracked frame 2 before the IMU initialization and
+`Tracker.HOST_SYNCS_PER_INERTIAL_FRAME` after it, and a prefix through the
+IMU initialization and 10 frames after it equal through the kernels and
+through the plain versions (states, associations, keyframe rows; poses,
+velocities and points within 1e-4). It prints the median ms per frame
+kind, the ms of each inertial call (the preintegration, both pose-inertial
+solves, `try_initialize`, the init-time full VI-BA, VIBA1, each local
+inertial BA) by CUDA events and the host clock, B1 and B2 launches per
+frame and the full-map VI-BA's coupling-tensor bytes. Every run prints the
+wall time of each phase and of the whole script.
+
 Every phase prints its lines; any failure ends the run with a non-zero
 exit. Without a CUDA device it exits non-zero and prints no result.
 
@@ -159,6 +179,27 @@ JAX_RGBD_ATE_SE3 = 0.005120
 RGBD_ATE_GATE = max(2 * JAX_RGBD_ATE_SE3, 0.01)
 N_RAW = 30
 SCALE_TOL = 0.02  # |scale - 1|, the gate of tests/test_stereo_at_scale.py
+
+# Phase 13: the mono-inertial System (config 3). The JAX `System` on the same
+# frames on a CPU, with fault C13 repaired in its Tracker as in the port
+# (`python tests/jax_vi_replay.py --frames 160 --c13`): the IMU initialized at
+# frame 44 with 10 keyframes, VIBA1 at frame 104 (5.2 s), every frame OK after
+# the map's initialization (frame 3), 22 keyframes and 1620 points at the
+# end, SE3 ATE 0.018918 m, Sim3 ATE 0.017981 m, Sim3 scale 1.009804 over 158
+# poses. Unrepaired, it loses track on the frame after each IMU initialization
+# and never reaches VIBA1. N_VI = 160 (8 s): at least 140 and VIBA1's frame
+# plus 20.
+N_VI = 160
+JAX_VI_INIT_FRAME = 44
+JAX_VI_INIT_KFS = 10
+JAX_VI_VIBA1_FRAME = 104
+JAX_VI_ATE_SE3 = 0.018918
+JAX_VI_ATE_SIM3 = 0.017981
+JAX_VI_SCALE = 1.009804
+VI_ATE_SE3_GATE = max(2 * JAX_VI_ATE_SE3, 0.01)
+VI_ATE_SIM3_GATE = max(2 * JAX_VI_ATE_SIM3, 0.01)
+VI_SCALE_TOL = max(2 * abs(1 - JAX_VI_SCALE), 0.02)
+VI_PREFIX_AFTER_INIT = 10  # frames after the IMU initialization in the kernels-vs-plain prefix
 
 
 @contextlib.contextmanager
@@ -817,6 +858,166 @@ def phase12_rgbd_raw(dev) -> dict:
     return dict(rgbd=rgbd, raw=raw_l)
 
 
+def _vi_recorder(into: dict):
+    """An `on_frame` for the mono-inertial replay: each frame's associations,
+    pose and body velocity; the frame at which the IMU was initialized; and
+    the map at VI_PREFIX_AFTER_INIT frames after it (`kf_vel` too), which is
+    where the kernels-vs-plain prefix ends."""
+    def on_frame(k, slam):
+        if "map" in into:
+            return
+        f = slam.tracker.last_frame
+        into.setdefault("frames", []).append(
+            (f.mp_assoc.copy() if f is not None else None, np.array(f.R) if f else None,
+             np.array(f.t) if f else None, np.array(slam.tracker.body_vel)))
+        if "init" not in into and slam.mapper.imu_initialized:
+            into["init"] = k
+        if into.get("init") is not None and k == into["init"] + VI_PREFIX_AFTER_INIT:
+            s = slam.store.state
+            into["map"] = {name: getattr(s, name).cpu().numpy() for name in (
+                "kf_valid", "kf_ur", "kf_mp", "kf_R", "kf_t", "kf_vel", "kf_bias_g", "mp_valid",
+                "mp_pos")}
+    return on_frame
+
+
+def phase13_mono_inertial(dev) -> dict:
+    """Phase 13: the mono-inertial `System` (config 3: `entry.replay(cuda,
+    "mono_vi", N_VI)`, IMU_MONOCULAR at 1000 features, 8 levels, Kmax 256,
+    Pmax 16384, 20 Hz camera, 200 Hz IMU) with the gates and lines of the
+    module docstring. Returns the kernels' launches on the main path."""
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch.ops import _build, cuda_fast, cuda_match
+    from orbslam3_tpu_torch.optim import inertial as vi
+    from orbslam3_tpu_torch.pipeline.tracking import Tracker
+
+    solves = []
+    solve = vi.solve_vi_ba
+
+    def sized_solve(model, params, prob, **kw):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = solve(model, params, prob, **kw)
+        solves.append((prob.points.shape[0], prob.state.R.shape[0], prob.obs_cam.shape[0],
+                       torch.cuda.max_memory_allocated() - base))
+        return out
+
+    rec_k, rec_p = {}, {}
+    torch.cuda.synchronize()
+    cuda_fast.LAUNCHES = 0
+    cuda_match.LAUNCHES = 0
+    vi.solve_vi_ba = sized_solve
+    t0 = time.perf_counter()
+    try:
+        with _b1_calls([], keep_args=False) as calls:
+            rep = E.replay(dev, "mono_vi", N_VI, on_frame=_vi_recorder(rec_k))
+    finally:
+        vi.solve_vi_ba = solve
+    wall_s = time.perf_counter() - t0
+    launches = {"fast_nms": cuda_fast.LAUNCHES, "hamming_top2": cuda_match.LAUNCHES}
+    sites = {site: sum(c[0] == site for c in calls) for site in B1_SITES.values()}
+    check(sum(sites.values()) == launches["hamming_top2"], f"phase 13 B1 calls {sites}")
+    states = rep.states
+    init = states.index("OK") if "OK" in states else None
+    print(f"phase 13 outcome: map initialized at frame {init}, IMU initialized at frame "
+          f"{rep.imu_init_frame} with {rep.imu_init_kfs} keyframes (JAX {JAX_VI_INIT_FRAME}, "
+          f"{JAX_VI_INIT_KFS}), VIBA1 at frame {rep.viba1} (JAX {JAX_VI_VIBA1_FRAME}), VIBA2 "
+          f"{rep.viba2}; {rep.n_kf} keyframes, {rep.n_mp} map points; SE3 ATE "
+          f"{rep.ate_se3:.6f} m, Sim3 ATE {rep.ate:.6f} m, scale {rep.scale:.5f}; states "
+          f"{ {x: states.count(x) for x in sorted(set(states))} }")
+    check(init is not None and all(x == "OK" for x in states[init:]),
+          f"phase 13: a frame not OK after the map's initialization: {states}")
+    check(rep.imu_init_kfs is not None and abs(rep.imu_init_kfs - JAX_VI_INIT_KFS) <= 2,
+          f"phase 13: IMU initialized with {rep.imu_init_kfs} keyframes, JAX {JAX_VI_INIT_KFS}")
+    check(rep.viba1 is not None, "phase 13: VIBA1 did not run")
+    check(np.isfinite(rep.pos).all() and rep.pos.shape == (len(rep.ts), 3),
+          "phase 13: trajectory not finite or misshapen")
+    check(rep.ate_se3 <= VI_ATE_SE3_GATE, f"phase 13: SE3 ATE {rep.ate_se3} m above "
+          f"{VI_ATE_SE3_GATE} m")
+    check(rep.ate <= VI_ATE_SIM3_GATE, f"phase 13: Sim3 ATE {rep.ate} m above {VI_ATE_SIM3_GATE} m")
+    check(abs(rep.scale - 1) <= VI_SCALE_TOL, f"phase 13: Sim3 scale {rep.scale}, tolerance "
+          f"{VI_SCALE_TOL}")
+    after = [k for k in range(rep.imu_init_frame + 1, N_VI) if states[k] == "OK"]
+    share = sum(rep.pi_taken[k] for k in after) / max(len(after), 1)
+    check(after and share >= 0.8, f"phase 13: pose-inertial result taken on {share:.4f} of "
+          f"{len(after)} tracked frames after the IMU initialization")
+    check(all(n == 1 for n in rep.b2) and launches["fast_nms"] == N_VI,
+          f"phase 13: B2 launches per frame {sorted(set(rep.b2))}")
+    kinds = rep.frame_kinds()
+    by_kind = {}
+    for k, (kind, n_sync, m) in enumerate(zip(kinds, rep.syncs, rep.ms)):
+        if kind == "tracked":
+            kind = "tracked after IMU init" if k > rep.imu_init_frame else "tracked before IMU init"
+        by_kind.setdefault(kind, []).append((n_sync, m))
+    for kind, want in (("tracked before IMU init", Tracker.HOST_SYNCS_PER_FRAME),
+                       ("tracked after IMU init", Tracker.HOST_SYNCS_PER_INERTIAL_FRAME)):
+        got = sorted(set(n for n, _ in by_kind.get(kind, [])))
+        check(got == [want], f"phase 13: host syncs per {kind} frame {got}, documented {want}")
+    med = statistics.median
+    print(f"phase 13 mono-inertial: {N_VI} frames at 752x480, 1000 features, 200 Hz IMU; "
+          f"pose-inertial result taken on {share:.4f} of the {len(after)} tracked frames after "
+          f"the IMU initialization ({sum(rep.pi_taken)} frames); SE3 ATE {rep.ate_se3:.6f} m "
+          f"(gate {VI_ATE_SE3_GATE:.6f} m: 2 x the JAX System's {JAX_VI_ATE_SE3} m, or 0.01), "
+          f"Sim3 ATE {rep.ate:.6f} m (gate {VI_ATE_SIM3_GATE:.6f} m), scale {rep.scale:.5f} "
+          f"(tolerance {VI_SCALE_TOL:.4f}); {N_VI / (sum(rep.ms) / 1e3):.2f} frames/s "
+          f"({wall_s:.1f} s wall, {rep.render_s:.1f} s of rendering)")
+    print("phase 13 host syncs and ms per frame kind: " + "; ".join(
+        f"{kind} {len(v)} frames, syncs median {med([n for n, _ in v])} (max "
+        f"{max(n for n, _ in v)}), ms median {med([m for _, m in v]):.2f}"
+        for kind, v in sorted(by_kind.items())))
+    calls = rep.inertial_ms
+    for name, v in sorted(calls.items()):
+        dev_ms = [d for _, _, d in v]
+        shown = v if len(v) <= 20 else v[:3] + v[-3:]  # every call of the rarer ones
+        print(f"phase 13 {name}: {len(v)} calls, device ms (CUDA events) median "
+              f"{med(dev_ms):.3f} max {max(dev_ms):.3f}, host ms median "
+              f"{med([h for _, h, _ in v]):.3f}; (frame, host ms, device ms) "
+              f"{[(f, round(h, 3), round(d, 3)) for f, h, d in shown]}")
+    full = calls.get("full VI-BA", [])
+    check(len(full) >= 2, f"phase 13: {len(full)} full VI-BAs (the init-time one and VIBA1)")
+    print("phase 13 full VI-BAs (the init-time one, VIBA1, ...): " + "; ".join(
+        f"frame {f} {d:.3f} ms device, {h:.3f} ms host" for f, h, d in full))
+    P, K, O, peak = max(solves, key=lambda x: x[1])
+    lP, lK, lO, lpeak = min(solves, key=lambda x: x[1])
+    print(f"phase 13 VI-BA coupling tensor (P, K, 3, 6) float32: full map {P} points x {K} "
+          f"keyframes = {vi.coupling_bytes(P, K)} bytes ({O} observation slots, measured peak "
+          f"{peak} bytes above the map); local inertial BA {lP} x {lK} = "
+          f"{vi.coupling_bytes(lP, lK)} bytes (peak {lpeak}); {len(solves)} solves")
+    print(f"phase 13 launches on the main path {launches}; per frame B2 {sorted(set(rep.b2))}, "
+          f"B1 median {med(rep.b1)} (max {max(rep.b1)}) over {N_VI} frames; B1 by call {sites}")
+
+    n_prefix = rec_k["init"] + VI_PREFIX_AFTER_INIT + 1
+    with _build.force_plain():
+        pre_p = E.replay(dev, "mono_vi", N_VI, on_frame=_vi_recorder(rec_p), n_track=n_prefix)
+    check(states[:n_prefix] == pre_p.states, f"phase 13 prefix: states {states[:n_prefix]} vs "
+          f"{pre_p.states}")
+    check(rec_p.get("init") == rec_k["init"], f"phase 13 prefix: IMU initialized at frame "
+          f"{rec_p.get('init')} vs {rec_k['init']}")
+    dP = 0.0
+    for k, (a, b) in enumerate(zip(rec_k["frames"][:n_prefix], rec_p["frames"])):
+        check((a[0] is None) == (b[0] is None) and (a[0] is None or np.array_equal(a[0], b[0])),
+              f"phase 13 prefix: associations of frame {k} differ")
+        if a[1] is not None:
+            dP = max(dP, *(float(np.abs(x - y).max()) for x, y in zip(a[1:], b[1:])))
+    m_k, m_p = rec_k["map"], rec_p["map"]
+    kf = m_p["kf_valid"]
+    for name in ("kf_valid", "kf_mp", "mp_valid"):
+        check(np.array_equal(m_k[name][kf] if name.startswith("kf_") else m_k[name],
+                             m_p[name][kf] if name.startswith("kf_") else m_p[name]),
+              f"phase 13 prefix: {name} differs")
+    for name in ("kf_R", "kf_t", "kf_vel", "kf_bias_g"):
+        dP = max(dP, float(np.abs(m_k[name][kf] - m_p[name][kf]).max()))
+    v = m_p["mp_valid"]
+    dX = float(np.abs(m_k["mp_pos"][v] - m_p["mp_pos"][v]).max())
+    check(dP <= 1e-4 and dX <= 1e-4, f"phase 13 prefix: poses and velocities within {dP}, "
+          f"points within {dX}")
+    print(f"phase 13 kernels vs plain prefix: {n_prefix} frames (the IMU initialization at frame "
+          f"{rec_k['init']} and {VI_PREFIX_AFTER_INIT} after it): states and associations equal "
+          f"on every frame; {int(kf.sum())} keyframes, kf_mp rows and {int(v.sum())} points' "
+          f"validity equal; poses, velocities and biases within {dP:.1e}, points within "
+          f"{dX:.1e}")
+    return dict(rep=rep, launches=launches)
+
+
 def check(ok, what: str) -> None:
     """Fail the run (every phase's checks are hard failures)."""
     if not ok:
@@ -841,6 +1042,7 @@ def main(argv=None) -> int:
     from orbslam3_tpu_torch.pipeline import local_mapping as lmap
 
     dev = torch.device("cuda", 0)
+    walls = {"start": time.perf_counter()}  # phase -> the script's clock at its end
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
@@ -853,6 +1055,7 @@ def main(argv=None) -> int:
     print(f"build: {'%.1f s nvcc' % built if built is not None else 'cached'}, "
           f"{time.perf_counter() - t0:.1f} s to load")
     print(_build.resource_report(), end="")
+    walls["build"] = time.perf_counter()
 
     cfg = E.EUROC
     orb = cfg.orb
@@ -936,6 +1139,7 @@ def main(argv=None) -> int:
     print(f"phase 2 B1 edge cases: {len(cases)} cases, {n_rows} rows, d1/d2/j1 exact "
           f"(tolerance 0) vs plain")
 
+    walls["phases 1-2"] = time.perf_counter()
     # --- Phase 3: the slice, through both entry points -------------------
     rng = np.random.default_rng(1)
     img_np = img.cpu().numpy()
@@ -1005,6 +1209,7 @@ def main(argv=None) -> int:
     check(sorted(b1_shapes) == ["local map", "motion model"],
           f"B1 calls of a frame: {[c[0] for c in frame_calls]}")
 
+    walls["phases 3-4"] = time.perf_counter()
     # --- Phase 5: the mapping pass ----------------------------------------
     mcfg = E.EUROC_MAPPING
     mrun, (mstate,) = E.mapping_pass(dev, mcfg)
@@ -1119,6 +1324,7 @@ def main(argv=None) -> int:
     print(f"phase 5 amortized: {N_AMORTIZED} frames of staged_pipeline with a mapping pass "
           f"every {KF_EVERY}th, {amort_s:.3f} s, {N_AMORTIZED / amort_s:.2f} frames/s")
 
+    walls["phase 5"] = time.perf_counter()
     # --- Phase 6: the monocular System end to end -------------------------
     from orbslam3_tpu_torch.pipeline.tracking import Tracker
 
@@ -1210,6 +1416,7 @@ def main(argv=None) -> int:
     b1_shapes["fuse into the keyframe"] = (ms_state.mp_desc[cand], ms_state.kf_desc[kf],
                                            ms_state.kf_feat_valid[kf], win_k)
 
+    walls["phase 6"] = time.perf_counter()
     # --- Phase 7: device-only times, call times and bounds ------------------
     card = smi.stdout.strip().splitlines()[0]
     b2_t = KB.time_b2(atlas, orb.min_th, orb.ini_th)
@@ -1253,6 +1460,7 @@ def main(argv=None) -> int:
               f"{per_site[site]} launches in the replay ({per:.2f} per "
               f"{'keyframe' if fuse else 'tracked frame'}) [{card}]")
 
+    walls["phase 7"] = time.perf_counter()
     # --- Phase 8: B1 above one 1024-key tile; a 2000-feature System -------
     tile_cases = KB.b1_tile_cases()
     n_rows = 0
@@ -1293,10 +1501,12 @@ def main(argv=None) -> int:
           f"keyframes, {wide_k.n_mp} map points, launches {launches8} (B1 keys per call "
           f"{min(keys)}-{max(keys)}); kernels vs plain: {same}")
 
+    walls["phase 8"] = time.perf_counter()
     # --- Phase 9: the vocabulary and the keyframe database on the card ------
     p9 = phase9_vocabulary(dev, sysm)
     err_b1 = max(err_b1, p9["err"])
 
+    walls["phase 9"] = time.perf_counter()
     # --- Phase 10: loop closing and relocalization at full width ----------
     p10 = phase10_loop_lap(dev)
     for site, a in p10["args"].items():  # B1 at place recognition's calls
@@ -1325,6 +1535,7 @@ def main(argv=None) -> int:
               f"profiler {t['profiler_us']} us, bound {bd['bound_us']:.3f} us ({bd['bound_by']}; "
               f"{bd['bytes']} bytes, {bd['pairs']} pairs to popcount), plain {plain_ms:.4f} ms; "
               f"{n10} launches in the phase-10 replay [{card}]")
+    walls["phase 10"] = time.perf_counter()
     # --- Phase 11: the stereo System; phase 12: RGB-D and raw stereo ------
     p11 = phase11_stereo(dev)
     right = p11["right"]
@@ -1377,6 +1588,10 @@ def main(argv=None) -> int:
               f"({per:.2f} per "
               f"{'keyframe' if fuse else 'tracked frame'}) [{card}]")
     p12 = phase12_rgbd_raw(dev)
+    walls["phases 11-12"] = time.perf_counter()
+    # --- Phase 13: the mono-inertial System --------------------------------
+    p13 = phase13_mono_inertial(dev)
+    walls["phase 13"] = time.perf_counter()
 
     if opts.save_inputs:
         per_replay = {**per_site, **p10["sites"]}
@@ -1387,7 +1602,8 @@ def main(argv=None) -> int:
 
     for k in launches:
         launches[k] += sum(run[k] for run in (launches5, launches6, launches8, p10["launches"],
-                                              p11["launches"], p12["rgbd"], p12["raw"]))
+                                              p11["launches"], p12["rgbd"], p12["raw"],
+                                              p13["launches"]))
     lm = next(r for r in b1_rows if r["call"] == "local map")  # the kernel's headline call
     record = {"kernels": [
         {"name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",
@@ -1406,6 +1622,10 @@ def main(argv=None) -> int:
          "device_us": lm["device_us"], "call_us": lm["call_us"], "bound_us": lm["bound_us"],
          "launches_per_replay": launches6["hamming_top2"], "calls": b1_rows},
     ]}
+    names = list(walls)
+    print("wall per phase (s): " + ", ".join(
+        f"{b} {walls[b] - walls[a]:.1f}" for a, b in zip(names, names[1:]))
+        + f"; whole script {time.perf_counter() - walls['start']:.1f}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -57,3 +57,19 @@ def vocabulary(voc, device):
     return from_arrays(np.asarray(voc.node_desc), np.asarray(voc.node_children),
                        np.asarray(voc.node_word), np.asarray(voc.word_weight), voc.depth, voc.k,
                        device)
+
+
+def imu_calib(calib, device):
+    """The JAX package's `ImuCalib` (its arrays read through `np.asarray`)
+    -> the port's on `device`."""
+    from orbslam3_tpu_torch.ops.imu import ImuCalib
+
+    return to_torch(calib, device, ImuCalib)
+
+
+def preintegrated(pre, device):
+    """The JAX package's `Preintegrated` (one window, or windows stacked
+    along a leading axis) -> the port's on `device`."""
+    from orbslam3_tpu_torch.ops.imu import Preintegrated
+
+    return to_torch(pre, device, Preintegrated)

@@ -33,6 +33,7 @@ same map to the JAX package and to the port.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import time
 import warnings
@@ -42,7 +43,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from orbslam3_tpu_torch import convert
+from orbslam3_tpu_torch import convert, spans
 from orbslam3_tpu_torch.ate import ate_rmse
 from orbslam3_tpu_torch.atlas import store as st
 from orbslam3_tpu_torch.ops import cameras as cam
@@ -495,6 +496,10 @@ EUROC_MONO = dict(camera=[458.0, 458.0, 376.0, 240.0, 0.0, 0.0, 0.0, 0.0], img_w
 # Config 2: the script's `--stereo` settings, Camera.bf = FX * 0.11 m (ThDepth
 # 35, so the close/far cutoff is 3.85 m). RGB-D uses the same bf.
 EUROC_STEREO = dict(EUROC_MONO, bf=458.0 * 0.11)
+# Config 3 (mono-inertial): the script's IMU.* settings and Tbc = I.
+EUROC_MONO_VI = dict(EUROC_MONO, imu=dict(noise_gyro=1.7e-4, noise_acc=2.0e-3,
+                                          walk_gyro=1.9e-5, walk_acc=3.0e-3, freq=200.0),
+                     Tbc=np.eye(4))
 _SYNTH = Path(__file__).resolve().parent.parent / "scripts" / "make_synth_euroc.py"
 
 
@@ -509,7 +514,7 @@ def synth_euroc():
 
 def euroc_frames(n_frames: int, seed: int = 0, t_loop: float | None = None,
                  kidnap: tuple[int, int] | None = None, stereo: bool = False,
-                 raw: bool = False, depth: bool = False):
+                 raw: bool = False, depth: bool = False, imu: bool = False):
     """(timestamps (n,), uint8 images, camera centres (n, 3)) of the synthetic
     sequence, rendered as the script's `main` renders them: t = k / 20 s,
     then sensor noise of 1.5 grey levels from the same generator as the
@@ -521,6 +526,11 @@ def euroc_frames(n_frames: int, seed: int = 0, t_loop: float | None = None,
     cameras pitched by the script's 2 degrees); `raw_stereo_rig()` holds
     its rectification. `depth` appends a fourth output, the left camera's
     z-depth in metres (n, 480, 752) float32, noise-free (`ray_depth`).
+    `imu` appends the script's 200 Hz IMU stream over the frames' span as
+    (t (m,), acc (m, 3), gyro (m, 3)), float64: the ideal samples of
+    `imu_sample` plus the script's constant biases and white noise of
+    density 2e-3 (acc) and 1.7e-4 (gyro) scaled by sqrt(200), drawn from the
+    same generator after every image, as the script's `main` draws them.
 
     `t_loop` sets the script's lap length (`T_LOOP`, seconds; its default
     60 s when None). `kidnap` = (at, src): frame k >= at shows the scene of
@@ -557,7 +567,45 @@ def euroc_frames(n_frames: int, seed: int = 0, t_loop: float | None = None,
         ts.append(t)
         centres.append(p)
     out = (np.asarray(ts), np.stack(imgs), np.asarray(centres))
-    return out + (np.stack(depths),) if depth else out
+    if depth:
+        out += (np.stack(depths),)
+    if imu:
+        out += (_imu_stream(M, rng, n_frames),)
+    return out
+
+
+def _imu_stream(M, rng: np.random.Generator, n_frames: int):
+    """The IMU samples of `make_synth_euroc.py`'s main (its lines after the
+    frames): t = j / 200 s over the frames' span, each sample's gyro noise
+    drawn before its acc noise."""
+    bias_g = np.array([0.002, -0.0015, 0.001])
+    bias_a = np.array([0.02, 0.015, -0.01])
+    sg = 1.7e-4 * np.sqrt(M.IMU_HZ)
+    sa = 2.0e-3 * np.sqrt(M.IMU_HZ)
+    n_imu = int(round((n_frames - 1) / M.CAM_HZ * M.IMU_HZ)) + 1
+    t_imu, acc, gyro = [], [], []
+    for j in range(n_imu):
+        t = j / M.IMU_HZ
+        g, a = M.imu_sample(t)
+        gyro.append(g + bias_g + rng.normal(0, sg, 3))
+        acc.append(a + bias_a + rng.normal(0, sa, 3))
+        t_imu.append(t)
+    return np.asarray(t_imu), np.asarray(acc), np.asarray(gyro)
+
+
+def imu_batches(t_frames: np.ndarray, imu) -> list:
+    """Per frame, the IMU samples (t, acc, gyro) with t at or before the
+    frame's time and after the previous frame's batch (the cursor of
+    `scripts/drive_slam_vi.py`)."""
+    t_imu, acc, gyro = imu
+    out, j = [], 0
+    for t in t_frames:
+        batch = []
+        while j < len(t_imu) and t_imu[j] <= t:
+            batch.append((float(t_imu[j]), acc[j], gyro[j]))
+            j += 1
+        out.append(batch)
+    return out
 
 
 def ray_depth(M, R_wc: np.ndarray, p: np.ndarray) -> np.ndarray:
@@ -631,6 +679,13 @@ class ReplayResult(NamedTuple):
     lost: list  # frames after `kidnap[0]` that ended not OK
     relocalized: int | None  # the first OK frame after a not-OK one since the kidnap
     system: object  # the System after the last frame
+    # Inertial ("mono_vi"; None / False / empty otherwise):
+    imu_init_frame: int | None = None  # the frame whose mapping pass initialized the IMU
+    imu_init_kfs: int | None = None  # keyframe count of the map at that moment
+    viba1: int | None = None  # the frame of VIBA1
+    viba2: int | None = None  # the frame of VIBA2
+    pi_taken: list = []  # per frame: whether the pose-inertial result was taken
+    inertial_ms: dict = {}  # per inertial call: list of (frame, host ms, device ms)
 
     def frame_kinds(self) -> list:
         """Each frame's kind: "init" (before the first OK), "lost" (not OK),
@@ -655,7 +710,15 @@ class ReplayResult(NamedTuple):
         return kinds
 
 
-SENSORS = ("mono", "stereo", "rgbd", "raw_stereo")
+SENSORS = ("mono", "stereo", "rgbd", "raw_stereo", "mono_vi")
+
+
+def vi_calib(device):
+    """`EUROC_MONO_VI`'s `ImuCalib` on `device`."""
+    from orbslam3_tpu_torch.ops.imu import ImuCalib
+
+    Tbc = EUROC_MONO_VI["Tbc"]
+    return ImuCalib.create(Tbc[:3, :3], Tbc[:3, 3], **EUROC_MONO_VI["imu"], device=device)
 
 
 def mono_replay(device, n_frames: int, **kw) -> ReplayResult:
@@ -666,23 +729,30 @@ def mono_replay(device, n_frames: int, **kw) -> ReplayResult:
 def replay(device, sensor: str, n_frames: int, seed: int = 0,
            orb: feat.OrbParams = EUROC_MONO["orb"], vocabulary: str | None = None,
            t_loop: float | None = None, kidnap: tuple[int, int] | None = None,
-           on_frame: Callable | None = None) -> ReplayResult:
+           on_frame: Callable | None = None, n_track: int | None = None) -> ReplayResult:
     """Drive the `System` of `sensor` with ORB parameters `orb` over the
     first `n_frames` of the synthetic EuRoC sequence on `device` and score
     it against the rendered camera centres. `sensor` is one of `SENSORS`:
     "mono" (`track_monocular`), "stereo" (config 2, `track_stereo` on the
     rectified pair, bf = 50.38), "rgbd" (`track_rgbd` on the left image and
-    its ray-cast depth, the same bf) or "raw_stereo" (the unrectified pair
-    through `enable_rectification` and `track_stereo`). On a CUDA device
-    every frame runs with PyTorch's sync debug mode at "warn", and the
-    synchronisations each frame makes are counted.
+    its ray-cast depth, the same bf), "raw_stereo" (the unrectified pair
+    through `enable_rectification` and `track_stereo`) or "mono_vi" (config
+    3: `Sensor.IMU_MONOCULAR` with `EUROC_MONO_VI`'s calibration, each frame
+    fed the 200 Hz samples with t at or before its time; the result then
+    carries the frames of IMU initialization, VIBA1 and VIBA2, the frames
+    whose pose-inertial result was taken, and the ms of each inertial call).
+    On a CUDA device every frame runs with PyTorch's sync debug mode at
+    "warn", and the synchronisations each frame makes are counted.
 
     With `vocabulary` (the path of a DBoW2 binary vocabulary) place
     recognition runs at the reference's defaults, and the ATE is read
     before and after each loop correction. `t_loop` and `kidnap` shape the
     sequence (`euroc_frames`); after the last frame a running background
     GBA is run to its end (`System.shutdown`). `on_frame(k, system)` is
-    called after each frame."""
+    called after each frame. `n_track` tracks only the first frames of the
+    `n_frames` rendered: "mono_vi"'s IMU noise is drawn after every image,
+    so a shorter sequence has other IMU samples, and a prefix of a run is
+    this."""
     from orbslam3_tpu_torch.ate import associate, umeyama
     from orbslam3_tpu_torch.io.vocab_io import load_binary_vocabulary
     from orbslam3_tpu_torch.ops import cuda_fast, cuda_match
@@ -691,23 +761,29 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
     if sensor not in SENSORS:
         raise ValueError(f"sensor {sensor!r} is not one of {SENSORS}")
     t0 = time.perf_counter()
+    inertial = sensor == "mono_vi"
     frames = euroc_frames(n_frames, seed, t_loop=t_loop, kidnap=kidnap,
                           stereo=sensor == "stereo", raw=sensor == "raw_stereo",
-                          depth=sensor == "rgbd")
+                          depth=sensor == "rgbd", imu=inertial)
     gt_ts, imgs, gt_pos = frames[:3]
+    imu = imu_batches(gt_ts, frames[3]) if inertial else None
     render_s = time.perf_counter() - t0
     dev = torch.device(device)
     cuda = dev.type == "cuda"
-    cfg = EUROC_MONO if sensor == "mono" else EUROC_STEREO
-    kind = {"mono": Sensor.MONOCULAR, "rgbd": Sensor.RGBD}.get(sensor, Sensor.STEREO)
+    cfg = {"mono": EUROC_MONO, "mono_vi": EUROC_MONO_VI}.get(sensor, EUROC_STEREO)
+    kind = {"mono": Sensor.MONOCULAR, "rgbd": Sensor.RGBD,
+            "mono_vi": Sensor.IMU_MONOCULAR}.get(sensor, Sensor.STEREO)
     slam = System(kind, cam.CameraModel.PINHOLE, cfg["camera"], cfg["img_wh"], orb, device=dev,
-                  bf=cfg.get("bf", 0.0), Kmax=cfg["Kmax"], Pmax=cfg["Pmax"], fps=cfg["fps"])
+                  bf=cfg.get("bf", 0.0), Kmax=cfg["Kmax"], Pmax=cfg["Pmax"], fps=cfg["fps"],
+                  imu_calib=vi_calib(dev) if inertial else None)
     if sensor == "raw_stereo":
         slam.enable_rectification(*raw_stereo_rig())
 
     def track(k, t):
         if sensor == "mono":
             return slam.track_monocular(imgs[k], t)
+        if inertial:
+            return slam.track_monocular(imgs[k], t, imu_measurements=imu[k])
         if sensor == "rgbd":
             return slam.track_rgbd(imgs[k], frames[3][k], t)
         return slam.track_stereo(imgs[k, 0], imgs[k, 1], t)
@@ -729,30 +805,44 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
         slam.loop_closer.on_correction = on_correction
     gba = slam.loop_closer.gba_async if slam.loop_closer is not None else None
     states, keyframe, ms, syncs, b2, b1, chunks = [], [], [], [], [], [], []
-    for k, t in enumerate(gt_ts):
-        if vocabulary is not None:
-            frame_no[0] = k
-        n2, n1 = cuda_fast.LAUNCHES, cuda_match.LAUNCHES
-        n_chunks = gba.n_chunks if gba is not None else 0
-        if cuda:
-            torch.cuda.synchronize(dev)
-            torch.cuda.set_sync_debug_mode("warn")
-        start = time.perf_counter()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            frame = track(k, float(t))
-        if cuda:
-            torch.cuda.set_sync_debug_mode("default")
-            torch.cuda.synchronize(dev)
-        ms.append((time.perf_counter() - start) * 1e3)
-        syncs.append(sum("synchroniz" in str(w.message) for w in caught) if cuda else None)
-        states.append(slam.tracking_state.name)
-        keyframe.append(slam.tracker.last_kf_frame_id == frame.frame_id)
-        b2.append(cuda_fast.LAUNCHES - n2)
-        b1.append(cuda_match.LAUNCHES - n1)
-        chunks.append(gba is not None and gba.n_chunks > n_chunks)
-        if on_frame is not None:
-            on_frame(k, slam)
+    vi_frames = dict(init=None, kfs=None, viba1=None, viba2=None)
+    pi_taken = []
+    timer = spans.Recorder(cuda)
+    with timer if inertial else contextlib.nullcontext():
+        for k, t in enumerate(gt_ts[:n_track]):
+            timer.frame = k
+            if vocabulary is not None:
+                frame_no[0] = k
+            n2, n1 = cuda_fast.LAUNCHES, cuda_match.LAUNCHES
+            n_chunks = gba.n_chunks if gba is not None else 0
+            if cuda:
+                torch.cuda.synchronize(dev)
+                torch.cuda.set_sync_debug_mode("warn")
+            start = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                frame = track(k, float(t))
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - start) * 1e3)
+            syncs.append(sum("synchroniz" in str(w.message) for w in caught) if cuda else None)
+            states.append(slam.tracking_state.name)
+            keyframe.append(slam.tracker.last_kf_frame_id == frame.frame_id)
+            b2.append(cuda_fast.LAUNCHES - n2)
+            b1.append(cuda_match.LAUNCHES - n1)
+            chunks.append(gba is not None and gba.n_chunks > n_chunks)
+            if inertial:
+                pi_taken.append(slam.tracker.pi_taken)
+                ini = slam.mapper.imu_init
+                if vi_frames["init"] is None and ini.initialized:
+                    vi_frames.update(init=k, kfs=slam.store.n_kf)
+                if vi_frames["viba1"] is None and ini.viba1_done:
+                    vi_frames["viba1"] = k
+                if vi_frames["viba2"] is None and ini.viba2_done:
+                    vi_frames["viba2"] = k
+            if on_frame is not None:
+                on_frame(k, slam)
     slam.shutdown()
     ts, pos = slam.get_trajectory()
     ate = ate_rmse(ts, pos, gt_ts, gt_pos, with_scale=True, max_dt=0.01)
@@ -771,4 +861,7 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
                         scale=scale, render_s=render_s, loops=loops,
                         gba_finished=gba.n_finished if gba is not None else 0,
                         gba_aborted=gba.n_aborted if gba is not None else 0,
-                        lost=lost, relocalized=reloc, system=slam)
+                        lost=lost, relocalized=reloc, system=slam,
+                        imu_init_frame=vi_frames["init"], imu_init_kfs=vi_frames["kfs"],
+                        viba1=vi_frames["viba1"], viba2=vi_frames["viba2"], pi_taken=pi_taken,
+                        inertial_ms=timer.result() if inertial else {})

@@ -57,6 +57,33 @@ def exp_so3(w: torch.Tensor) -> torch.Tensor:
     return _eye_like(W) + a[..., None, None] * W + b[..., None, None] * W2
 
 
+def right_jacobian_so3(w: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian of SO(3), batched (`ImuTypes.cc:RightJacobianSO3`):
+    Jr(w) = I - (1 - cos t) / t^2 W + (t - sin t) / t^3 W^2."""
+    theta, theta2, small = _theta(w)
+    W = hat(w)
+    W2 = W @ W
+    safe_t2 = torch.where(small, torch.ones_like(theta2), theta2)
+    safe_t3 = safe_t2 * theta
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / safe_t2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (theta - torch.sin(theta)) / safe_t3)
+    return _eye_like(W) - b[..., None, None] * W + c[..., None, None] * W2
+
+
+def inv_right_jacobian_so3(w: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian of SO(3), batched
+    (`ImuTypes.cc:InverseRightJacobianSO3`): Jr^-1(w) = I + W / 2 +
+    (1 / t^2 - (1 + cos t) / (2 t sin t)) W^2, the derivative of `log_so3`
+    under a right perturbation."""
+    theta, theta2, small = _theta(w)
+    W = hat(w)
+    safe_t2 = torch.where(small, torch.ones_like(theta2), theta2)
+    safe_den = torch.where(small, torch.ones_like(theta), 2.0 * theta * torch.sin(theta))
+    c = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                    1.0 / safe_t2 - (1.0 + torch.cos(theta)) / safe_den)
+    return _eye_like(W) + 0.5 * W + c[..., None, None] * (W @ W)
+
+
 def log_so3(R: torch.Tensor) -> torch.Tensor:
     """Logarithm SO(3) -> so(3), batched: the reference's atan2 form, with
     the small-angle Taylor branch and the near-pi branch (axis from the

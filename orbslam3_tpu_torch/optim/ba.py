@@ -138,9 +138,30 @@ def _block_diag(X: torch.Tensor) -> torch.Tensor:
     return eye[:, None, :, None] * X[:, :, None, :]
 
 
-def _segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+def segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.ops.segment_sum(vals, idx, num_segments=n)`."""
     return torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype,
                        device=vals.device).index_add_(0, idx, vals)
+
+
+def point_slots(vals: torch.Tensor, op: torch.Tensor, oc: torch.Tensor, P: int,
+                C: int) -> torch.Tensor:
+    """Observation rows placed into their (point, camera) slots, (P, C, ...):
+    a pair holds at most one observation (rows of invalid observations are
+    zero, so where they share a slot the sum is exact in any order)."""
+    return segment_sum(vals, op * C + oc, P * C).reshape((P, C) + vals.shape[1:])
+
+
+def point_sum(vals: torch.Tensor, op: torch.Tensor, oc: torch.Tensor, P: int,
+              C: int) -> torch.Tensor:
+    """Per-point sums of observation rows in a fixed order. On the CPU
+    `index_add_` adds them in row order, the reference's `segment_sum`
+    order. On CUDA it adds rows that share a target in no fixed order, so a
+    solve would not repeat exactly: there the rows go through their
+    (point, camera) slots and one reduction over the camera axis."""
+    if vals.device.type == "cpu":
+        return segment_sum(vals, op, P)
+    return point_slots(vals, op, oc, P, C).sum(1)
 
 
 class _Lin(NamedTuple):
@@ -163,7 +184,8 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
     iteration linearizes the candidate once, and its cost decides whether the
     previous step is kept. `n_opt_prefix`: the optimizable cameras are the
     first n rows (S spans only them). `obs_per_cam`: observations are
-    camera-major with this many per camera (Hcc, bc by one batched matmul).
+    camera-major with this many per camera (Hcc, bc by one batched matmul,
+    in a fixed order as the point sums are, `point_sum`).
     `early_stop_tol`: stop after an accepted step that lowers the cost by a
     relative amount below it."""
     C = prob.cam_R.shape[0]
@@ -195,8 +217,8 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
             A = torch.cat([Jc_w, e_w[:, :, None]], dim=-1).reshape(C, int(obs_per_cam) * 3, 7)
             H7 = A.transpose(1, 2) @ A  # (C,7,7)
             return H7[:, :6, :6], -H7[:, :6, 6]
-        Hcc = _segment_sum(Jc_w.transpose(1, 2) @ Jc_w, oc, C)
-        bc = -_segment_sum(torch.einsum("oij,oi->oj", Jc_w, e_w), oc, C)
+        Hcc = segment_sum(Jc_w.transpose(1, 2) @ Jc_w, oc, C)
+        bc = -segment_sum(torch.einsum("oij,oi->oj", Jc_w, e_w), oc, C)
         return Hcc, bc
 
     def linearize_pack(cam_R, cam_t, points) -> _Lin:
@@ -208,7 +230,7 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
         # Point side as one fused (O,12) segment sum: [Jp^T Jp | -Jp^T e].
         pp = (Jp_w.transpose(1, 2) @ Jp_w).reshape(O, 9)
         pe = -torch.einsum("oij,oi->oj", Jp_w, e_w)
-        ppe = _segment_sum(torch.cat([pp, pe], dim=-1), op, P)
+        ppe = point_sum(torch.cat([pp, pe], dim=-1), op, oc, P, C)
         Hpp = ppe[:, :9].reshape(P, 3, 3)
         bp = ppe[:, 9:]
         # Lambda-independent point damping, so a rejected step re-damps S only.
@@ -227,7 +249,7 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
         if obs_per_cam is not None:
             wy = wv.reshape(C, int(obs_per_cam), 6).sum(dim=1)
         else:
-            wy = _segment_sum(wv, oc, C)
+            wy = segment_sum(wv, oc, C)
         S_und = _block_diag(Hcc[:n_opt]) - S_cross
         return _Lin(S_und, (bc - wy)[:n_opt], Hcc[:n_opt], bp, Hpp_inv, Jc_w, Jp_w,
                     inlier, cost)
@@ -255,7 +277,7 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
         dc = torch.cat([dc_w, torch.zeros((C - n_opt, 6), dtype=dtype, device=dev)])
         # Back-substitute points at observation level.
         u = torch.einsum("oij,oj->oi", lin.Jc_w, dc[oc])
-        tp = _segment_sum(torch.einsum("oij,oi->oj", lin.Jp_w, u), op, P)
+        tp = point_sum(torch.einsum("oij,oi->oj", lin.Jp_w, u), op, oc, P, C)
         dp = torch.einsum("pij,pj->pi", lin.Hpp_inv, lin.bp - tp)
         dp = torch.where(prob.point_valid[:, None], dp, 0.0)
         dR, dt = lie.exp_se3(dc)

@@ -1,5 +1,6 @@
-"""Robust-kernel constants and weights shared by the port's solvers — the
-slice's subset of `orbslam3_tpu/optim/lm.py`."""
+"""Robust-kernel constants and weights shared by the port's solvers, and
+the Levenberg-Marquardt loop of the inertial solvers — the port's subset of
+`orbslam3_tpu/optim/lm.py` (`pcg` waits for A15)."""
 
 from __future__ import annotations
 
@@ -43,3 +44,37 @@ def inv3x3(A: torch.Tensor) -> torch.Tensor:
         -2,
     )
     return adj * inv_det[..., None, None]
+
+
+def _tree_where(cond: torch.Tensor, new, old):
+    """`torch.where(cond, new, old)` leaf by leaf over tuples and NamedTuples."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(cond, new, old)
+    vals = [_tree_where(cond, n, o) for n, o in zip(new, old)]
+    return type(new)(*vals) if hasattr(new, "_fields") else tuple(vals)
+
+
+def _first_leaf(tree) -> torch.Tensor:
+    return tree if isinstance(tree, torch.Tensor) else _first_leaf(tree[0])
+
+
+def lm_loop(init_params, cost_fn, step_fn, iters: int, lam0: float = 1e-4, lam_up: float = 4.0,
+            lam_down: float = 0.5):
+    """`iters` Levenberg-Marquardt iterations (the reference's `lm_loop`, a
+    `fori_loop`): `step_fn(params, lam)` proposes a damped Gauss-Newton
+    step, `cost_fn(params)` scores it; a step that does not lower the cost
+    is rejected and lambda raised. Accept and reject are `torch.where`s, so
+    the loop reads nothing back to the host. `params` is a tensor or a
+    tuple / NamedTuple of them. Returns (params, cost)."""
+    leaf = _first_leaf(init_params)
+    lam = torch.full((), lam0, dtype=torch.float32, device=leaf.device)
+    params = init_params
+    cost = cost_fn(params)
+    for _ in range(iters):
+        cand = step_fn(params, lam)
+        new_cost = cost_fn(cand)
+        accept = new_cost < cost
+        params = _tree_where(accept, cand, params)
+        lam = torch.clamp(torch.where(accept, lam * lam_down, lam * lam_up), 1e-9, 1e6)
+        cost = torch.where(accept, new_cost, cost)
+    return params, cost

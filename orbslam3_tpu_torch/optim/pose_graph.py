@@ -61,7 +61,7 @@ def solve_pose_graph(g: PoseGraph, iters: int = 20, lam: float = 1e-6, dof4: boo
     """Gauss-Newton with a small fixed damping (well posed once a vertex is
     fixed). Returns the corrected (R, t, s). `dof4` restricts the update to
     translation and yaw at unit scale (the inertial graph,
-    `OptimizeEssentialGraph4DoF`); its caller comes with ROADMAP A11."""
+    `OptimizeEssentialGraph4DoF`): the inertial `LoopCloser`'s graph."""
     K = g.R.shape[0]
     dim = 7 * K
     dev, dt = g.R.device, g.R.dtype

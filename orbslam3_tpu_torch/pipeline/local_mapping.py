@@ -1,12 +1,15 @@
-"""The per-keyframe mapping pass on torch tensors — the port of the
-visual (non-inertial) part of `orbslam3_tpu/pipeline/local_mapping.py`:
+"""The per-keyframe mapping pass on torch tensors — the port of
+`orbslam3_tpu/pipeline/local_mapping.py` (its synchronous form):
 the device programs of one pass (two-view triangulation against the
 covisible neighbours, `triangulate_pair`, `triangulate_batch`; the fuse of
 candidate points into keyframes, `fuse_into_kf`, `_fuse_batch`, kernel B1
 through `search_by_projection`; the dense-Schur local BA, `local_ba`), the
 fuse conflict resolution `resolve_and_replace`, and the host-side loop
 `LocalMapper` (point culling -> triangulation -> two-way fuse -> descriptor
-and normal refresh -> local BA -> keyframe culling; the initial map's BA).
+and normal refresh -> local BA -> keyframe culling; the initial map's BA;
+for a monocular-inertial map the IMU initialization, the local inertial BA
+that replaces the local BA after it, VIBA1, VIBA2 and the scale
+refinement, and the bad-IMU watchdog).
 
 The reference's `vmap`s over the neighbour axis are Python loops here, with
 the results stacked. Every index the reference takes with `jnp.nonzero(size=)`
@@ -26,14 +29,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from orbslam3_tpu_torch import convert
+from orbslam3_tpu_torch import convert, spans
 from orbslam3_tpu_torch.atlas import store as st
 from orbslam3_tpu_torch.ops import cameras as cam
 from orbslam3_tpu_torch.ops import features as feat
+from orbslam3_tpu_torch.ops import imu as imu_ops
 from orbslam3_tpu_torch.ops import lie, matching
 from orbslam3_tpu_torch.optim import ba as ba_mod
+from orbslam3_tpu_torch.optim import inertial as vi
 from orbslam3_tpu_torch.optim import lm
 from orbslam3_tpu_torch.pipeline import frame as fr
+from orbslam3_tpu_torch.pipeline import inertial_support as isup
 
 # The reference's defaults (its environment overrides are not ported).
 WINDOW = 48  # optimizable keyframes of the local BA
@@ -358,17 +364,21 @@ def resolve_and_replace(store: st.MapStore, conflicts_src, conflicts_dst, anchor
 
 
 class LocalMapper:
-    """Synchronous local mapping, visual only: one pass per keyframe
-    insertion (`LocalMapping::Run`). With a baseline (`bf` > 0, stereo and
-    RGB-D) the local BA adds the stereo rows and keeps every observation
-    (`stereo_like`). The inertial stages (IMU initialization,
-    visual-inertial BA) are ROADMAP A11; the sliced asynchronous form is
-    A14."""
+    """Synchronous local mapping: one pass per keyframe insertion
+    (`LocalMapping::Run`). With a baseline (`bf` > 0, stereo and RGB-D) the
+    local BA adds the stereo rows and keeps every observation
+    (`stereo_like`). With `imu_calib` (monocular-inertial) the mapper keeps
+    each keyframe's preintegration from its previous one (`preints`), tries
+    the IMU initialization after each pass until it succeeds (`imu_init`),
+    then runs the local inertial BA in place of the local BA and stages
+    VIBA1, VIBA2 and the scale refinement; before it, the bad-IMU watchdog
+    (`bad_imu`). The sliced asynchronous form is A14."""
 
     NB_BATCH = 10  # covisible neighbours of triangulation and fuse
 
     def __init__(self, model, params: torch.Tensor, img_wh, store: st.MapStore,
-                 orb_params: feat.OrbParams = feat.OrbParams(), bf: float = 0.0):
+                 orb_params: feat.OrbParams = feat.OrbParams(), bf: float = 0.0,
+                 imu_calib: imu_ops.ImuCalib | None = None, mono: bool = True):
         self.model = model
         self.params = params
         self.bf = bf
@@ -383,10 +393,27 @@ class LocalMapper:
         self.recent_mp: list[tuple[int, np.ndarray]] = []  # (birth_kf, slots)
         self.tracker = None  # set by System: trajectory re-rooting on culls
         self._covis_pin = None
+        # IMU: per-keyframe preintegration from its previous keyframe, and
+        # the initialization staging.
+        self.imu_calib = imu_calib
+        self.preints: dict = {}
+        self.imu_init = isup.ImuInitializer(imu_calib, mono=mono) if imu_calib is not None else None
+        self.bad_imu = False  # watchdog flag (ref mbBadImu, LocalMapping.cc:192)
+        self._last_scale_ref_ts = -1e18
+        if imu_calib is not None:
+            self.Rbc = imu_calib.Rbc.cpu().numpy()
+            self.tbc = imu_calib.tbc.cpu().numpy()
 
-    def process_keyframe(self, kf_id: int, initial: bool = False):
-        """One whole mapping pass for keyframe `kf_id`; for the initial map,
+    @property
+    def imu_initialized(self) -> bool:
+        return self.imu_init is not None and self.imu_init.initialized
+
+    def process_keyframe(self, kf_id: int, initial: bool = False, preint=None):
+        """One whole mapping pass for keyframe `kf_id` (with `preint`, its
+        preintegration from the previous keyframe); for the initial map,
         its BA and normalization instead."""
+        if preint is not None:
+            self.preints[kf_id] = preint
         if initial:
             self._global_ba_small(kf_id)
             return
@@ -407,10 +434,20 @@ class LocalMapper:
         self._fuse_neighbors(kf_id)
 
     def stage_ba(self, kf_id: int):
-        self._local_ba(kf_id)
+        if self.imu_initialized:
+            with spans.span("local inertial BA"):
+                self._local_inertial_ba(kf_id)
+        else:
+            self._local_ba(kf_id)
 
     def stage_maintain(self, kf_id: int):
         self._cull_keyframes(kf_id)
+        if self.imu_init is not None and not self.imu_init.initialized:
+            self._try_imu_init(kf_id)
+            if not self.imu_init.initialized:
+                self._imu_watchdog(kf_id)
+        elif self.imu_init is not None:
+            self._viba_staging(kf_id)
 
     STAGES = (stage_prepare, stage_triangulate, stage_fuse, stage_ba, stage_maintain)
 
@@ -627,10 +664,15 @@ class LocalMapper:
     def _cull_keyframes(self, kf_id: int, keep_recent: int = 3):
         """`KeyFrameCulling`: erase covisible keyframes whose points are >=
         90% redundant (>= 3 other observers at the same or a finer scale).
-        Keyframe 0, the new one and the `keep_recent` newest are kept."""
+        Keyframe 0, the new one and the `keep_recent` newest are kept; in an
+        inertial map also the newest 21, the temporal window the IMU chain
+        needs (Nd = 21, `LocalMapping.cc:1176-1198`), and the culled
+        keyframe's preintegration is merged into its heir's."""
         nkf = self.store.n_kf
         protected = {0, kf_id}
         protected.update(range(max(0, nkf - keep_recent), nkf))
+        if self.imu_calib is not None:
+            protected.update(range(max(0, nkf - 21), nkf))
         candidates = [c for c in self._covisible(kf_id, 10) if int(c) not in protected]
         if not candidates:
             return
@@ -668,6 +710,12 @@ class LocalMapper:
                     kf_prev = self.store.state.kf_prev.clone()
                     kf_prev[self.store.tensor(heirs)] = int(prev[c])
                     self.store.state = self.store.state._replace(kf_prev=kf_prev)
+                for h in heirs:  # the heir's window absorbs the culled one's
+                    h = int(h)
+                    if c in self.preints and h in self.preints:
+                        self.preints[h] = imu_ops.merge(self.preints[c], self.preints[h],
+                                                        self.imu_calib)
+                self.preints.pop(c, None)
         self.store.bump()
 
     def _cull_points(self, kf_id: int):
@@ -722,4 +770,175 @@ class LocalMapper:
             if med > 1e-6:
                 inv = float(1.0 / med)
                 self.store.state = s._replace(mp_pos=s.mp_pos * inv, kf_t=s.kf_t * inv)
+        self.store.bump()
+
+    # ------------------------------------------------------------------
+    # Inertial staging
+    # ------------------------------------------------------------------
+    def _imu_watchdog(self, kf_id: int):
+        """Bad-IMU watchdog (`LocalMapping.cc:183-192`): while the map is
+        still visual and younger than 10 s, less than 2 cm of camera motion
+        across the newest three keyframes (at least 0.45 s apart) means the
+        accelerometer is unexcited: `bad_imu` asks the System to reset."""
+        valid = _np(self.store.state.kf_valid)
+        ids = np.flatnonzero(valid[: self.store.n_kf])
+        if len(ids) < 3:
+            return
+        ts = self.store.kf_ts
+        order = ids[np.argsort(ts[ids])]
+        if ts[order[-1]] - ts[order[0]] >= 10.0:
+            return
+        if ts[order[-1]] - ts[order[-3]] < 0.45:
+            return
+        last3 = self.store.tensor(order[-3:].astype(np.int64))
+        R3, t3 = _np(self.store.state.kf_R[last3]), _np(self.store.state.kf_t[last3])
+        centers = np.einsum("kji,kj->ki", R3, -t3)  # Ow = -R^T t
+        dist = float(np.linalg.norm(centers[1] - centers[0])
+                     + np.linalg.norm(centers[2] - centers[1]))
+        if dist < 0.02:
+            self.bad_imu = True
+
+    def _sync_tracker(self, kf_id: int):
+        """Hand the map's transform (if any) and the keyframe's velocity and
+        biases to the tracker."""
+        if self.tracker is None:
+            return
+        if self.imu_init.applied_transform is not None:
+            self.tracker.apply_map_transform(*self.imu_init.applied_transform)
+            self.imu_init.applied_transform = None
+        s = self.store.state
+        self.tracker.bias_g = _np(s.kf_bias_g[kf_id])
+        self.tracker.bias_a = _np(s.kf_bias_a[kf_id])
+        self.tracker.body_vel = _np(s.kf_vel[kf_id])
+
+    def _try_imu_init(self, kf_id: int):
+        """`LocalMapping::InitializeIMU` (`LocalMapping.cc:1448`): the
+        inertial-only MAP and the map's alignment, then the init-time full
+        VI-BA (priors 1e2 / 1e6, `:1585-1587`)."""
+        with spans.span("try_initialize"):
+            ok = self.imu_init.try_initialize(self.store, self.preints, self.Rbc, self.tbc)
+        if not ok:
+            return
+        self._full_inertial_ba(kf_id, prior_gyro=1e2, prior_acc=1e6)
+        if self.tracker is not None:
+            self.tracker.imu_ready = True
+        self._sync_tracker(kf_id)
+
+    def _viba_staging(self, kf_id: int):
+        """The refinements after initialization (`LocalMapping.cc:232-273`),
+        by the time since the map's first keyframe: VIBA1 past 5 s (priors
+        1 / 1e5), VIBA2 past 15 s (no priors), and for a monocular map the
+        scale refinement every 10 s while 25 s < t < 75 s."""
+        ini = self.imu_init
+        ids = np.flatnonzero(_np(self.store.state.kf_valid)[: self.store.n_kf])
+        if len(ids) < 3:
+            return
+        now = float(self.store.kf_ts[kf_id])
+        tinit = now - float(self.store.kf_ts[ids].min())
+        if not ini.viba1_done and tinit > 5.0:
+            self._full_inertial_ba(kf_id, prior_gyro=1.0, prior_acc=1e5)
+            ini.viba1_done = True
+        elif ini.viba1_done and not ini.viba2_done and tinit > 15.0:
+            self._full_inertial_ba(kf_id, prior_gyro=0.0, prior_acc=0.0)
+            ini.viba2_done = True
+        elif (ini.mono and ini.viba2_done and 25.0 < tinit < 75.0
+              and now - self._last_scale_ref_ts >= 10.0):
+            self._last_scale_ref_ts = now
+            ini.applied_transform = None
+            with spans.span("scale refinement"):
+                ini.refine_scale(self.store, self.preints, self.Rbc, self.tbc)
+            self._sync_tracker(kf_id)
+
+    def _full_inertial_ba(self, kf_id: int, prior_gyro: float, prior_acc: float):
+        """Whole-map VI-BA (`Optimizer::FullInertialBA`, `Optimizer.cc:473`):
+        the temporal chain from this keyframe back to the map's origin, the
+        window bucketed to a multiple of 16, 10 iterations."""
+        n_live = self.store.n_kf - len(self.store.free_kf_slots)
+        window = max(16 * ((n_live + 15) // 16), 16)
+        with spans.span("full VI-BA"):
+            self._local_inertial_ba(kf_id, window=window, prior_gyro=prior_gyro,
+                                    prior_acc=prior_acc, iters=10)
+
+    def _local_inertial_ba(self, kf_id: int, window: int = 10, prior_gyro: float = 1e2,
+                           prior_acc: float = 1e6, iters: int = 6):
+        """`Optimizer::LocalInertialBA` (`Optimizer.cc:4753`): the temporal
+        window of the newest `window` keyframes plus one pose-fixed anchor,
+        padded to window + 1 with fixed copies of the anchor (no
+        observations, no edges); the visual observations of the window's
+        keyframes, the IMU chain and the bias random walk (`solve_vi_ba`).
+        Writes back the free keyframes' poses, every real keyframe's velocity
+        and biases, and the window's points; only real rows are written."""
+        s = self.store.state
+        chain = [kf_id]
+        prev = _np(s.kf_prev)
+        while len(chain) < window + 1 and prev[chain[-1]] >= 0:
+            chain.append(int(prev[chain[-1]]))
+        chain = chain[::-1]  # oldest first; chain[0] is the anchor
+        K_real = len(chain)
+        if K_real < 3:
+            return self._local_ba(kf_id)
+        K = window + 1
+        chain = chain + [chain[0]] * (K - K_real)
+        # Edges between consecutive real chain members with a stored
+        # preintegration, padded to K - 1 with invalid 0 -> 0 edges.
+        ei, ej, pres = [], [], []
+        for n_ in range(1, K_real):
+            if chain[n_] in self.preints:
+                ei.append(n_ - 1)
+                ej.append(n_)
+                pres.append(self.preints[chain[n_]])
+        if len(pres) < 2:
+            return self._local_ba(kf_id)
+        ev = [True] * len(pres) + [False] * (K - 1 - len(pres))
+        pres += [pres[0]] * (K - 1 - len(pres))
+        ei += [0] * (K - 1 - len(ei))
+        ej += [0] * (K - 1 - len(ej))
+        T = self.store.tensor
+        idx = np.asarray([ei, ej], np.int32)
+        edges = vi.make_imu_edges(T(idx[0]), T(idx[1]), imu_ops.stack(pres), T(np.asarray(ev)))
+
+        cal = self.imu_calib
+        ch = T(np.asarray(chain, np.int64))
+        R_wb, p_wb = isup.cam_to_body(s.kf_R[ch], s.kf_t[ch], cal.Rbc, cal.tbc)
+        state = vi.BodyState(R=R_wb, p=p_wb, v=s.kf_vel[ch], bg=s.kf_bias_g[ch],
+                             ba=s.kf_bias_a[ch])
+        fixed = np.zeros(K, bool)
+        fixed[0] = True
+        fixed[K_real:] = True  # the padding entries
+        # Visual observations: the window keyframes' features on their points.
+        win_mp = s.kf_mp[ch]  # (K, Nf)
+        win_mask = st.flag(s.Pmax, torch.clamp(win_mp, min=0).reshape(-1),
+                           (win_mp >= 0).reshape(-1)) & s.mp_valid
+        Nf = s.Nf
+        obs_mp = win_mp.reshape(-1)
+        real_row = T(np.repeat(np.arange(K) < K_real, Nf))
+        obs_valid = (obs_mp >= 0) & s.kf_feat_valid[ch].reshape(-1) & real_row
+        obs_oct = s.kf_octave[ch].reshape(-1)
+        L = self.sigma2_table.shape[0]
+        prob = vi.VIProblem(
+            state=state, kf_fixed=T(fixed), Tcb_R=cal.Rbc.T, Tcb_t=-(cal.Rbc.T @ cal.tbc),
+            points=s.mp_pos, point_valid=win_mask,
+            obs_cam=T(np.repeat(np.arange(K, dtype=np.int64), Nf)),
+            obs_point=torch.clamp(obs_mp, min=0), obs_uv=s.kf_uv[ch].reshape(-1, 2),
+            obs_sigma2=self.sigma2_table[_clip_idx(obs_oct, L)], obs_valid=obs_valid,
+            edges=edges,
+        )
+        res = vi.solve_vi_ba(self.model, self.params, prob, iters=iters, pcg_iters=40,
+                             prior_gyro=prior_gyro, prior_acc=prior_acc, obs_per_cam=Nf)
+        # Write back, at the real rows only (C6): the free keyframes' camera
+        # poses; every real keyframe's velocity and biases; the points.
+        Rcw, tcw = isup.body_to_cam(res.state.R, res.state.p, cal.Rbc, cal.tbc)
+        free = T(np.flatnonzero(~fixed[:K_real]).astype(np.int64))
+        real = T(np.asarray(chain[:K_real], np.int64))
+        upd = real[free]
+        ss = self.store.state
+        kf_R, kf_t = ss.kf_R.clone(), ss.kf_t.clone()
+        kf_R[upd], kf_t[upd] = Rcw[free], tcw[free]
+        kf_vel, kf_bg, kf_ba = ss.kf_vel.clone(), ss.kf_bias_g.clone(), ss.kf_bias_a.clone()
+        kf_vel[real] = res.state.v[:K_real]
+        kf_bg[real] = res.state.bg[:K_real]
+        kf_ba[real] = res.state.ba[:K_real]
+        self.store.state = ss._replace(
+            kf_R=kf_R, kf_t=kf_t, kf_vel=kf_vel, kf_bias_g=kf_bg, kf_bias_a=kf_ba,
+            mp_pos=torch.where(win_mask[:, None], res.points, ss.mp_pos))
         self.store.bump()

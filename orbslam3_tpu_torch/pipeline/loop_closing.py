@@ -1,6 +1,8 @@
 """Loop closing on torch tensors — the port of
 `orbslam3_tpu/pipeline/loop_closing.py` (`LoopClosing.cc`, the same-map
-loop; the distributed branch is ROADMAP A15, the inertial 4-DoF graph A11):
+loop, visual or inertial; the distributed branch is ROADMAP A15). An
+inertial closer (`inertial=True`, the IMU_MONOCULAR `System`'s) fixes the
+scale of every Sim3 step and corrects with the 4-DoF essential graph:
 
 * candidates: the keyframe database (`atlas/kfdb.py`);
 * verification (`_verify_sim3`): a cross-checked descriptor match of the

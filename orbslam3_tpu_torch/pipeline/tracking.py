@@ -5,9 +5,13 @@ RGB-D pinhole cameras: the device programs of one tracked frame
 `_local_point_mask`, `_track_local_map_match`, `_pose_opt_from_assoc`,
 `compute_obs_count` and `_track_step`, which chains them), the
 initialization matcher `_match_for_initialization`, relocalization's
-`_projection_rescue_match`, and the host state machine `Tracker` (two-view
-or single-frame stereo initialization, tracking, relocalization, the
-keyframe policy, keyframe insertion with the stereo depth points).
+`_projection_rescue_match`, the pose-inertial solves' observation sets
+(`_pose_inertial_from_assoc`, `_pose_inertial_lf_from_assoc`), and the host
+state machine `Tracker` (two-view or single-frame stereo initialization,
+tracking, relocalization, the keyframe policy, keyframe insertion with the
+stereo depth points; for a monocular-inertial sensor the IMU queue, the
+per-gap preintegration, the IMU prediction, the pose-inertial refinement,
+IMU dead-reckoning while recently lost and the inertial keyframe rows).
 
 Scatters with duplicate indices (fault C6). The reference writes
 ``assoc.at[clip(idx, 0)].set(where(valid, q, assoc[clip(idx, 0)]))``: every
@@ -24,13 +28,15 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from orbslam3_tpu_torch import convert
+from orbslam3_tpu_torch import convert, spans
 from orbslam3_tpu_torch.atlas import store as st
 from orbslam3_tpu_torch.ops import cameras as cam
 from orbslam3_tpu_torch.ops import features as feat
+from orbslam3_tpu_torch.ops import imu as imu_ops
 from orbslam3_tpu_torch.ops import lie, matching, ransac, stereo
-from orbslam3_tpu_torch.optim import pose_only
+from orbslam3_tpu_torch.optim import pose_inertial, pose_only
 from orbslam3_tpu_torch.pipeline import frame as fr
+from orbslam3_tpu_torch.pipeline import inertial_support as isup
 
 N_LOCAL_KFS = 16  # local keyframes selected per frame (device top-k)
 
@@ -150,20 +156,49 @@ def _projection_rescue_match(model, params, R, t, state: st.MapState, point_mask
     return st.scatter_rows(cur_assoc, m.idx, m.valid, src)
 
 
+def _pose_obs(assoc, f_cur: feat.Features, mp_pos, mp_valid, sigma2_table, ur=None):
+    """The observations of the features associated to valid map points."""
+    a = torch.clamp(assoc, min=0).to(torch.int64)
+    L = sigma2_table.shape[0]
+    return pose_only.PoseObs(
+        Xw=mp_pos[a], uv=f_cur.uv,
+        ur=ur if ur is not None else torch.full(assoc.shape, -1.0, device=assoc.device),
+        sigma2=sigma2_table[torch.clamp(f_cur.octave, 0, L - 1).to(torch.int64)],
+        valid=(assoc >= 0) & f_cur.valid & mp_valid[a],
+    )
+
+
 def _pose_opt_from_assoc(model, params, R0, t0, assoc, f_cur: feat.Features, mp_pos,
                          mp_valid, sigma2_table, ur=None, bf: float = 0.0):
     """Pose-only solve over the features associated to valid map points."""
-    a = torch.clamp(assoc, min=0).to(torch.int64)
-    ok = (assoc >= 0) & f_cur.valid & mp_valid[a]
-    L = sigma2_table.shape[0]
-    obs = pose_only.PoseObs(
-        Xw=mp_pos[a],
-        uv=f_cur.uv,
-        ur=ur if ur is not None else torch.full(assoc.shape, -1.0, device=assoc.device),
-        sigma2=sigma2_table[torch.clamp(f_cur.octave, 0, L - 1).to(torch.int64)],
-        valid=ok,
-    )
+    obs = _pose_obs(assoc, f_cur, mp_pos, mp_valid, sigma2_table, ur)
     return pose_only.optimize_pose(model, params, R0, t0, obs, bf=bf)
+
+
+def _pose_inertial_from_assoc(model, params, assoc, f_cur: feat.Features, mp_pos, mp_valid,
+                              sigma2_table, Rbc, tbc, kf_R, kf_t, kf_vel, kf_bg, kf_ba,
+                              pre: imu_ops.Preintegrated, R0, t0, v0, ur=None, bf: float = 0.0):
+    """The visual-inertial refinement of the frame state against the last
+    keyframe (`PoseInertialOptimizationLastKeyFrame`): the observation set
+    of `_pose_opt_from_assoc`, the keyframe's camera pose and the frame's
+    visual pose (R0, t0) turned into body poses."""
+    obs = _pose_obs(assoc, f_cur, mp_pos, mp_valid, sigma2_table, ur)
+    R_kf, p_kf = isup.cam_to_body(kf_R, kf_t, Rbc, tbc)
+    R0b, p0b = isup.cam_to_body(R0, t0, Rbc, tbc)
+    return pose_inertial.optimize_pose_inertial(model, params, obs, Rbc, tbc, R_kf, p_kf, kf_vel,
+                                                kf_bg, kf_ba, pre, R0b, p0b, v0, bf=bf)
+
+
+def _pose_inertial_lf_from_assoc(model, params, assoc, f_cur: feat.Features, mp_pos, mp_valid,
+                                 sigma2_table, Rbc, tbc, R_lf, p_lf, v_lf, bg_lf, ba_lf, H_prior,
+                                 pre: imu_ops.Preintegrated, R0, t0, v0, ur=None, bf: float = 0.0):
+    """`PoseInertialOptimizationLastFrame`: anchored on the previous frame's
+    body state and its marginalization prior (`H_prior`, a host array)."""
+    obs = _pose_obs(assoc, f_cur, mp_pos, mp_valid, sigma2_table, ur)
+    R0b, p0b = isup.cam_to_body(R0, t0, Rbc, tbc)
+    return pose_inertial.optimize_pose_inertial_last_frame(
+        model, params, obs, Rbc, tbc, R_lf, p_lf, v_lf, bg_lf, ba_lf, H_prior, pre, R0b, p0b, v0,
+        bf=bf)
 
 
 def compute_obs_count(state: st.MapState) -> torch.Tensor:
@@ -312,11 +347,16 @@ class Tracker:
     stereo (`process_stereo_frame`) or RGB-D (`process_rgbd_frame`) pinhole
     camera. A stereo or RGB-D frame carries each keypoint's right-image u
     and depth: it initializes the map on its own, adds the (u, v, u_right)
-    rows to the pose solves, and seeds depth points at each keyframe. The
-    two-camera fisheye rig (A12) and the inertial branches (A11) are not
-    ported: their entry points raise. Relocalization needs a keyframe
-    database (place recognition, `System.enable_place_recognition`);
-    without one it fails, as the reference's does.
+    rows to the pose solves, and seeds depth points at each keyframe. With
+    `imu_calib` the tracker is monocular-inertial: `grab_imu` queues the
+    samples, each frame gap is preintegrated and merged since the last
+    keyframe, keyframes come at 4 Hz until the mapper initializes the IMU
+    (`imu_ready`), and after it each frame is predicted from the IMU and
+    refined by the pose-inertial solve (`Tracking::TrackLocalMap`). The
+    two-camera fisheye rig (A12) is not ported: its entry point raises.
+    Relocalization needs a keyframe database (place recognition,
+    `System.enable_place_recognition`); without one it fails, as the
+    reference's does.
 
     Host synchronisations: a tracked monocular frame that inserts no
     keyframe makes `HOST_SYNCS_PER_FRAME` = 2, both inside `_track_step`:
@@ -327,14 +367,20 @@ class Tracker:
     the reference keyframe's pose for the trajectory log rides in the
     bundle; extraction is not waited for. Initialization and keyframe
     frames read more (the two-view result, the depth points, the mapping
-    pass)."""
+    pass). A monocular-inertial frame makes the monocular 2 before the IMU
+    is initialized (its preintegration goes up without a sync), and
+    `HOST_SYNCS_PER_INERTIAL_FRAME` = 4 after it: the 2, the one fetch of
+    the IMU prediction (the pose the motion-model stage projects with), and
+    the one fetch of the pose-inertial result, as the reference reads them
+    (`tracking.py:1172-1177, 1298`)."""
 
     HOST_SYNCS_PER_FRAME = 2
     HOST_SYNCS_PER_STEREO_FRAME = 3
+    HOST_SYNCS_PER_INERTIAL_FRAME = 4
 
     def __init__(self, model: cam.CameraModel, params: torch.Tensor, img_wh: Tuple[int, int],
                  store: st.MapStore, orb_params: feat.OrbParams = feat.OrbParams(),
-                 bf: float = 0.0, fps: float = 20.0):
+                 bf: float = 0.0, fps: float = 20.0, imu_calib: imu_ops.ImuCalib | None = None):
         self.model = model
         self.params = params
         self.device = params.device
@@ -374,6 +420,28 @@ class Tracker:
         self.time_lost: Optional[float] = None  # ref mTimeStampLost
         self.last_reloc_frame_id = -(10**9)
         self.last_kf_frame_id = -(10**9)
+        # Inertial plumbing (ref Tracking.cc:621-850).
+        self.imu_calib = imu_calib
+        if imu_calib is not None:
+            self.imu_queue = isup.ImuQueue()
+            self.Rbc = imu_calib.Rbc.cpu().numpy()
+            self.tbc = imu_calib.tbc.cpu().numpy()
+        # The last frame's marginalization prior (ref Frame::mpcpi): host
+        # (R, p, v, bg, ba, H15), valid while the map is unchanged since.
+        self.frame_prior = None
+        self.prior_map_version = -1
+        self.prior_ts = -1.0  # timestamp of the frame the prior belongs to
+        self.pi_taken = False  # whether this frame took the pose-inertial result
+        self._map_transformed = False  # set by apply_map_transform
+        self._reset_inertial()
+
+    def _reset_inertial(self):
+        self.imu_ready = False  # set by the mapper after IMU initialization
+        self.pre_from_kf = None  # preintegration since the last keyframe
+        self.pre_frame = None  # preintegration over the last frame gap
+        self.body_vel = np.zeros(3, np.float32)
+        self.bias_g = np.zeros(3, np.float32)
+        self.bias_a = np.zeros(3, np.float32)
 
     def reset_map_state(self, full: bool = False):
         """Clear every per-map field (`Tracking::ResetActiveMap`; `full`
@@ -390,9 +458,14 @@ class Tracker:
         self.time_lost = None
         self.last_reloc_frame_id = -(10**9)
         self.last_kf_frame_id = -(10**9)
+        self.frame_prior = None
+        self.prior_map_version = -1
+        self._reset_inertial()
         if full:
             self.trajectory = []
             self.frame_id = 0
+            if self.imu_calib is not None:
+                self.imu_queue = isup.ImuQueue()
         else:
             self.trajectory = [e for e in self.trajectory if e[1] is not self.store]
 
@@ -452,6 +525,32 @@ class Tracker:
             if self.last_kf_id == slot:
                 self.last_kf_id = int(new_ref)
 
+    def apply_map_transform(self, Rwg: np.ndarray, s: float):
+        """Keep the tracker's state in the map's frame after
+        `apply_scaled_rotation` (IMU initialization, scale refinement): world
+        x' = s Rwg^T x, so the last frame's pose becomes Rcw Rwg, s tcw; the
+        motion model's translation and the relative trajectory of this map
+        scale by s (`Tracking::UpdateFrameIMU`, `Tracking.cc:3161-3224`). The
+        marginalization prior, in the old frame, is dropped. A keyframe frame
+        whose mapping pass transformed the map then takes its keyframe's pose
+        (fault C13, `_create_keyframe`)."""
+        Rwg = np.asarray(Rwg, np.float32)
+        s = float(s)
+        self.frame_prior = None
+        self._map_transformed = True
+        if self.last_frame is not None:
+            self.last_frame.R = np.asarray(self.last_frame.R) @ Rwg
+            self.last_frame.t = s * np.asarray(self.last_frame.t)
+        if self.velocity is not None:
+            Rv, tv = self.velocity
+            self.velocity = (Rv, s * tv)
+        self._ref_pose = None
+        self.trajectory = [
+            (ts, store_e, ref, R_cr, s * t_cr) if store_e is self.store
+            else (ts, store_e, ref, R_cr, t_cr)
+            for (ts, store_e, ref, R_cr, t_cr) in self.trajectory
+        ]
+
     def _obs_count_cached(self):
         """Per-point observation counts, recomputed only when the map moved
         (`compute_obs_count`)."""
@@ -482,8 +581,9 @@ class Tracker:
     def process_stereo_fisheye_frame(self, img_left, img_right, timestamp):
         raise NotImplementedError("the two-camera fisheye rig is ROADMAP A12")
 
-    def grab_imu(self, t, acc, gyro):
-        raise NotImplementedError("inertial tracking is ROADMAP A11")
+    def grab_imu(self, t: float, acc, gyro):
+        """`Tracking::GrabImuData`: queue one sample (host)."""
+        self.imu_queue.push(t, acc, gyro)
 
     # -- main entry -----------------------------------------------------
     def process_frame(self, img: np.ndarray, timestamp: float) -> fr.FrameData:
@@ -515,51 +615,102 @@ class Tracker:
     def _process_with_features(self, f: feat.Features, timestamp: float,
                                ur: Optional[np.ndarray] = None,
                                depth: Optional[np.ndarray] = None) -> fr.FrameData:
-        # A frame older than the last one resets the active map, and then
-        # goes on as the first frame of a new one (`Tracking::Track`,
-        # Tracking.cc:987-996). The >1 s gap branches are inertial (A11).
-        if (self.anomaly_cb is not None and self.last_frame is not None
-                and timestamp - self.last_frame.timestamp < 0):
-            self.anomaly_cb("reorder")
+        # Timestamp anomalies (`Tracking::Track`, Tracking.cc:987-1031): a
+        # frame older than the last one resets the active map; an inertial
+        # gap of more than 1 s reports "gap_init" (IMU initialized) or
+        # "gap_uninit". The frame then goes on as the first of a new map.
+        if self.anomaly_cb is not None and self.last_frame is not None:
+            dt = timestamp - self.last_frame.timestamp
+            if dt < 0:
+                self.anomaly_cb("reorder")
+            elif dt > 1.0 and self.imu_calib is not None:
+                self.anomaly_cb("gap_init" if self.imu_ready else "gap_uninit")
         cur = fr.FrameData(features=f, timestamp=timestamp, frame_id=self.frame_id,
                            R=np.eye(3, dtype=np.float32), t=np.zeros(3, np.float32),
                            mp_assoc=np.full(f.n, -1, np.int32), ur=ur, depth=depth)
         self.frame_id += 1
+        self.pi_taken = False
+        # IMU preintegration over the frame gap (`PreintegrateIMU`), merged
+        # into the window since the last keyframe. No host read.
+        if self.imu_calib is not None and self.last_frame is not None:
+            with spans.span("preintegration"):
+                self.pre_frame = isup.preintegrate_window(
+                    self.imu_queue, self.last_frame.timestamp, timestamp, self.bias_g,
+                    self.bias_a, self.imu_calib)
+            if self.pre_frame is not None:
+                self.pre_from_kf = (self.pre_frame if self.pre_from_kf is None else
+                                    imu_ops.merge(self.pre_from_kf, self.pre_frame,
+                                                  self.imu_calib))
+        publish_anyway = False
         if self.state in (TrackState.NO_IMAGES_YET, TrackState.NOT_INITIALIZED):
             if cur.ur is not None:
                 self._initialize_stereo(cur)
             else:
                 self._initialize_mono(cur)
-        elif self._track_state_machine(cur):
-            self.state = TrackState.OK
-        if self.state == TrackState.OK:
+        else:
+            ok, publish_anyway = self._track_state_machine(cur)
+            if ok:
+                self.state = TrackState.OK
+        if self.state == TrackState.OK or publish_anyway:
             self._record_pose(cur.timestamp, cur.R, cur.t)
         self.last_frame = cur
         return cur
 
-    def _track_state_machine(self, cur: fr.FrameData) -> bool:
+    def _track_state_machine(self, cur: fr.FrameData):
         """One tracked frame through the reference's state machine
-        (`Tracking::Track`, visual branches). Returns whether it tracked."""
+        (`Tracking::Track`, `Tracking.cc:1100-1290`). Returns (ok,
+        publish_anyway): the latter marks an IMU dead-reckoned pose that goes
+        to the trajectory while RECENTLY_LOST."""
+        inertial = self.imu_calib is not None
         if self.state == TrackState.OK:
             if self._track(cur):
-                return True
+                return True, False
             # Failure out of OK: a grace period only for a usable map.
-            if self.store.n_kf > 10:
+            if self.store.n_kf > 10 and (not inertial or self.imu_ready):
                 self.state = TrackState.RECENTLY_LOST
                 self.time_lost = cur.timestamp
             else:
                 self.state = TrackState.LOST
-            return False
+            return False, False
+        if self.state == TrackState.RECENTLY_LOST and inertial and self.imu_ready:
+            # IMU dead-reckoning (`Track:1210-1225`): predict through the
+            # gap, publish the pose, and try the two-stage track from it.
+            published = False
+            if self.pre_frame is not None and self.last_frame is not None:
+                cur.R, cur.t, self.body_vel = self._imu_predict(self.last_frame)
+                published = True
+            if self._track(cur, have_pose=published):
+                return True, False
+            if self.time_lost is not None and \
+                    cur.timestamp - self.time_lost > self.time_recently_lost:
+                self.state = TrackState.LOST  # the 5 s cap
+                return False, False
+            return False, published
         if self._relocalize(cur):
             self.velocity = None
             self.last_reloc_frame_id = cur.frame_id
             if self._track(cur, have_pose=True):
-                return True
+                return True, False
         if self.state == TrackState.RECENTLY_LOST and (
                 self.time_lost is None
                 or cur.timestamp - self.time_lost > self.time_recently_lost):
             self.state = TrackState.LOST
-        return False
+        return False, False
+
+    def _imu_predict(self, last: fr.FrameData):
+        """`PredictStateIMU` from the last frame's pose through the last gap:
+        the camera pose (R, t) and the body velocity, as host arrays. The
+        state goes up in one pinned copy; the prediction comes back in one
+        fetch (the frame's one read of it)."""
+        R_wb, p_wb = isup.cam_to_body(np.asarray(last.R, np.float32),
+                                      np.asarray(last.t, np.float32), self.Rbc, self.tbc)
+        up = convert.tensor(np.concatenate([R_wb.reshape(-1), p_wb, self.body_vel, self.bias_g,
+                                            self.bias_a]).astype(np.float32), self.device)
+        R1, v1, p1 = isup.predict_state(up[0:9].reshape(3, 3), up[9:12], up[12:15], up[15:18],
+                                        up[18:21], self.pre_frame)
+        Rp, tp = isup.body_to_cam(R1, p1, self.imu_calib.Rbc, self.imu_calib.tbc)
+        b = fetch_bundle(dict(R=Rp, t=tp, v=v1))
+        return b["R"], b["t"], b["v"]
 
     # -- initialization --------------------------------------------------
     def _initialize_stereo(self, cur: fr.FrameData, min_features: int = 300):
@@ -619,12 +770,14 @@ class Tracker:
             return
         if self.init_frame is None:
             self.init_frame = cur
+            self.pre_from_kf = None  # the preintegration restarts at the reference
             self.state = TrackState.NOT_INITIALIZED
             return
         ref = self.init_frame
         m = _match_for_initialization(ref.features, cur.features)
         if int(m.valid.sum()) < 100:
             self.init_frame = cur  # the reference frame is replaced
+            self.pre_from_kf = None
             return
         rays_ref = cam.unproject(self.model, self.params, ref.features.uv)[:, :2]
         rays_cur = cam.unproject(self.model, self.params, cur.features.uv)[:, :2]
@@ -687,9 +840,11 @@ class Tracker:
         self.store.kf_ts[k1] = cur.timestamp
         self.store.bump()
 
-        # Initial BA (ref GlobalBundleAdjustemnt(20)) and depth normalization.
+        # Initial BA (ref GlobalBundleAdjustemnt(20)) and depth normalization;
+        # the mapper keeps keyframe 1's preintegration from the reference.
         if self.new_kf_callback is not None:
-            self.new_kf_callback(k1, initial=True)
+            self.new_kf_callback(k1, initial=True, preint=self.pre_from_kf)
+        self.pre_from_kf = None
 
         cur.R = self.store.state.kf_R[k1].cpu().numpy()
         cur.t = self.store.state.kf_t[k1].cpu().numpy()
@@ -709,7 +864,12 @@ class Tracker:
         s = self.store.state
         last = self.last_frame
         R_pred = t_pred = None
-        if not have_pose and self.velocity is not None and last is not None:
+        if have_pose:
+            pass
+        elif self.imu_ready and self.pre_frame is not None and last is not None:
+            # The IMU prediction replaces the constant-velocity model.
+            R_pred, t_pred, self.body_vel = self._imu_predict(last)
+        elif self.velocity is not None and last is not None:
             Rv, tv = self.velocity  # constant-velocity motion model
             R_pred = Rv @ last.R
             t_pred = Rv @ last.t + tv
@@ -754,6 +914,8 @@ class Tracker:
         self._ref_pose = (self.store, self.store.change_index, int(b["ref_kf"]), b["ref_R"],
                           b["ref_t"])
         self.store.state = s._replace(mp_found=fnd, mp_visible=vis)
+        if self.imu_ready and self.pre_from_kf is not None and self.last_kf_id >= 0:
+            n_inl = self._pose_inertial(cur, last, n_inl)
 
         if last is not None:  # motion model update: Tcl = Tcw_cur * Twc_last
             Rl, tl = last.R, last.t
@@ -763,6 +925,54 @@ class Tracker:
         if self._need_new_keyframe(cur, n_inl, int(b["ref_matches"])):
             self._create_keyframe(cur)
         return True
+
+    def _pose_inertial(self, cur: fr.FrameData, last, n_inl: int) -> int:
+        """After IMU initialization the pose-inertial solve replaces the
+        visual pose (`Tracking::TrackLocalMap`, `Tracking.cc:2470-2490`): the
+        LastFrame variant when the previous frame left a prior and the map is
+        unchanged since (ref `mbMapUpdated`), else the LastKeyFrame one. Its
+        result is taken with >= 15 inliers, and its marginal H becomes the
+        next frame's prior. One fetch. Returns the inlier count."""
+        s = self.store.state
+        T = self.store.tensor
+        assoc = T(cur.mp_assoc.astype(np.int32))
+        R0, t0 = T(np.asarray(cur.R, np.float32)), T(np.asarray(cur.t, np.float32))
+        v0 = T(np.asarray(self.body_vel, np.float32))
+        ur = T(cur.ur.astype(np.float32)) if cur.ur is not None else None
+        cal = self.imu_calib
+        use_lf = (self.frame_prior is not None and self.pre_frame is not None and last is not None
+                  and self.prior_ts == last.timestamp
+                  and self.prior_map_version == self.store.change_index)
+        if use_lf:
+            R_a, p_a, v_a, bg_a, ba_a, H_a = self.frame_prior
+            anchor = T(np.concatenate([R_a.reshape(-1), p_a, v_a, bg_a, ba_a]).astype(np.float32))
+            with spans.span("pose-inertial (last frame)"):
+                res = _pose_inertial_lf_from_assoc(
+                    self.model, self.params, assoc, cur.features, s.mp_pos, s.mp_valid,
+                    self.sigma2_table, cal.Rbc, cal.tbc, anchor[0:9].reshape(3, 3),
+                    anchor[9:12], anchor[12:15], anchor[15:18], anchor[18:21], H_a,
+                    self.pre_frame, R0, t0, v0, ur=ur, bf=self.bf)
+        else:
+            k = self.last_kf_id
+            with spans.span("pose-inertial (last keyframe)"):
+                res = _pose_inertial_from_assoc(
+                    self.model, self.params, assoc, cur.features, s.mp_pos, s.mp_valid,
+                    self.sigma2_table, cal.Rbc, cal.tbc, s.kf_R[k], s.kf_t[k], s.kf_vel[k],
+                    s.kf_bias_g[k], s.kf_bias_a[k], self.pre_from_kf, R0, t0, v0, ur=ur,
+                    bf=self.bf)
+        rv = fetch_bundle(res._asdict())  # the result's one round trip
+        n_vi = int(rv["n_inliers"])
+        if n_vi < 15:
+            self.frame_prior = None
+            return n_inl
+        cur.R, cur.t = rv["Rcw"], rv["tcw"]
+        cur.mp_assoc = np.where(rv["inlier"], cur.mp_assoc, -1).astype(np.int32)
+        self.body_vel, self.bias_g, self.bias_a = rv["v"], rv["bg"], rv["ba"]
+        self.frame_prior = (rv["R_wb"], rv["p_wb"], rv["v"], rv["bg"], rv["ba"], rv["H"])
+        self.prior_map_version = self.store.change_index
+        self.prior_ts = cur.timestamp
+        self.pi_taken = True
+        return n_vi
 
     def _relocalize(self, cur: fr.FrameData) -> bool:
         """`Tracking::Relocalization` (`Tracking.cc:3248`): keyframe-database
@@ -834,10 +1044,21 @@ class Tracker:
         the reference keyframe's well-observed points (0.9 monocular, 0.75
         stereo-like, 0.4 while the map has < 2 keyframes); the c1a/c1b frame
         gates and, for stereo-like sensors, c1c (a quarter of
-        `ref_matches`, or the census). A busy mapper queues a stereo-like
-        keyframe while fewer than 3 wait, and refuses a monocular one."""
+        `ref_matches`, or the census). Monocular-inertial: a keyframe every
+        0.25 s until the IMU is initialized; after it the ratio is 0.75 above
+        350 inliers (else 0.9), c3 asks for a keyframe 0.5 s after the last
+        and c4 on 15-75 inliers or out of RECENTLY_LOST. A busy mapper queues
+        a stereo-like keyframe while fewer than 3 wait, and refuses a
+        monocular one."""
         if self.ref_kf < 0:
             return False
+        inertial = self.imu_calib is not None
+        # Before IMU initialization: a fixed 4 Hz cadence feeds the
+        # initializer (`Tracking.cc:2579-2588`).
+        if inertial and not self.imu_ready:
+            if self.last_kf_id < 0:
+                return False
+            return cur.timestamp - float(self.store.kf_ts[self.last_kf_id]) >= 0.25
         idle = self.mapper_idle_query is None or bool(self.mapper_idle_query())
         nkf = self.store.n_kf - len(self.store.free_kf_slots)
         if (cur.frame_id < self.last_reloc_frame_id + self.max_frames
@@ -850,14 +1071,22 @@ class Tracker:
             tracked_close = int(np.sum(close & (cur.mp_assoc >= 0)))
             untracked_close = int(np.sum(close & (cur.mp_assoc < 0)))
             need_close = tracked_close < 100 and untracked_close > 70
-        th_ratio = 0.9 if mono_like else 0.75
+        th_ratio = 0.9 if mono_like and not inertial else 0.75
         if nkf < 2:
             th_ratio = 0.4
+        if inertial and mono_like:
+            th_ratio = 0.75 if n_inl > 350 else 0.9
         c1a = cur.frame_id >= self.last_kf_frame_id + self.max_frames
         c1b = cur.frame_id >= self.last_kf_frame_id + self.min_frames and idle
-        c1c = not mono_like and (n_inl < ref_matches * 0.25 or need_close)
+        c1c = not mono_like and not inertial and (n_inl < ref_matches * 0.25 or need_close)
         c2 = ((n_inl < ref_matches * th_ratio) or need_close) and n_inl > 15
-        if not ((c1a or c1b or c1c) and c2):
+        # Inertial: a keyframe at least every 0.5 s (c3, `:2670-2683`), and on
+        # weak mono-inertial tracking or out of RECENTLY_LOST (c4, `:2685-2689`).
+        c3 = (inertial and self.imu_ready and self.last_kf_id >= 0
+              and cur.timestamp - float(self.store.kf_ts[self.last_kf_id]) >= 0.5)
+        c4 = inertial and mono_like and (15 < n_inl < 75
+                                         or self.state == TrackState.RECENTLY_LOST)
+        if not (((c1a or c1b or c1c) and c2) or c3 or c4):
             return False
         if idle:
             return True
@@ -919,10 +1148,11 @@ class Tracker:
         f = cur.features
         ur = (T(cur.ur.astype(np.float32)) if cur.ur is not None
               else torch.full((f.n,), -1.0, device=self.device))
+        imu = T(np.concatenate([self.body_vel, self.bias_g, self.bias_a]).astype(np.float32))
         self.store.state = st.add_keyframe(
             self.store.state, slot, T(cur.R.astype(np.float32)), T(cur.t.astype(np.float32)),
             f.uv, ur, f.octave, f.angle, f.desc, f.valid, T(cur.mp_assoc.astype(np.int32)),
-            prev_kf=self.last_kf_id,
+            vel=imu[0:3], bias_g=imu[3:6], bias_a=imu[6:9], prev_kf=self.last_kf_id,
         )
         self.store.kf_ts[slot] = cur.timestamp
         if self.is_stereo_like and cur.depth is not None:
@@ -931,11 +1161,22 @@ class Tracker:
         self.ref_kf = slot
         self.last_kf_id = slot
         self.last_kf_frame_id = cur.frame_id
-        if self.new_kf_callback is not None and self.new_kf_callback(slot, initial=False):
-            # A loop correction moved the map under this frame (fault C12):
-            # the frame takes its keyframe's corrected pose, as ORB-SLAM3's
-            # UpdateLastFrame gives it to the next frame's motion model.
+        preint, self.pre_from_kf = self.pre_from_kf, None
+        self._map_transformed = False
+        if self.new_kf_callback is not None and (
+                self.new_kf_callback(slot, initial=False, preint=preint)
+                or self._map_transformed):
+            # A loop correction (fault C12) or the IMU initialization's
+            # gravity and scale alignment (fault C13) moved the map under
+            # this frame: the frame takes its keyframe's pose, as ORB-SLAM3's
+            # UpdateLastFrame / UpdateFrameIMU give it to the next frame.
             cur.R = self.store.state.kf_R[slot].cpu().numpy()
             cur.t = self.store.state.kf_t[slot].cpu().numpy()
         # The mapping pass may have fused points into this keyframe.
         cur.mp_assoc = self.store.state.kf_mp[slot].cpu().numpy()
+        if self.imu_calib is not None and self.imu_ready:
+            # Mapping may have (re-)initialized the IMU or moved the keyframe's
+            # state: the next frames start from it.
+            s = self.store.state
+            b = fetch_bundle(dict(bg=s.kf_bias_g[slot], ba=s.kf_bias_a[slot], v=s.kf_vel[slot]))
+            self.bias_g, self.bias_a, self.body_vel = b["bg"], b["ba"], b["v"]

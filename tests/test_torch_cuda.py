@@ -409,3 +409,82 @@ def test_stereo_match_and_remap_on_card_equal_cpu(dev):
     for a, b in zip(StereoRectifier(*rig, dev)(raw[0, 0], raw[0, 1]),
                     StereoRectifier(*rig, "cpu")(raw[0, 0], raw[0, 1])):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4, rtol=0)
+
+
+def _vi_inputs(seed: int = 0):
+    """numpy inputs of the inertial checks: 11 IMU samples of a frame gap, a
+    keyframe body state, a frame 0.05 s on seen by 300 points (mono and
+    stereo rows, 10% outliers), and a perturbed guess."""
+    from orbslam3_tpu_torch.ops import lie
+
+    rng = np.random.default_rng(seed)
+    acc = (np.array([0, 0, 9.81]) + rng.normal(0, 0.5, (11, 3))).astype(np.float32)
+    gyro = rng.normal(0, 0.2, (11, 3)).astype(np.float32)
+    dt = np.full(11, 0.00455, np.float32)
+    R = lie.exp_so3(torch.tensor([0.02, -0.01, 0.03])).numpy()
+    p = np.array([0.02, -0.01, 0.01], np.float32)
+    n = 300
+    Xw = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), rng.uniform(3, 6, n)],
+                  -1).astype(np.float32)
+    Xc = (Xw - p) @ R
+    uv = 300.0 * Xc[:, :2] / Xc[:, 2:] + np.array([320.0, 240.0])
+    uv = uv + rng.normal(0, 0.5, uv.shape)
+    out = rng.random(n) < 0.1
+    uv[out] += 40.0
+    ur = np.where(rng.random(n) < 0.5, uv[:, 0] - 33.0 / Xc[:, 2], -1.0)
+    return dict(acc=acc, gyro=gyro, dt=dt, R=R, p=p, Xw=Xw, uv=uv.astype(np.float32),
+                ur=ur.astype(np.float32), sigma2=np.ones(n, np.float32),
+                valid=np.ones(n, bool), v=np.array([0.3, -0.1, 0.05], np.float32))
+
+
+def test_preintegration_and_pose_inertial_on_card_equal_cpu(dev):
+    """The preintegration of a frame gap, and both pose-inertial solves
+    (last keyframe, then last frame under the first's prior), on the card
+    and on the CPU from the same inputs: the windows within 1e-5 of their
+    largest entry; the same inliers; poses, velocity and biases within 1e-4;
+    H within 1e-3 of its largest entry. Under `set_sync_debug_mode("warn")`
+    neither solve makes a host sync (the prior's PSD clamp runs on the
+    host copy)."""
+    import warnings
+
+    from orbslam3_tpu_torch.ops import imu as imu_t
+    from orbslam3_tpu_torch.optim import pose_inertial as pi
+    from orbslam3_tpu_torch.optim.pose_only import PoseObs
+
+    d = _vi_inputs()
+    out = {}
+    for where in ("cpu", dev):
+        card = str(where) != "cpu"
+        T = lambda x: convert.tensor(x, where)  # noqa: E731
+        calib = imu_t.ImuCalib.create(np.eye(3), np.zeros(3), 1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0,
+                                      device=where)
+        z3 = torch.zeros(3, device=where)
+        pre = imu_t.integrate(T(d["acc"]), T(d["gyro"]), T(d["dt"]), z3, z3, calib)
+        obs = PoseObs(Xw=T(d["Xw"]), uv=T(d["uv"]), ur=T(d["ur"]), sigma2=T(d["sigma2"]),
+                      valid=T(d["valid"]))
+        params = torch.tensor([300.0, 300.0, 320.0, 240.0, 0, 0, 0, 0], device=where)
+        eye = torch.eye(3, device=where)
+        args = (CameraModel.PINHOLE, params, obs, eye, z3)
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")  # its own notice comes before the record
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            r1 = pi.optimize_pose_inertial(*args, eye, z3, T(d["v"]), z3, z3, pre, T(d["R"]),
+                                           T(d["p"]) + 0.02, T(d["v"]), bf=33.0)
+            H_host = out["cpu"][0].H if card else r1.H.numpy()
+            r2 = pi.optimize_pose_inertial_last_frame(
+                *args, eye, z3, T(d["v"]), z3, z3, H_host, pre, T(d["R"]), T(d["p"]) - 0.01,
+                T(d["v"]), bf=33.0)
+        if card:
+            torch.cuda.set_sync_debug_mode("default")
+            assert not [w for w in caught if "synchroniz" in str(w.message)], caught
+        out[str(where)] = (convert.to_numpy(r1), convert.to_numpy(r2), convert.to_numpy(pre))
+    c, g = out["cpu"], out[str(dev)]
+    for a, b in zip(c[2], g[2]):
+        np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5 * max(np.abs(a).max(), 1e-30))
+    for rc, rg in zip(c[:2], g[:2]):
+        np.testing.assert_array_equal(rg.inlier, rc.inlier)
+        for name in ("R_wb", "p_wb", "v", "bg", "ba", "Rcw", "tcw"):
+            np.testing.assert_allclose(getattr(rg, name), getattr(rc, name), atol=1e-4)
+        np.testing.assert_allclose(rg.H, rc.H, atol=1e-3 * np.abs(rc.H).max())

@@ -335,16 +335,17 @@ def test_local_ba_with_stereo_rows(obs_cap):
 
 def test_stereo_and_rgbd_take_the_card_unless_asked_for_the_cpu(monkeypatch):
     """`System(STEREO)` and `System(RGBD)` without a device take the first
-    CUDA card and raise where there is none; the inertial sensors name A11
-    and a second camera A12; the CPU runs a frame when asked for."""
+    CUDA card and raise where there is none; IMU_STEREO and a second camera
+    name A12 (IMU_MONOCULAR is ported: `tests/test_torch_vi_system.py`); the
+    CPU runs a frame when asked for."""
     left, right, depth, _ = scene.stereo_frames(2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for sensor in ("stereo", "rgbd"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             _port_system(sensor, device=None)
-    for sensor in (Sensor.IMU_STEREO, Sensor.IMU_MONOCULAR):
-        with pytest.raises(NotImplementedError, match="A11"):
-            System(sensor, CameraModel.PINHOLE, scene.PARAMS, (scene.W, scene.H), device="cpu")
+    with pytest.raises(NotImplementedError, match="A12"):
+        System(Sensor.IMU_STEREO, CameraModel.PINHOLE, scene.PARAMS, (scene.W, scene.H),
+               device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
         System(Sensor.STEREO, CameraModel.PINHOLE, scene.PARAMS, (scene.W, scene.H),
                device="cpu", camera2=(scene.PARAMS, np.eye(4), None, None))

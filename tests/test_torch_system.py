@@ -373,7 +373,7 @@ def test_loop_correction_moves_the_closing_frame_c12():
                                                             torch.from_numpy(shift)[None]))
         lc.n_loops_closed += 1
 
-    slam.mapper.process_keyframe = lambda slot, initial=False: None
+    slam.mapper.process_keyframe = lambda slot, initial=False, preint=None: None
     for closes in (False, True):
         slam._kf_downstream = [correct] if closes else []
         last = tr.last_frame
@@ -414,12 +414,16 @@ def test_system_takes_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 def test_port_imports_no_jax():
     """Importing the System, the entry points, the kernel bench, place
-    recognition's modules and the stereo ones (and loading the synthetic
-    sequence's script) leaves JAX and the JAX package out of the process."""
+    recognition's modules, the stereo ones and the inertial ones (and
+    loading the synthetic sequence's script) leaves JAX and the JAX package
+    out of the process."""
     code = ("import sys, orbslam3_tpu_torch.system, orbslam3_tpu_torch.entry as E, "
             "orbslam3_tpu_torch.kernel_bench, orbslam3_tpu_torch.pipeline.loop_closing, "
             "orbslam3_tpu_torch.pipeline.gba, orbslam3_tpu_torch.io.vocab_io, "
-            "orbslam3_tpu_torch.ops.stereo, orbslam3_tpu_torch.ops.rectify; "
+            "orbslam3_tpu_torch.ops.stereo, orbslam3_tpu_torch.ops.rectify, "
+            "orbslam3_tpu_torch.ops.imu, orbslam3_tpu_torch.optim.inertial, "
+            "orbslam3_tpu_torch.optim.pose_inertial, "
+            "orbslam3_tpu_torch.pipeline.inertial_support; "
             "E.synth_euroc(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'orbslam3_tpu')]; "
             "assert not bad, bad")
