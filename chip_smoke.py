@@ -84,8 +84,24 @@ velocities and points within 1e-4). It prints the median ms per frame
 kind, the ms of each inertial call (the preintegration, both pose-inertial
 solves, `try_initialize`, the init-time full VI-BA, VIBA1, each local
 inertial BA) by CUDA events and the host clock, B1 and B2 launches per
-frame and the full-map VI-BA's coupling-tensor bytes. Every run prints the
-wall time of each phase and of the whole script.
+frame and the full-map VI-BA's coupling-tensor bytes.
+
+Phase 14 drives config 4, the stereo-inertial two-camera Kannala-Brandt 8
+rig (`entry.replay(cuda, "stereo_vi_fisheye", N_FE)`: `System(IMU_STEREO,
+KB8, camera2=...)` on the 512x512 pair of `make_synth_euroc.py --fisheye`,
+1000 features on 8 levels, Kmax 256, Pmax 16384, 200 Hz IMU) past the IMU
+initialization and VIBA1, with phase 13's gates (every frame OK from frame
+0's single-frame initialization, SE3 ATE, scale, the IMU initialized within
+2 keyframes of the JAX `System`'s, VIBA1 run, the pose-inertial result on
+>= 80% of the frames after it), host syncs per tracked frame 3 before the
+IMU initialization and 5 after, B2 twice a frame, and its prefix through
+the IMU initialization and 10 frames after it kernels vs plain. It prints
+the median ms and syncs per frame kind, the ms of the fisheye match, of the
+pose solves with the right-camera rows and of the pose-inertial solves,
+B1's launches by call and B2's; then B2 on the 512x512 right atlas and B1
+at the fisheye match's call, each exact against its plain version and
+timed. Every run prints the wall time of each phase and of the whole
+script.
 
 Every phase prints its lines; any failure ends the run with a non-zero
 exit. Without a CUDA device it exits non-zero and prints no result.
@@ -140,6 +156,8 @@ N_WIDE_FEATURES = 2000
 B1_SITES = {"_track_last_frame": "motion model", "_track_local_map_match": "local map",
             "_track_reference_kf": "cross-check", "_fuse_batch": "fuse into a neighbour",
             "_fuse_neighbors": "fuse into the keyframe"}
+# The two-camera rig's B1 call (phase 14).
+B1_RIG_SITES = {"match_stereo_fisheye": "fisheye match"}
 # Place recognition's B1 calls (phase 10); a call is named by the first of
 # these functions on its stack, before those of B1_SITES (relocalization's
 # reference-keyframe match goes through `_track_reference_kf`).
@@ -200,6 +218,21 @@ VI_ATE_SE3_GATE = max(2 * JAX_VI_ATE_SE3, 0.01)
 VI_ATE_SIM3_GATE = max(2 * JAX_VI_ATE_SIM3, 0.01)
 VI_SCALE_TOL = max(2 * abs(1 - JAX_VI_SCALE), 0.02)
 VI_PREFIX_AFTER_INIT = 10  # frames after the IMU initialization in the kernels-vs-plain prefix
+# Phase 14: config 4, the stereo-inertial fisheye rig. The JAX `System` on the
+# same frames on a CPU, with C13 repaired in its Tracker as in the port
+# (`python tests/jax_stereo_vi_replay.py --frames 130 --c13`, 640 s on 8 CPU
+# cores): initialized on frame 0, every frame OK, the IMU initialized at
+# frame 45 with 10 keyframes, VIBA1 at frame 105 (5.25 s), 18 keyframes and
+# 1999 points at the end, SE3 ATE 0.002468 m, Sim3 ATE 0.001839 m, Sim3 scale
+# 0.996263 over 130 poses. N_FE = 130: VIBA1's frame plus 20 is 125.
+N_FE = 130
+JAX_FE_INIT_FRAME = 45
+JAX_FE_INIT_KFS = 10
+JAX_FE_VIBA1_FRAME = 105
+JAX_FE_ATE_SE3 = 0.002468
+JAX_FE_SCALE = 0.996263
+FE_ATE_GATE = max(2 * JAX_FE_ATE_SE3, 0.01)
+FE_SCALE_TOL = max(2 * abs(1 - JAX_FE_SCALE), 0.02)
 
 
 @contextlib.contextmanager
@@ -221,7 +254,8 @@ def _b1_calls(calls: list, keep_args):
             names.append(f.f_code.co_name)
             f = f.f_back
         site = next((B1_PR_SITES[n] for n in names if n in B1_PR_SITES), None) or next(
-            (B1_SITES[n] for n in names if n in B1_SITES), "other")
+            (B1_SITES[n] for n in names if n in B1_SITES), None) or next(
+            (B1_RIG_SITES[n] for n in names if n in B1_RIG_SITES), "other")
         if COMPARING[0]:
             site = "comparison"
         keep = keep_args is True or (keep_args and site in keep_args
@@ -790,7 +824,7 @@ def phase11_stereo(dev) -> dict:
           f"{b2_sides}")
 
     with _build.force_plain():
-        pre_p = E.replay(dev, "stereo", N_STEREO_PREFIX,
+        pre_p = E.replay(dev, "stereo", N_STEREO, n_track=N_STEREO_PREFIX,
                          on_frame=_prefix_recorder(N_STEREO_PREFIX, rec_p))
     kf_in_prefix = sum(rep.keyframe[:N_STEREO_PREFIX])  # frame 0 is the first
     check(kf_in_prefix >= 2, f"phase 11 prefix holds {kf_in_prefix} keyframes")
@@ -830,7 +864,7 @@ def phase12_rgbd_raw(dev) -> dict:
     check(rgbd["fast_nms"] == N_RGBD and rgbd["hamming_top2"] > 0, f"RGB-D launches {rgbd}")
     _replay_gates(rep, "phase 12 RGB-D", RGBD_ATE_GATE, JAX_RGBD_ATE_SE3)
     with _build.force_plain():
-        pre_p = E.replay(dev, "rgbd", N_RGBD_PREFIX,
+        pre_p = E.replay(dev, "rgbd", N_RGBD, n_track=N_RGBD_PREFIX,
                          on_frame=_prefix_recorder(N_RGBD_PREFIX, rec_p))
     print(f"phase 12 RGB-D launches on the main path {rgbd}; kernels vs plain prefix: "
           f"{_same_prefix(rec_k, rec_p, rep.states, pre_p.states, 'phase 12 RGB-D prefix')}")
@@ -859,10 +893,10 @@ def phase12_rgbd_raw(dev) -> dict:
 
 
 def _vi_recorder(into: dict):
-    """An `on_frame` for the mono-inertial replay: each frame's associations,
-    pose and body velocity; the frame at which the IMU was initialized; and
-    the map at VI_PREFIX_AFTER_INIT frames after it (`kf_vel` too), which is
-    where the kernels-vs-plain prefix ends."""
+    """An `on_frame` for an inertial replay: each frame's associations, pose
+    and body velocity; the frame at which the IMU was initialized; and the
+    map VI_PREFIX_AFTER_INIT frames after it (`kf_vel` too), which is where
+    the kernels-vs-plain prefix ends."""
     def on_frame(k, slam):
         if "map" in into:
             return
@@ -886,7 +920,7 @@ def phase13_mono_inertial(dev) -> dict:
     Pmax 16384, 20 Hz camera, 200 Hz IMU) with the gates and lines of the
     module docstring. Returns the kernels' launches on the main path."""
     from orbslam3_tpu_torch import entry as E
-    from orbslam3_tpu_torch.ops import _build, cuda_fast, cuda_match
+    from orbslam3_tpu_torch.ops import cuda_fast, cuda_match
     from orbslam3_tpu_torch.optim import inertial as vi
     from orbslam3_tpu_torch.pipeline.tracking import Tracker
 
@@ -901,7 +935,7 @@ def phase13_mono_inertial(dev) -> dict:
                        torch.cuda.max_memory_allocated() - base))
         return out
 
-    rec_k, rec_p = {}, {}
+    rec_k = {}
     torch.cuda.synchronize()
     cuda_fast.LAUNCHES = 0
     cuda_match.LAUNCHES = 0
@@ -942,12 +976,7 @@ def phase13_mono_inertial(dev) -> dict:
           f"{len(after)} tracked frames after the IMU initialization")
     check(all(n == 1 for n in rep.b2) and launches["fast_nms"] == N_VI,
           f"phase 13: B2 launches per frame {sorted(set(rep.b2))}")
-    kinds = rep.frame_kinds()
-    by_kind = {}
-    for k, (kind, n_sync, m) in enumerate(zip(kinds, rep.syncs, rep.ms)):
-        if kind == "tracked":
-            kind = "tracked after IMU init" if k > rep.imu_init_frame else "tracked before IMU init"
-        by_kind.setdefault(kind, []).append((n_sync, m))
+    by_kind = _inertial_by_kind(rep)
     for kind, want in (("tracked before IMU init", Tracker.HOST_SYNCS_PER_FRAME),
                        ("tracked after IMU init", Tracker.HOST_SYNCS_PER_INERTIAL_FRAME)):
         got = sorted(set(n for n, _ in by_kind.get(kind, [])))
@@ -985,37 +1014,166 @@ def phase13_mono_inertial(dev) -> dict:
     print(f"phase 13 launches on the main path {launches}; per frame B2 {sorted(set(rep.b2))}, "
           f"B1 median {med(rep.b1)} (max {max(rep.b1)}) over {N_VI} frames; B1 by call {sites}")
 
+    print(f"phase 13 kernels vs plain prefix: "
+          f"{_same_vi_prefix(dev, 'mono_vi', N_VI, rep, rec_k, 'phase 13')}")
+    return dict(rep=rep, launches=launches)
+
+
+def _same_vi_prefix(dev, sensor: str, n_frames: int, rep, rec_k: dict, what: str) -> str:
+    """Replay the prefix of an inertial run through the IMU initialization
+    and VI_PREFIX_AFTER_INIT frames after it through the plain versions and
+    gate it against the kernels' run (`rep`, recorded by
+    `_vi_recorder(rec_k)`): states, associations, keyframe rows and point validity equal;
+    poses, velocities, biases and points within 1e-4. Returns its line."""
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch.ops import _build
+
+    rec_p = {}
     n_prefix = rec_k["init"] + VI_PREFIX_AFTER_INIT + 1
     with _build.force_plain():
-        pre_p = E.replay(dev, "mono_vi", N_VI, on_frame=_vi_recorder(rec_p), n_track=n_prefix)
-    check(states[:n_prefix] == pre_p.states, f"phase 13 prefix: states {states[:n_prefix]} vs "
+        pre_p = E.replay(dev, sensor, n_frames, on_frame=_vi_recorder(rec_p),
+                         n_track=n_prefix)
+    states = rep.states
+    check(states[:n_prefix] == pre_p.states, f"{what} prefix: states {states[:n_prefix]} vs "
           f"{pre_p.states}")
-    check(rec_p.get("init") == rec_k["init"], f"phase 13 prefix: IMU initialized at frame "
+    check(rec_p.get("init") == rec_k["init"], f"{what} prefix: IMU initialized at frame "
           f"{rec_p.get('init')} vs {rec_k['init']}")
     dP = 0.0
     for k, (a, b) in enumerate(zip(rec_k["frames"][:n_prefix], rec_p["frames"])):
         check((a[0] is None) == (b[0] is None) and (a[0] is None or np.array_equal(a[0], b[0])),
-              f"phase 13 prefix: associations of frame {k} differ")
+              f"{what} prefix: associations of frame {k} differ")
         if a[1] is not None:
             dP = max(dP, *(float(np.abs(x - y).max()) for x, y in zip(a[1:], b[1:])))
     m_k, m_p = rec_k["map"], rec_p["map"]
     kf = m_p["kf_valid"]
-    for name in ("kf_valid", "kf_mp", "mp_valid"):
+    for name in ("kf_valid", "kf_ur", "kf_mp", "mp_valid"):
         check(np.array_equal(m_k[name][kf] if name.startswith("kf_") else m_k[name],
                              m_p[name][kf] if name.startswith("kf_") else m_p[name]),
-              f"phase 13 prefix: {name} differs")
+              f"{what} prefix: {name} differs")
     for name in ("kf_R", "kf_t", "kf_vel", "kf_bias_g"):
         dP = max(dP, float(np.abs(m_k[name][kf] - m_p[name][kf]).max()))
     v = m_p["mp_valid"]
     dX = float(np.abs(m_k["mp_pos"][v] - m_p["mp_pos"][v]).max())
-    check(dP <= 1e-4 and dX <= 1e-4, f"phase 13 prefix: poses and velocities within {dP}, "
+    check(dP <= 1e-4 and dX <= 1e-4, f"{what} prefix: poses and velocities within {dP}, "
           f"points within {dX}")
-    print(f"phase 13 kernels vs plain prefix: {n_prefix} frames (the IMU initialization at frame "
-          f"{rec_k['init']} and {VI_PREFIX_AFTER_INIT} after it): states and associations equal "
-          f"on every frame; {int(kf.sum())} keyframes, kf_mp rows and {int(v.sum())} points' "
-          f"validity equal; poses, velocities and biases within {dP:.1e}, points within "
-          f"{dX:.1e}")
-    return dict(rep=rep, launches=launches)
+    return (f"{n_prefix} frames (the IMU initialization at frame {rec_k['init']} and "
+            f"{VI_PREFIX_AFTER_INIT} after it): states and associations equal on every frame; "
+            f"{int(kf.sum())} keyframes, kf_ur and kf_mp rows and {int(v.sum())} points' "
+            f"validity equal; poses, velocities and biases within {dP:.1e}, points within "
+            f"{dX:.1e}")
+
+
+def _inertial_by_kind(rep):
+    """{frame kind: [(syncs, ms)]}, tracked frames split at the IMU
+    initialization."""
+    by_kind = {}
+    for k, (kind, n_sync, m) in enumerate(zip(rep.frame_kinds(), rep.syncs, rep.ms)):
+        if kind == "tracked":
+            after = rep.imu_init_frame is not None and k > rep.imu_init_frame
+            kind = "tracked after IMU init" if after else "tracked before IMU init"
+        by_kind.setdefault(kind, []).append((n_sync, m))
+    return by_kind
+
+
+def phase14_stereo_fisheye_inertial(dev) -> dict:
+    """Phase 14: config 4, the stereo-inertial two-camera fisheye rig
+    (`entry.replay(cuda, "stereo_vi_fisheye", N_FE)`), with the gates and
+    lines of the module docstring. Returns the kernels' launches on the
+    main path, the B1 calls by site with the fisheye match's arguments, a
+    512x512 right atlas and the frames' kinds."""
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch.ops import cuda_fast, cuda_match
+    from orbslam3_tpu_torch.ops import features as feat
+    from orbslam3_tpu_torch.pipeline.tracking import Tracker
+
+    rec_k = {}
+    frame = [0]
+    vi_rec = _vi_recorder(rec_k)
+
+    def on_frame(k, slam):
+        vi_rec(k, slam)
+        frame[0] = k + 1
+
+    torch.cuda.synchronize()
+    cuda_fast.LAUNCHES = 0
+    cuda_match.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with _b1_calls([], keep_args={"fisheye match"}) as calls, _b2_calls([], frame) as b2_calls:
+        rep = E.replay(dev, "stereo_vi_fisheye", N_FE, on_frame=on_frame)
+    wall_s = time.perf_counter() - t0
+    launches = {"fast_nms": cuda_fast.LAUNCHES, "hamming_top2": cuda_match.LAUNCHES}
+    sites = {site: sum(c[0] == site for c in calls)
+             for site in list(B1_SITES.values()) + list(B1_RIG_SITES.values())}
+    check(sum(sites.values()) == launches["hamming_top2"], f"phase 14 B1 calls {sites}")
+    check(sites["fisheye match"] == 2 * N_FE, f"phase 14 fisheye match B1 launches {sites}")
+    check(launches["fast_nms"] == 2 * N_FE and all(n == 2 for n in rep.b2),
+          f"phase 14 B2 launches {launches['fast_nms']}, per frame {sorted(set(rep.b2))}")
+    b2_sides = {side: sum(c[1] == side for c in b2_calls) for side in ("left atlas", "right atlas")}
+    check(b2_sides == {"left atlas": N_FE, "right atlas": N_FE}, f"B2 by side {b2_sides}")
+    states = rep.states
+    print(f"phase 14 outcome: map initialized at frame {states.index('OK')}, IMU initialized at "
+          f"frame {rep.imu_init_frame} with {rep.imu_init_kfs} keyframes (JAX "
+          f"{JAX_FE_INIT_FRAME}, {JAX_FE_INIT_KFS}), VIBA1 at frame {rep.viba1} (JAX "
+          f"{JAX_FE_VIBA1_FRAME}), VIBA2 {rep.viba2}; {rep.n_kf} keyframes, {rep.n_mp} map "
+          f"points; SE3 ATE {rep.ate_se3:.6f} m, Sim3 ATE {rep.ate:.6f} m, scale "
+          f"{rep.scale:.5f}; states { {x: states.count(x) for x in sorted(set(states))} }")
+    check(states == ["OK"] * N_FE, f"phase 14: a frame not OK (single-frame init): {states}")
+    check(rep.imu_init_kfs is not None and abs(rep.imu_init_kfs - JAX_FE_INIT_KFS) <= 2,
+          f"phase 14: IMU initialized with {rep.imu_init_kfs} keyframes, JAX {JAX_FE_INIT_KFS}")
+    check(rep.viba1 is not None, "phase 14: VIBA1 did not run")
+    check(np.isfinite(rep.pos).all() and rep.pos.shape == (len(rep.ts), 3),
+          "phase 14: trajectory not finite or misshapen")
+    check(rep.ate_se3 <= FE_ATE_GATE, f"phase 14: SE3 ATE {rep.ate_se3} m above {FE_ATE_GATE} m")
+    check(abs(rep.scale - 1) <= FE_SCALE_TOL, f"phase 14: Sim3 scale {rep.scale}, tolerance "
+          f"{FE_SCALE_TOL}")
+    after = [k for k in range(rep.imu_init_frame + 1, N_FE) if states[k] == "OK"]
+    share = sum(rep.pi_taken[k] for k in after) / max(len(after), 1)
+    check(after and share >= 0.8, f"phase 14: pose-inertial result taken on {share:.4f} of "
+          f"{len(after)} tracked frames after the IMU initialization")
+    by_kind = _inertial_by_kind(rep)
+    for kind, want in (("tracked before IMU init", Tracker.HOST_SYNCS_PER_STEREO_FRAME),
+                       ("tracked after IMU init", Tracker.HOST_SYNCS_PER_STEREO_INERTIAL_FRAME)):
+        got = sorted(set(n for n, _ in by_kind.get(kind, [])))
+        check(got == [want], f"phase 14: host syncs per {kind} frame {got}, documented {want}")
+    med = statistics.median
+    print(f"phase 14 stereo-inertial fisheye rig: {N_FE} frames of the 512x512 KB8 pair, 1000 "
+          f"features, 200 Hz IMU; pose-inertial result taken on {share:.4f} of the {len(after)} "
+          f"tracked frames after the IMU initialization; SE3 ATE {rep.ate_se3:.6f} m (gate "
+          f"{FE_ATE_GATE:.6f} m: 2 x the JAX System's {JAX_FE_ATE_SE3} m, or 0.01), scale "
+          f"{rep.scale:.5f} (tolerance {FE_SCALE_TOL:.4f}); {N_FE / (sum(rep.ms) / 1e3):.2f} "
+          f"frames/s ({wall_s:.1f} s wall, {rep.render_s:.1f} s of rendering)")
+    print("phase 14 host syncs and ms per frame kind: " + "; ".join(
+        f"{kind} {len(v)} frames, syncs median {med([n for n, _ in v])} (max "
+        f"{max(n for n, _ in v)}), ms median {med([m for _, m in v]):.2f}"
+        for kind, v in sorted(by_kind.items())))
+    calls_ms = rep.inertial_ms
+    for name in ("fisheye match", "pose solve with right rows", "pose-inertial (last frame)",
+                 "pose-inertial (last keyframe)", "preintegration", "try_initialize",
+                 "full VI-BA", "local inertial BA"):
+        v = calls_ms.get(name, [])
+        check(v or name.startswith("pose-inertial"), f"phase 14: no span {name!r}")
+        if not v:
+            continue
+        dev_ms = [d for _, _, d in v]
+        print(f"phase 14 {name}: {len(v)} calls, device ms (CUDA events) median "
+              f"{med(dev_ms):.3f} max {max(dev_ms):.3f}, host ms median "
+              f"{med([h for _, h, _ in v]):.3f}")
+    check(len(calls_ms["fisheye match"]) == N_FE, "phase 14: a frame without the fisheye match")
+    print(f"phase 14 launches on the main path {launches}; per frame B2 {sorted(set(rep.b2))}, "
+          f"B1 median {med(rep.b1)} (max {max(rep.b1)}); B1 by call {sites}; B2 by atlas "
+          f"{b2_sides}")
+    line = _same_vi_prefix(dev, "stereo_vi_fisheye", N_FE, rep, rec_k, "phase 14")
+    print(f"phase 14 kernels vs plain prefix: {line}")
+    right = next(a for _, side, a in b2_calls if a is not None)
+    got = cuda_fast.fast_score_nms(right, 7.0, 20.0)
+    ref = feat.fast_score_nms_plain(right, 7.0, 20.0)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+          "B2 fisheye right atlas differs from plain")
+    print(f"phase 14 B2 right atlas {tuple(right.shape)} of frame 0: exact (tolerance 0) vs plain, "
+          f"{int((got[0] > 0).sum())} corners after NMS")
+    args = next(c[1] for c in calls if c[0] == "fisheye match")
+    return dict(rep=rep, launches=launches, sites=sites, args=args, right=right)
 
 
 def check(ok, what: str) -> None:
@@ -1592,6 +1750,53 @@ def main(argv=None) -> int:
     # --- Phase 13: the mono-inertial System --------------------------------
     p13 = phase13_mono_inertial(dev)
     walls["phase 13"] = time.perf_counter()
+    # --- Phase 14: config 4, the stereo-inertial fisheye rig ---------------
+    p14 = phase14_stereo_fisheye_inertial(dev)
+    right = p14["right"]
+    t = KB.time_b2(right, orb.min_th, orb.ini_th)
+    with _build.force_plain():
+        plain_ms = KB.call_us(lambda: cuda_fast.fast_score_nms(right, orb.min_th, orb.ini_th),
+                              iters=10) / 1e3
+    bd = KB.b2_bound(right)
+    b2_rows.append({"call": "fisheye right atlas (phase 14)", "shape": list(right.shape), **t,
+                    "plain_ms": plain_ms, "bound_us": bd["bound_us"], "bound_by": bd["bound_by"],
+                    "launches_per_rig_frame": 2,
+                    "launches_per_replay": p14["launches"]["fast_nms"]})
+    print(f"phase 14 B2 fisheye right atlas {tuple(right.shape)}: device {t['device_us']:.2f} us "
+          f"(graph of {KB.GRAPH_CALLS}), call {t['call_us']:.2f} us, profiler "
+          f"{t['profiler_us']} us, bound {bd['bound_us']:.2f} us ({bd['bound_by']}), plain "
+          f"{plain_ms:.4f} ms; 2 launches per rig frame (left and right), "
+          f"{p14['launches']['fast_nms']} in the replay [{card}]")
+    a = p14["args"]
+    got = cuda_match.hamming_top2(*a)
+    with _build.force_plain():
+        ref = cuda_match.hamming_top2(*a)
+    torch.cuda.synchronize()
+    for what, k_, p_ in zip(("d1", "d2", "j1"), got, ref):
+        check(torch.equal(k_, p_), f"B1 fisheye match (phase 14): {what} differs from plain")
+    err_b1 = max(err_b1, float((got[0] - ref[0]).abs().max()),
+                 float((got[1] - ref[1]).abs().max()))
+    t = KB.time_b1(a)
+    with _build.force_plain():
+        plain_ms = KB.call_us(lambda: cuda_match.hamming_top2(*a), iters=10) / 1e3
+    bd = KB.b1_bound(*a)
+    n14 = p14["sites"]["fisheye match"]
+    b1_rows.append({"call": "fisheye match", "shape": [a[0].shape[0], a[1].shape[0]],
+                    "windowed": a[3] is not None, **t, "plain_ms": plain_ms,
+                    "bound_us": bd["bound_us"], "bound_by": bd["bound_by"],
+                    "in_window_pairs": bd["pairs"], "launches_per_replay": n14,
+                    "replay": "phase 14", "launches_per_rig_frame": n14 / N_FE})
+    print(f"phase 14 B1 fisheye match {a[0].shape[0]}x{a[1].shape[0]} "
+          f"{'windowed' if a[3] is not None else 'unwindowed'}: exact vs plain; device "
+          f"{t['device_us']:.2f} us (graph of {KB.GRAPH_CALLS}), call {t['call_us']:.2f} us, "
+          f"profiler {t['profiler_us']} us, bound {bd['bound_us']:.3f} us ({bd['bound_by']}; "
+          f"{bd['bytes']} bytes, {bd['pairs']} pairs to popcount), plain {plain_ms:.4f} ms; {n14} "
+          f"launches in the phase-14 replay (2 per rig frame: forward and the cross-check) "
+          f"[{card}]")
+    for site in ("motion model", "local map", "fuse into a neighbour", "fuse into the keyframe",
+                 "cross-check"):
+        print(f"phase 14 B1 {site}: {p14['sites'][site]} launches in the phase-14 replay")
+    walls["phase 14"] = time.perf_counter()
 
     if opts.save_inputs:
         per_replay = {**per_site, **p10["sites"]}
@@ -1603,7 +1808,7 @@ def main(argv=None) -> int:
     for k in launches:
         launches[k] += sum(run[k] for run in (launches5, launches6, launches8, p10["launches"],
                                               p11["launches"], p12["rgbd"], p12["raw"],
-                                              p13["launches"]))
+                                              p13["launches"], p14["launches"]))
     lm = next(r for r in b1_rows if r["call"] == "local map")  # the kernel's headline call
     record = {"kernels": [
         {"name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",

@@ -24,7 +24,11 @@ depth) on a stream of frames rendered by `scripts/make_synth_euroc.py`
 (752x480, the synthetic room's circle), 1000 features on 8 levels, Kmax
 256, Pmax 16384, scored by the Sim3 and the SE3 ATE against the rendered
 camera centres; with a vocabulary, place recognition on, over a shortened
-lap and a kidnap (earlier images at later timestamps).
+lap and a kidnap (earlier images at later timestamps). The inertial sensors
+add the script's 200 Hz IMU stream: monocular-inertial (config 3),
+stereo-inertial on the rectified pair, and config 4, the stereo-inertial
+two-camera fisheye rig of `make_synth_euroc.py --fisheye` (512x512
+Kannala-Brandt 8 cameras 0.15 m apart in a smaller room).
 
 Scenes are built with numpy from a seed (`make_scene`, `make_mapping_scene`
 draw from the generator in the reference's order), so a test can hand the
@@ -34,6 +38,7 @@ same map to the JAX package and to the port.
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib.util
 import time
 import warnings
@@ -500,6 +505,21 @@ EUROC_STEREO = dict(EUROC_MONO, bf=458.0 * 0.11)
 EUROC_MONO_VI = dict(EUROC_MONO, imu=dict(noise_gyro=1.7e-4, noise_acc=2.0e-3,
                                           walk_gyro=1.9e-5, walk_acc=3.0e-3, freq=200.0),
                      Tbc=np.eye(4))
+# Config 2 with the IMU (stereo-inertial on the rectified pair).
+EUROC_STEREO_VI = dict(EUROC_STEREO, imu=EUROC_MONO_VI["imu"], Tbc=np.eye(4))
+# Config 4 (stereo-fisheye-inertial): the numbers of the script's
+# `FE_SETTINGS_YAML` — two KB8 cameras, Tlr = [I | (0.15, 0, 0)], lapping
+# areas the whole width, the IMU.* settings and Tbc = I, 1000 features on 8
+# levels (FAST 20 / 7).
+_FE_TLR = np.eye(4)
+_FE_TLR[0, 3] = 0.15
+EUROC_STEREO_VI_FISHEYE = dict(
+    camera=[190.97, 190.97, 254.93, 256.90, 0.0034823894, 0.00071503485, -0.0020532361,
+            0.00020293674],
+    camera2=([190.44, 190.44, 252.20, 254.00, 0.0034003171, 0.0017662782, -0.0026631257,
+              0.00032995174], _FE_TLR, (0.0, 511.0), (0.0, 511.0)),
+    img_wh=(512, 512), orb=feat.OrbParams(), Kmax=256, Pmax=16384, fps=20.0,
+    imu=EUROC_MONO_VI["imu"], Tbc=np.eye(4))
 _SYNTH = Path(__file__).resolve().parent.parent / "scripts" / "make_synth_euroc.py"
 
 
@@ -514,7 +534,8 @@ def synth_euroc():
 
 def euroc_frames(n_frames: int, seed: int = 0, t_loop: float | None = None,
                  kidnap: tuple[int, int] | None = None, stereo: bool = False,
-                 raw: bool = False, depth: bool = False, imu: bool = False):
+                 raw: bool = False, depth: bool = False, imu: bool = False,
+                 fisheye: bool = False):
     """(timestamps (n,), uint8 images, camera centres (n, 3)) of the synthetic
     sequence, rendered as the script's `main` renders them: t = k / 20 s,
     then sensor noise of 1.5 grey levels from the same generator as the
@@ -531,22 +552,35 @@ def euroc_frames(n_frames: int, seed: int = 0, t_loop: float | None = None,
     `imu_sample` plus the script's constant biases and white noise of
     density 2e-3 (acc) and 1.7e-4 (gyro) scaled by sqrt(200), drawn from the
     same generator after every image, as the script's `main` draws them.
+    `fisheye` renders the pair of `--fisheye` instead (n, 2, 512, 512): the
+    script's smaller room (`BOX_LO`/`BOX_HI`, `TRAJ_R`, `TRAJ_Z`, a 40 s
+    lap), each camera's Kannala-Brandt 8 ray grid (`kb8_dir_grid`, the
+    script's `FE_INTR_L` / `FE_INTR_R`), the right eye at R_wc (0.15, 0, 0)
+    from the left; the noise drawn left then right per frame.
 
     `t_loop` sets the script's lap length (`T_LOOP`, seconds; its default
     60 s when None). `kidnap` = (at, src): frame k >= at shows the scene of
     frame src + k - at, still at time k / 20 s (a camera carried back along
     its path, timestamps increasing), and its centre is that frame's."""
     M = synth_euroc()
+    R_raw, dirs, dirs_r, baseline = np.eye(3), None, None, M.BASELINE_M
+    if fisheye:  # the script's --fisheye room and rig
+        stereo = True
+        M.BOX_LO = np.array([-3.5, -3.5, 0.0])
+        M.BOX_HI = np.array([3.5, 3.5, 3.0])
+        M.TRAJ_R, M.TRAJ_Z, M.T_LOOP = 1.4, 1.3, 40.0
+        dirs = M.kb8_dir_grid((M.FE_W, M.FE_H), M.FE_INTR_L)
+        dirs_r = M.kb8_dir_grid((M.FE_W, M.FE_H), M.FE_INTR_R)
+        baseline = M.FE_BASELINE_M
     if t_loop is not None:
         M.T_LOOP = float(t_loop)
     rng = np.random.default_rng(seed)
     tex = M.make_textures(rng)
-    R_raw, dirs = np.eye(3), None
     if raw:
         stereo = True
         c, s = np.cos(np.radians(M.RAW_PITCH_DEG)), np.sin(np.radians(M.RAW_PITCH_DEG))
         R_raw = np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
-        dirs = M.radtan_dir_grid((M.W, M.H), (M.FX, M.FY, M.CX, M.CY), M.RAW_DIST)
+        dirs = dirs_r = M.radtan_dir_grid((M.W, M.H), (M.FX, M.FY, M.CX, M.CY), M.RAW_DIST)
 
     def noisy(img):
         return np.clip(img + rng.normal(0, 1.5, img.shape), 0, 255).astype(np.uint8)
@@ -559,8 +593,8 @@ def euroc_frames(n_frames: int, seed: int = 0, t_loop: float | None = None,
         R_render = R_wc @ R_raw if raw else R_wc
         img = noisy(M.render(tex, R_render, p, dirs=dirs))
         if stereo:
-            p_r = p + R_wc @ np.array([M.BASELINE_M, 0.0, 0.0])
-            img = np.stack([img, noisy(M.render(tex, R_render, p_r, dirs=dirs))])
+            p_r = p + R_wc @ np.array([baseline, 0.0, 0.0])
+            img = np.stack([img, noisy(M.render(tex, R_render, p_r, dirs=dirs_r))])
         imgs.append(img)
         if depth:
             depths.append(ray_depth(M, R_wc, p))
@@ -710,15 +744,28 @@ class ReplayResult(NamedTuple):
         return kinds
 
 
-SENSORS = ("mono", "stereo", "rgbd", "raw_stereo", "mono_vi")
+SENSORS = ("mono", "stereo", "rgbd", "raw_stereo", "mono_vi", "stereo_vi", "stereo_vi_fisheye")
+INERTIAL_SENSORS = ("mono_vi", "stereo_vi", "stereo_vi_fisheye")
 
 
-def vi_calib(device):
-    """`EUROC_MONO_VI`'s `ImuCalib` on `device`."""
+def vi_calib(device, cfg: dict = EUROC_MONO_VI):
+    """The `ImuCalib` of an inertial config (`EUROC_MONO_VI` by default) on
+    `device`."""
     from orbslam3_tpu_torch.ops.imu import ImuCalib
 
-    Tbc = EUROC_MONO_VI["Tbc"]
-    return ImuCalib.create(Tbc[:3, :3], Tbc[:3, 3], **EUROC_MONO_VI["imu"], device=device)
+    Tbc = cfg["Tbc"]
+    return ImuCalib.create(Tbc[:3, :3], Tbc[:3, 3], **cfg["imu"], device=device)
+
+
+@functools.lru_cache(maxsize=1)
+def _rendered(sensor: str, n_frames: int, seed: int, t_loop, kidnap):
+    """`euroc_frames` for a replay of `sensor`; the last sequence is kept, so
+    a replay of a prefix of the same sequence (`n_track`, the plain run
+    after the kernels' one) does not render it again."""
+    return euroc_frames(n_frames, seed, t_loop=t_loop, kidnap=kidnap,
+                        stereo=sensor in ("stereo", "stereo_vi"), raw=sensor == "raw_stereo",
+                        depth=sensor == "rgbd", imu=sensor in INERTIAL_SENSORS,
+                        fisheye=sensor == "stereo_vi_fisheye")
 
 
 def mono_replay(device, n_frames: int, **kw) -> ReplayResult:
@@ -740,7 +787,12 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
     3: `Sensor.IMU_MONOCULAR` with `EUROC_MONO_VI`'s calibration, each frame
     fed the 200 Hz samples with t at or before its time; the result then
     carries the frames of IMU initialization, VIBA1 and VIBA2, the frames
-    whose pose-inertial result was taken, and the ms of each inertial call).
+    whose pose-inertial result was taken, and the ms of each inertial call),
+    "stereo_vi" (`Sensor.IMU_STEREO` on the rectified pair, `EUROC_STEREO_VI`)
+    or "stereo_vi_fisheye" (config 4: `Sensor.IMU_STEREO` with
+    `CameraModel.KB8` and the two-camera rig of `EUROC_STEREO_VI_FISHEYE` on
+    the `--fisheye` pair). The inertial sensors also record the ms of the
+    rig's calls (the fisheye match, the pose solves).
     On a CUDA device every frame runs with PyTorch's sync debug mode at
     "warn", and the synchronisations each frame makes are counted.
 
@@ -761,32 +813,35 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
     if sensor not in SENSORS:
         raise ValueError(f"sensor {sensor!r} is not one of {SENSORS}")
     t0 = time.perf_counter()
-    inertial = sensor == "mono_vi"
-    frames = euroc_frames(n_frames, seed, t_loop=t_loop, kidnap=kidnap,
-                          stereo=sensor == "stereo", raw=sensor == "raw_stereo",
-                          depth=sensor == "rgbd", imu=inertial)
+    inertial = sensor in INERTIAL_SENSORS
+    fisheye = sensor == "stereo_vi_fisheye"
+    frames = _rendered(sensor, n_frames, seed, t_loop, kidnap)
     gt_ts, imgs, gt_pos = frames[:3]
     imu = imu_batches(gt_ts, frames[3]) if inertial else None
     render_s = time.perf_counter() - t0
     dev = torch.device(device)
     cuda = dev.type == "cuda"
-    cfg = {"mono": EUROC_MONO, "mono_vi": EUROC_MONO_VI}.get(sensor, EUROC_STEREO)
-    kind = {"mono": Sensor.MONOCULAR, "rgbd": Sensor.RGBD,
-            "mono_vi": Sensor.IMU_MONOCULAR}.get(sensor, Sensor.STEREO)
-    slam = System(kind, cam.CameraModel.PINHOLE, cfg["camera"], cfg["img_wh"], orb, device=dev,
-                  bf=cfg.get("bf", 0.0), Kmax=cfg["Kmax"], Pmax=cfg["Pmax"], fps=cfg["fps"],
-                  imu_calib=vi_calib(dev) if inertial else None)
+    cfg = {"mono": EUROC_MONO, "mono_vi": EUROC_MONO_VI, "stereo_vi": EUROC_STEREO_VI,
+           "stereo_vi_fisheye": EUROC_STEREO_VI_FISHEYE}.get(sensor, EUROC_STEREO)
+    kind = {"mono": Sensor.MONOCULAR, "rgbd": Sensor.RGBD, "mono_vi": Sensor.IMU_MONOCULAR,
+            "stereo_vi": Sensor.IMU_STEREO,
+            "stereo_vi_fisheye": Sensor.IMU_STEREO}.get(sensor, Sensor.STEREO)
+    slam = System(kind, cam.CameraModel.KB8 if fisheye else cam.CameraModel.PINHOLE,
+                  cfg["camera"], cfg["img_wh"], orb, device=dev, bf=cfg.get("bf", 0.0),
+                  camera2=cfg.get("camera2"), Kmax=cfg["Kmax"], Pmax=cfg["Pmax"],
+                  fps=cfg["fps"], imu_calib=vi_calib(dev, cfg) if inertial else None)
     if sensor == "raw_stereo":
         slam.enable_rectification(*raw_stereo_rig())
 
     def track(k, t):
         if sensor == "mono":
             return slam.track_monocular(imgs[k], t)
-        if inertial:
+        if sensor == "mono_vi":
             return slam.track_monocular(imgs[k], t, imu_measurements=imu[k])
         if sensor == "rgbd":
             return slam.track_rgbd(imgs[k], frames[3][k], t)
-        return slam.track_stereo(imgs[k, 0], imgs[k, 1], t)
+        return slam.track_stereo(imgs[k, 0], imgs[k, 1], t,
+                                 imu_measurements=imu[k] if inertial else None)
 
     loops = []
     if vocabulary is not None:

@@ -125,7 +125,15 @@ def _score_fundamental(F21, p1, p2, valid, th, th_score):
 def triangulate_linear(R, t, p1, p2):
     """DLT triangulation (`Triangulate`): cam1 = [I|0], cam2 = [R|t] in
     normalized coordinates. R (..., 3, 3), t (..., 3) batch over motions;
-    p1, p2 (N, 2) -> (..., N, 3) in the cam1 frame."""
+    p1, p2 (N, 2) -> (..., N, 3) in the cam1 frame.
+
+    The reference takes the right singular vector of A's smallest singular
+    value. That is the eigenvector of A^T A's smallest eigenvalue, found
+    here by three inverse iterations (`solve_ex` in float64, shifted by
+    1e-12 of the trace): each shrinks the other directions by the ratio of
+    the two smallest eigenvalues, so three give the SVD's vector wherever
+    the point is determined. On CUDA `torch.linalg.svd` reads its
+    convergence flags on the host; this reads nothing."""
     lead = R.shape[:-2]
     P1 = torch.cat([torch.eye(3, dtype=R.dtype, device=R.device),
                     torch.zeros(3, 1, dtype=R.dtype, device=R.device)], dim=1)
@@ -137,9 +145,15 @@ def triangulate_linear(R, t, p1, p2):
         return torch.stack([p[..., 0:1] * P[..., 2, :] - P[..., 0, :],
                             p[..., 1:2] * P[..., 2, :] - P[..., 1, :]], dim=-2)
 
-    A = torch.cat([rows(P1, p1), rows(P2, p2)], dim=-2)  # (..., N, 4, 4)
-    _, _, vt = torch.linalg.svd(A)
-    X = vt[..., -1, :]
+    A = torch.cat([rows(P1, p1), rows(P2, p2)], dim=-2).to(torch.float64)  # (..., N, 4, 4)
+    M = A.transpose(-1, -2) @ A
+    tr = M.diagonal(dim1=-2, dim2=-1).sum(-1)
+    M = M + (1e-12 * tr)[..., None, None] * torch.eye(4, dtype=M.dtype, device=M.device)
+    v = torch.full(A.shape[:-2] + (4, 1), 0.5, dtype=M.dtype, device=M.device)
+    for _ in range(3):
+        v = torch.linalg.solve_ex(M, v).result
+        v = v / torch.linalg.norm(v, dim=-2, keepdim=True)
+    X = v[..., 0].to(R.dtype)
     w = X[..., 3:4]
     return X[..., :3] / torch.where(torch.abs(w) < 1e-12, torch.full_like(w, 1e-12), w)
 

@@ -1,7 +1,8 @@
-"""Stereo correspondence on torch tensors — the port of the rectified and
-RGB-D parts of `orbslam3_tpu/ops/stereo.py` (`Frame::ComputeStereoMatches`,
-`Frame::ComputeStereoFromRGBD`). The two-camera fisheye match
-(`match_stereo_fisheye`) is ROADMAP A12.
+"""Stereo correspondence on torch tensors — the port of
+`orbslam3_tpu/ops/stereo.py`: the rectified scanline match
+(`Frame::ComputeStereoMatches`), RGB-D depth (`Frame::ComputeStereoFromRGBD`)
+and the two-camera fisheye match (`Frame::ComputeStereoFishEyeMatches`,
+`KannalaBrandt8::TriangulateMatches`).
 
 The scanline match is dense tensor code, as in the reference, where it is
 XLA and no Pallas kernel: its gates (a row tolerance set by the right
@@ -21,12 +22,13 @@ counts (it skips NaN and returns the lower middle value).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
+from orbslam3_tpu_torch.ops import cameras as cam
 from orbslam3_tpu_torch.ops import features as feat
-from orbslam3_tpu_torch.ops import matching
+from orbslam3_tpu_torch.ops import matching, ransac
 
 W_SHIFT = 5  # the SAD search covers +-5 px around the matched right keypoint
 HALF = 5  # 11x11 SAD window
@@ -133,3 +135,45 @@ def depth_to_ur(uv: torch.Tensor, valid: torch.Tensor, depth_map: torch.Tensor,
     minus1 = torch.full_like(d, -1.0)
     ur = torch.where(ok, uv[:, 0] - _div(bf, torch.clamp(d, min=1e-6)), minus1)
     return StereoMatches(ur=ur, depth=torch.where(ok, d, minus1), valid=ok)
+
+
+class FisheyeStereo(NamedTuple):
+    Xl: torch.Tensor  # (N,3) triangulated points in the left camera frame
+    depth: torch.Tensor  # (N,) z in the left frame; -1 = none
+    right_idx: torch.Tensor  # (N,) matched right feature; -1 = none
+    valid: torch.Tensor  # (N,) bool
+
+
+def match_stereo_fisheye(model: cam.CameraModel, params_l: torch.Tensor,
+                         params_r: torch.Tensor, fl: feat.Features, fr_: feat.Features,
+                         R_rl: torch.Tensor, t_rl: torch.Tensor, sigma2_table: torch.Tensor,
+                         lap_l: Tuple[float, float] = (0.0, 511.0),
+                         lap_r: Tuple[float, float] = (0.0, 511.0)) -> FisheyeStereo:
+    """The two-camera rig's match: the cross-checked Hamming match (ratio
+    0.8, kernel B1 twice, unwindowed) of the keypoints inside each camera's
+    lapping area (u in `lap_l` / `lap_r`), each match triangulated with the
+    right <- left extrinsics (R_rl, t_rl), then kept where both depths
+    exceed 0.05, both reprojection chi2 stay under 5.991, the rays' parallax
+    cosine is under 0.9998 and the point is finite. Nothing is read back."""
+    in_lap_l = (fl.uv[:, 0] >= lap_l[0]) & (fl.uv[:, 0] <= lap_l[1])
+    in_lap_r = (fr_.uv[:, 0] >= lap_r[0]) & (fr_.uv[:, 0] <= lap_r[1])
+    m = matching.match_nn(fl.desc, fr_.desc, fl.valid & in_lap_l, fr_.valid & in_lap_r,
+                          max_dist=matching.TH_LOW, ratio=0.8, cross_check=True)
+    idx = torch.clamp(m.idx, min=0).to(torch.int64)
+    uv_r = fr_.uv[idx]
+    rays_l = cam.unproject(model, params_l, fl.uv)  # z = 1
+    rays_r = cam.unproject(model, params_r, uv_r)
+    Xl = ransac.triangulate_linear(R_rl, t_rl, rays_l[:, :2], rays_r[:, :2])
+    Xr = Xl @ R_rl.T + t_rl
+    L = sigma2_table.shape[0]
+    s2l = sigma2_table[torch.clamp(fl.octave, 0, L - 1).to(torch.int64)]
+    s2r = sigma2_table[torch.clamp(fr_.octave[idx], 0, L - 1).to(torch.int64)]
+    e_l = torch.sum((cam.project(model, params_l, Xl) - fl.uv) ** 2, -1) / s2l
+    e_r = torch.sum((cam.project(model, params_r, Xr) - uv_r) ** 2, -1) / s2r
+    r_in_l = rays_r @ R_rl  # the right rays' directions in the left frame
+    cosp = torch.sum(rays_l * r_in_l, -1) / (
+        torch.linalg.norm(rays_l, dim=-1) * torch.linalg.norm(r_in_l, dim=-1) + 1e-12)
+    ok = (m.valid & (Xl[:, 2] > 0.05) & (Xr[:, 2] > 0.05) & (e_l < 5.991) & (e_r < 5.991)
+          & (cosp < 0.9998) & torch.isfinite(Xl).all(dim=-1))
+    return FisheyeStereo(Xl=Xl, depth=torch.where(ok, Xl[:, 2], torch.full_like(Xl[:, 2], -1.0)),
+                         right_idx=torch.where(ok, m.idx, -1), valid=ok)

@@ -1,15 +1,19 @@
 """Bundle adjustment on torch tensors — the dense-Schur path of
 `orbslam3_tpu/optim/ba.py` (`_solve_ba_dense`) on one device, with its
-residuals (`_linearize`, mono and stereo-`ur` rows), robust cost and
-closed-form 3x3 Cholesky. The matrix-free PCG path (with `lm.pcg`) waits
-for ROADMAP A15, where maps outgrow `auto_dense_schur`'s budget; the
-two-camera rig rows wait for A12 and the sharded layouts for A15.
+residuals (`_linearize`: mono and stereo-`ur` rows, and with `cam2` a
+two-camera rig's right-camera rows), robust cost and closed-form 3x3
+Cholesky. The matrix-free PCG path (with `lm.pcg`) and the sharded layouts
+wait for ROADMAP A15, where maps outgrow `auto_dense_schur`'s budget.
 
 The problem is a fixed-shape batch: cameras (C), points (P), observations
 (O) with validity masks. Per LM iteration the reduced camera system
 S = Hcc - W Hpp^-1 W^T over the first `n_opt` cameras is built explicitly
 and solved by one dense Cholesky; a rejected step re-damps the stored
 linearization.
+
+Sums over observations go through `point_sum` and `CameraSums`: on the
+CPU `index_add_` in row order (the reference's `segment_sum`), on CUDA a
+fixed order, so a solve repeats bit for bit from run to run.
 
 Host synchronisation: none. The reference's `while_loop` with early stop
 runs here as `iters` iterations of the same body; once the stop condition
@@ -41,6 +45,9 @@ class BAProblem(NamedTuple):
     obs_ur: torch.Tensor  # (O,) right-u; <0 => mono
     obs_sigma2: torch.Tensor  # (O,)
     obs_valid: torch.Tensor  # (O,) bool
+    # Two-camera rigs: rows flagged here project through Trl * Tcw into the
+    # right camera (`EdgeSE3ProjectXYZToBody`); None = every row is left.
+    obs_right: Optional[torch.Tensor] = None  # (O,) bool
 
 
 class BAResult(NamedTuple):
@@ -51,8 +58,14 @@ class BAResult(NamedTuple):
     cost: torch.Tensor
 
 
-def _linearize(model, params, bf, cam_R, cam_t, points, prob: BAProblem, active):
+def _linearize(model, params, bf, cam_R, cam_t, points, prob: BAProblem, active,
+               cam2=None):
     """Whitened residuals and Jacobians for every observation.
+
+    `cam2 = (params2, R_rl, t_rl)`: the rows flagged in `prob.obs_right`
+    project through the rig's extrinsics into the second camera; the chain
+    rule puts R_rl between the projection's Jacobian and the pose and point
+    blocks, and such a row has no stereo column.
 
     Returns e_w (O,3), Jc_w (O,3,6), Jp_w (O,3,3), chi2 (O,), ok (O,),
     is_stereo (O,).
@@ -69,10 +82,21 @@ def _linearize(model, params, bf, cam_R, cam_t, points, prob: BAProblem, active)
     op = prob.obs_point.to(torch.int64)
     Rc = cam_R[oc]
     Xc = lie.se3_apply(Rc, cam_t[oc], points[op])
-    z = Xc[..., 2]
-    uv_hat = cam.project(model, params, Xc)
-    Jproj = cam.project_jac(model, params, Xc)  # (O,2,3)
-    is_stereo = prob.obs_ur >= 0.0
+    if cam2 is not None and prob.obs_right is not None:
+        params2, R_rl, t_rl = cam2
+        is_r = prob.obs_right
+        Xc2 = Xc @ R_rl.T + t_rl
+        z = torch.where(is_r, Xc2[..., 2], Xc[..., 2])
+        uv_hat = torch.where(is_r[:, None], cam.project(model, params2, Xc2),
+                             cam.project(model, params, Xc))
+        Jproj = torch.where(is_r[:, None, None], cam.project_jac(model, params2, Xc2) @ R_rl,
+                            cam.project_jac(model, params, Xc))
+        is_stereo = (prob.obs_ur >= 0.0) & ~is_r
+    else:
+        z = Xc[..., 2]
+        uv_hat = cam.project(model, params, Xc)
+        Jproj = cam.project_jac(model, params, Xc)  # (O,2,3)
+        is_stereo = prob.obs_ur >= 0.0
     inv_z = 1.0 / torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
     ur_hat = uv_hat[..., 0] - bf * inv_z
     e = torch.cat([uv_hat - prob.obs_uv,
@@ -152,6 +176,33 @@ def point_slots(vals: torch.Tensor, op: torch.Tensor, oc: torch.Tensor, P: int,
     return segment_sum(vals, op * C + oc, P * C).reshape((P, C) + vals.shape[1:])
 
 
+class CameraSums:
+    """Per-camera sums of observation rows in a fixed order, set up once per
+    solve (the rows' cameras `oc` do not change within it). Camera-major
+    rows with `obs_per_cam` each: one reduction over that axis. Else on the
+    CPU `index_add_` in row order (the reference's `segment_sum`); on CUDA
+    (where `index_add_` adds rows that share a target in no fixed order) the
+    one-hot product `onehot(oc)^T @ vals`, the reference's own form of this
+    sum, which cuBLAS computes the same way every run. The (O, C) one-hot
+    matrix is built here, once."""
+
+    def __init__(self, oc: torch.Tensor, C: int, obs_per_cam: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        self.oc, self.C = oc, C
+        self.obs_per_cam = None if obs_per_cam is None else int(obs_per_cam)
+        self.onehot = None
+        if self.obs_per_cam is None and oc.device.type != "cpu":
+            self.onehot = (oc[:, None] == torch.arange(C, device=oc.device)[None, :]).to(dtype)
+
+    def __call__(self, vals: torch.Tensor) -> torch.Tensor:
+        C = self.C
+        if self.obs_per_cam is not None:
+            return vals.reshape((C, self.obs_per_cam) + vals.shape[1:]).sum(1)
+        if self.onehot is None:
+            return segment_sum(vals, self.oc, C)
+        return (self.onehot.T @ vals.reshape(vals.shape[0], -1)).reshape((C,) + vals.shape[1:])
+
+
 def point_sum(vals: torch.Tensor, op: torch.Tensor, oc: torch.Tensor, P: int,
               C: int) -> torch.Tensor:
     """Per-point sums of observation rows in a fixed order. On the CPU
@@ -179,7 +230,8 @@ class _Lin(NamedTuple):
 
 
 def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
-                    n_opt_prefix=None, obs_per_cam=None, early_stop_tol=None) -> BAResult:
+                    n_opt_prefix=None, obs_per_cam=None, early_stop_tol=None,
+                    cam2=None) -> BAResult:
     """Explicit-reduced-camera-system LM with deferred accept: each
     iteration linearizes the candidate once, and its cost decides whether the
     previous step is kept. `n_opt_prefix`: the optimizable cameras are the
@@ -187,7 +239,8 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
     camera-major with this many per camera (Hcc, bc by one batched matmul,
     in a fixed order as the point sums are, `point_sum`).
     `early_stop_tol`: stop after an accepted step that lowers the cost by a
-    relative amount below it."""
+    relative amount below it. `cam2`: the rig's right-camera rows
+    (`_linearize`)."""
     C = prob.cam_R.shape[0]
     P = prob.points.shape[0]
     O = prob.obs_cam.shape[0]
@@ -210,6 +263,7 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
     inv_idx = torch.full((P * n_opt + 1,), O, dtype=torch.int64, device=dev)
     inv_idx[pk_safe] = torch.arange(O, dtype=torch.int64, device=dev)
     inv_idx = inv_idx[: P * n_opt]
+    cam_sum = CameraSums(oc, C, obs_per_cam, dtype)
 
     def cam_reduce(Jc_w, e_w):
         """(Hcc (C,6,6), bc (C,6))."""
@@ -217,13 +271,13 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
             A = torch.cat([Jc_w, e_w[:, :, None]], dim=-1).reshape(C, int(obs_per_cam) * 3, 7)
             H7 = A.transpose(1, 2) @ A  # (C,7,7)
             return H7[:, :6, :6], -H7[:, :6, 6]
-        Hcc = segment_sum(Jc_w.transpose(1, 2) @ Jc_w, oc, C)
-        bc = -segment_sum(torch.einsum("oij,oi->oj", Jc_w, e_w), oc, C)
-        return Hcc, bc
+        Hb = cam_sum(torch.cat([(Jc_w.transpose(1, 2) @ Jc_w).reshape(O, 36),
+                                torch.einsum("oij,oi->oj", Jc_w, e_w)], dim=-1))
+        return Hb[:, :36].reshape(C, 6, 6), -Hb[:, 36:]
 
     def linearize_pack(cam_R, cam_t, points) -> _Lin:
         e_w, Jc_w, Jp_w, chi2, ok, is_st = _linearize(
-            model, params, bf, cam_R, cam_t, points, prob, active)
+            model, params, bf, cam_R, cam_t, points, prob, active, cam2=cam2)
         cost = _robust_cost(chi2, ok, is_st, n_struct=n_struct)
         inlier = ok & (chi2 <= torch.where(is_st, lm.CHI2_STEREO, lm.CHI2_MONO))
         Hcc, bc = cam_reduce(Jc_w, e_w)
@@ -245,11 +299,7 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
         S_cross = (Bm.T @ Bm).reshape(n_opt, 6, n_opt, 6)
         y0 = torch.einsum("pij,pj->pi", Hpp_inv, bp)
         v = torch.einsum("oij,oj->oi", Jp_w, y0[op])  # b_red = bc - W^T y0, per obs
-        wv = torch.einsum("oij,oi->oj", Jc_w, v)
-        if obs_per_cam is not None:
-            wy = wv.reshape(C, int(obs_per_cam), 6).sum(dim=1)
-        else:
-            wy = segment_sum(wv, oc, C)
+        wy = cam_sum(torch.einsum("oij,oi->oj", Jc_w, v))
         S_und = _block_diag(Hcc[:n_opt]) - S_cross
         return _Lin(S_und, (bc - wy)[:n_opt], Hcc[:n_opt], bp, Hpp_inv, Jc_w, Jp_w,
                     inlier, cost)
@@ -327,12 +377,14 @@ def auto_dense_schur(C: int, P: int, hbm_budget_bytes: int = 4 << 30) -> bool:
 def solve_ba(model: cam.CameraModel, params: torch.Tensor, prob: BAProblem, bf: float = 0.0,
              iters: int = 10, point_damping: float = 1e-6, dense_schur: bool = False,
              n_opt_prefix: Optional[int] = None, obs_per_cam: Optional[int] = None,
-             early_stop_tol: Optional[float] = None) -> BAResult:
-    """LM bundle adjustment. Only the dense-Schur path is ported."""
+             early_stop_tol: Optional[float] = None, cam2=None) -> BAResult:
+    """LM bundle adjustment. Only the dense-Schur path is ported. `cam2 =
+    (params2, R_rl, t_rl)`: a two-camera rig's extrinsics for the rows
+    flagged in `prob.obs_right`."""
     if not dense_schur:
         raise NotImplementedError(
             "the matrix-free PCG path of solve_ba (maps beyond auto_dense_schur's budget) is "
             "ROADMAP A15")
     return _solve_ba_dense(model, params, prob, bf, iters, point_damping,
                            n_opt_prefix=n_opt_prefix, obs_per_cam=obs_per_cam,
-                           early_stop_tol=early_stop_tol)
+                           early_stop_tol=early_stop_tol, cam2=cam2)

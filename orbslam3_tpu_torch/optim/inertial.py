@@ -36,7 +36,7 @@ from orbslam3_tpu_torch.ops import cameras as cam
 from orbslam3_tpu_torch.ops import imu as imu_ops
 from orbslam3_tpu_torch.ops import lie
 from orbslam3_tpu_torch.optim import lm
-from orbslam3_tpu_torch.optim.ba import point_slots, point_sum, segment_sum
+from orbslam3_tpu_torch.optim.ba import CameraSums, point_slots, point_sum
 
 STATE_DIM = 15  # [theta(3), p(3), v(3), bg(3), ba(3)]
 
@@ -426,9 +426,10 @@ def solve_vi_ba(model: cam.CameraModel, params: torch.Tensor, prob: VIProblem, i
 
     Sums run in a fixed order, so that a solve on the card repeats exactly
     (CUDA's `index_add_` adds in no fixed order): a point's sums go through
-    its (point, keyframe) slots (`ba.point_sum`, as the visual BA's); with `obs_per_cam` (observations laid out keyframe by
-    keyframe, that many each, as the mapper lays them out) a keyframe's
-    sums are a reduction over its block."""
+    its (point, keyframe) slots (`ba.point_sum`, as the visual BA's), a
+    keyframe's through `ba.CameraSums` (with `obs_per_cam`, observations laid
+    out keyframe by keyframe, that many each, as the mapper lays them out, a
+    reduction over its block)."""
     if not dense_solve:
         raise NotImplementedError("the PCG path of solve_vi_ba is ROADMAP A15")
     if axis_name is not None:
@@ -453,10 +454,7 @@ def solve_vi_ba(model: cam.CameraModel, params: torch.Tensor, prob: VIProblem, i
     def pt_sum(vals):
         return point_sum(vals, obs_point, obs_cam, P, K)
 
-    def cam_sum(vals):
-        if obs_per_cam is None:
-            return segment_sum(vals, obs_cam, K)
-        return vals.reshape((K, obs_per_cam) + vals.shape[1:]).sum(1)
+    cam_sum = CameraSums(obs_cam, K, obs_per_cam, ref.dtype)
 
     def gn_step(state_tuple, lamb):
         state, points = state_tuple
@@ -470,9 +468,13 @@ def solve_vi_ba(model: cam.CameraModel, params: torch.Tensor, prob: VIProblem, i
         w = torch.where(ok, inv_s2 * lm.huber_weight(chi2, huber_mono), 0.0)
         free = (~kf_fixed[obs_cam]).to(ref.dtype)
         sw = torch.sqrt(w)
-        Jx_w = Jx * (sw * free)[:, None, None]  # (O,2,6)
-        Jp_w = Jp * sw[:, None, None]  # (O,2,3)
-        e_w = r_v * sw[:, None]
+        # Rows outside `ok` are zeroed, not only weighted (fault C14: the
+        # Kannala-Brandt 8 Jacobian is NaN at the camera centre, where an
+        # unobserved row's slot-0 point can sit, and 0 * NaN is NaN).
+        okr = ok[:, None, None]
+        Jx_w = torch.where(okr, Jx * (sw * free)[:, None, None], 0.0)  # (O,2,6)
+        Jp_w = torch.where(okr, Jp * sw[:, None, None], 0.0)  # (O,2,3)
+        e_w = torch.where(ok[:, None], r_v * sw[:, None], 0.0)
         Hpp = pt_sum(torch.einsum("oij,oik->ojk", Jp_w, Jp_w))
         bp = -pt_sum(torch.einsum("oij,oi->oj", Jp_w, e_w))
         Hcc_vis = cam_sum(torch.einsum("oij,oik->ojk", Jx_w, Jx_w))

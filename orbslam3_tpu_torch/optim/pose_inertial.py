@@ -158,8 +158,11 @@ def _solve(model, params, bf, obs, Rbc, tbc, state, n_state: int, vis_of, small_
             c2 = torch.sum(e * e, -1) / obs.sigma2
             delta2 = torch.where(is_stereo, lm.CHI2_STEREO, lm.CHI2_MONO)
             w_rob_sqrt = torch.sqrt(lm.huber_weight(c2, delta2))
-        w = torch.where(ok & active, inv_sig * w_rob_sqrt, 0.0)
-        return e * w[:, None], (None if J6 is None else J6 * w[:, None, None]), w_rob_sqrt
+        use = ok & active
+        w = torch.where(use, inv_sig * w_rob_sqrt, 0.0)
+        if J6 is not None:  # rows outside the set zeroed, not only weighted (fault C14)
+            J6 = torch.where(use[:, None, None], J6 * w[:, None, None], 0.0)
+        return e * w[:, None], J6, w_rob_sqrt
 
     def linearize(st, active):
         e_w, J6, w_rob_sqrt = visual(st, active)

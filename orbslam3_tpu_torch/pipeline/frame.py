@@ -21,7 +21,10 @@ from orbslam3_tpu_torch.ops import lie
 class FrameData:
     """One processed frame: its features stay on the device; the pose, the
     associations and a stereo or RGB-D frame's `ur` and `depth` are host
-    numpy, as the control logic reads them."""
+    numpy, as the control logic reads them. A two-camera rig's frame also
+    carries, per left keypoint, the pixel and the octave variance of its
+    right-image match and whether it has one: device tensors, read only by
+    the pose solves' right-camera rows."""
 
     features: feat.Features
     timestamp: float
@@ -31,6 +34,9 @@ class FrameData:
     mp_assoc: np.ndarray  # (Nf,) int32 map-point id per feature (-1 none)
     ur: Optional[np.ndarray] = None  # (Nf,) stereo right-u (-1 none); stereo and RGB-D
     depth: Optional[np.ndarray] = None  # (Nf,) stereo or RGB-D depth (-1 none)
+    uv_r: Optional[torch.Tensor] = None  # (Nf,2) the right match's pixel (two-camera rig)
+    sig2_r: Optional[torch.Tensor] = None  # (Nf,) its octave's variance
+    has_r: Optional[torch.Tensor] = None  # (Nf,) bool: a right match exists
 
     @property
     def n_features(self) -> int:

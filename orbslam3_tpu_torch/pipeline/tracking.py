@@ -1,6 +1,7 @@
-"""Per-frame tracking on torch tensors — the port of the visual path of
-`orbslam3_tpu/pipeline/tracking.py` for monocular, rectified stereo and
-RGB-D pinhole cameras: the device programs of one tracked frame
+"""Per-frame tracking on torch tensors — the port of
+`orbslam3_tpu/pipeline/tracking.py` for monocular, rectified stereo, RGB-D
+and two-camera fisheye rigs, pinhole or Kannala-Brandt 8, with or without
+an IMU: the device programs of one tracked frame
 (`_track_last_frame` (motion model), `_track_reference_kf` (fallback),
 `_local_point_mask`, `_track_local_map_match`, `_pose_opt_from_assoc`,
 `compute_obs_count` and `_track_step`, which chains them), the
@@ -11,7 +12,9 @@ state machine `Tracker` (two-view or single-frame stereo initialization,
 tracking, relocalization, the keyframe policy, keyframe insertion with the
 stereo depth points; for a monocular-inertial sensor the IMU queue, the
 per-gap preintegration, the IMU prediction, the pose-inertial refinement,
-IMU dead-reckoning while recently lost and the inertial keyframe rows).
+IMU dead-reckoning while recently lost and the inertial keyframe rows; for
+a two-camera rig the lapping-area match and the right-camera rows of the
+pose solves).
 
 Scatters with duplicate indices (fault C6). The reference writes
 ``assoc.at[clip(idx, 0)].set(where(valid, q, assoc[clip(idx, 0)]))``: every
@@ -169,10 +172,19 @@ def _pose_obs(assoc, f_cur: feat.Features, mp_pos, mp_valid, sigma2_table, ur=No
 
 
 def _pose_opt_from_assoc(model, params, R0, t0, assoc, f_cur: feat.Features, mp_pos,
-                         mp_valid, sigma2_table, ur=None, bf: float = 0.0):
-    """Pose-only solve over the features associated to valid map points."""
+                         mp_valid, sigma2_table, ur=None, bf: float = 0.0, rig=None):
+    """Pose-only solve over the features associated to valid map points.
+    `rig` = (params_r, R_rl, t_rl, uv_r, sig2_r, has_r): a two-camera rig's
+    frame adds a right-camera row for each of them with a right match."""
     obs = _pose_obs(assoc, f_cur, mp_pos, mp_valid, sigma2_table, ur)
-    return pose_only.optimize_pose(model, params, R0, t0, obs, bf=bf)
+    if rig is None:
+        return pose_only.optimize_pose(model, params, R0, t0, obs, bf=bf)
+    params_r, R_rl, t_rl, uv_r, sig2_r, has_r = rig
+    obs_r = pose_only.PoseObs(Xw=obs.Xw, uv=uv_r, ur=torch.full_like(obs.ur, -1.0),
+                              sigma2=sig2_r, valid=obs.valid & has_r)
+    with spans.span("pose solve with right rows"):
+        return pose_only.optimize_pose(model, params, R0, t0, obs, bf=bf, obs_r=obs_r,
+                                       params_r=params_r, R_rl=R_rl, t_rl=t_rl)
 
 
 def _pose_inertial_from_assoc(model, params, assoc, f_cur: feat.Features, mp_pos, mp_valid,
@@ -220,7 +232,7 @@ def _top_k_lowest_index(x: torch.Tensor, k: int):
 def _track_step(model, params, state: st.MapState, f_cur: feat.Features,
                 R_pred, t_pred, have_pred, last_mp, last_octave, ref_kf, R_last, t_last,
                 scale_table, sigma2_table, img_wh, min_obs, ur=None, bf: float = 0.0,
-                n_levels: int = 8, obs_count=None):
+                n_levels: int = 8, obs_count=None, rig=None):
     """The two-stage visual tracking of one frame: motion-model match + pose
     solve, reference-KF fallback, device-side local-keyframe top-16,
     local-map match + final pose solve, found/visible bookkeeping.
@@ -232,7 +244,9 @@ def _track_step(model, params, state: st.MapState, f_cur: feat.Features,
     the caller's single fetch of the returned bundle (`fetch_bundle`).
 
     `have_pred`, `ref_kf` and `min_obs` are 0-d device tensors; `obs_count`
-    is the caller's cached `compute_obs_count(state)`.
+    is the caller's cached `compute_obs_count(state)`; `rig` adds a
+    two-camera rig's right rows to the three pose solves
+    (`_pose_opt_from_assoc`).
     Returns (bundle dict of device tensors, (mp_found, mp_visible))."""
     dev = f_cur.uv.device
     Nf = f_cur.uv.shape[0]
@@ -244,7 +258,8 @@ def _track_step(model, params, state: st.MapState, f_cur: feat.Features,
         state.mp_desc, f_cur, 15.0, scale_table, last_octave,
     )
     res_a = _pose_opt_from_assoc(model, params, R_pred, t_pred, assoc_a, f_cur,
-                                 state.mp_pos, state.mp_valid, sigma2_table, ur=ur_arr, bf=bf)
+                                 state.mp_pos, state.mp_valid, sigma2_table, ur=ur_arr, bf=bf,
+                                 rig=rig)
     ok_a = have_pred & (n_a >= 20) & (res_a.n_inliers >= 10)
 
     # --- Stage 1b: reference keyframe fallback (host sync #1) ------------
@@ -262,7 +277,7 @@ def _track_step(model, params, state: st.MapState, f_cur: feat.Features,
         )
         res_b = _pose_opt_from_assoc(model, params, R_last, t_last, assoc_b, f_cur,
                                      state.mp_pos, state.mp_valid, sigma2_table,
-                                     ur=ur_arr, bf=bf)
+                                     ur=ur_arr, bf=bf, rig=rig)
         ok_b = (ref_kf >= 0) & (n_b >= 15) & (res_b.n_inliers >= 10)
         R_b, t_b, inl_b = res_b.R, res_b.t, res_b.inlier
 
@@ -290,7 +305,7 @@ def _track_step(model, params, state: st.MapState, f_cur: feat.Features,
     assoc2, visible = _track_local_map_match(model, params, R1, t1, state, local_mask, f_cur,
                                              assoc1, img_wh, n_levels=n_levels)
     res2 = _pose_opt_from_assoc(model, params, R1, t1, assoc2, f_cur, state.mp_pos,
-                                state.mp_valid, sigma2_table, ur=ur_arr, bf=bf)
+                                state.mp_valid, sigma2_table, ur=ur_arr, bf=bf, rig=rig)
     assoc_final = torch.where(res2.inlier, assoc2, torch.full_like(assoc2, -1))
 
     # --- found/visible stats (stay on device) ---------------------------
@@ -341,19 +356,22 @@ def fetch_bundle(bundle: dict) -> dict:
 
 
 class Tracker:
-    """Host-side loop of the tracking state machine, visual only
-    (`Tracking::Track`): NO_IMAGES_YET -> NOT_INITIALIZED -> OK <->
-    RECENTLY_LOST -> LOST, for a monocular (`process_frame`), rectified
-    stereo (`process_stereo_frame`) or RGB-D (`process_rgbd_frame`) pinhole
-    camera. A stereo or RGB-D frame carries each keypoint's right-image u
-    and depth: it initializes the map on its own, adds the (u, v, u_right)
-    rows to the pose solves, and seeds depth points at each keyframe. With
-    `imu_calib` the tracker is monocular-inertial: `grab_imu` queues the
-    samples, each frame gap is preintegrated and merged since the last
-    keyframe, keyframes come at 4 Hz until the mapper initializes the IMU
-    (`imu_ready`), and after it each frame is predicted from the IMU and
-    refined by the pose-inertial solve (`Tracking::TrackLocalMap`). The
-    two-camera fisheye rig (A12) is not ported: its entry point raises.
+    """Host-side loop of the tracking state machine (`Tracking::Track`):
+    NO_IMAGES_YET -> NOT_INITIALIZED -> OK <-> RECENTLY_LOST -> LOST, for a
+    monocular (`process_frame`), rectified stereo (`process_stereo_frame`),
+    RGB-D (`process_rgbd_frame`) or two-camera rig
+    (`process_stereo_fisheye_frame`, with `camera2`) pinhole or
+    Kannala-Brandt 8 camera. A stereo or RGB-D frame carries each keypoint's
+    right-image u and depth: it initializes the map on its own, adds the
+    (u, v, u_right) rows to the pose solves, and seeds depth points at each
+    keyframe. A rig's frame carries each keypoint's triangulated depth
+    (its u_right is -1: no rectified row) and, on the device, its right
+    match, which adds a right-camera row to the three pose solves of
+    `_track_step`. With `imu_calib` the tracker is inertial: `grab_imu`
+    queues the samples, each frame gap is preintegrated and merged since
+    the last keyframe, keyframes come at 4 Hz until the mapper initializes
+    the IMU (`imu_ready`), and after it each frame is predicted from the IMU
+    and refined by the pose-inertial solve (`Tracking::TrackLocalMap`).
     Relocalization needs a keyframe database (place recognition,
     `System.enable_place_recognition`); without one it fails, as the
     reference's does.
@@ -362,25 +380,30 @@ class Tracker:
     keyframe makes `HOST_SYNCS_PER_FRAME` = 2, both inside `_track_step`:
     the read of the motion model's success and the one fetch of the
     decision bundle. A stereo or RGB-D frame adds one, the fetch of its
-    stacked `ur` and depth (`HOST_SYNCS_PER_STEREO_FRAME` = 3). The frame's
-    inputs go up through pinned memory without a sync (`convert.tensor`);
-    the reference keyframe's pose for the trajectory log rides in the
-    bundle; extraction is not waited for. Initialization and keyframe
+    stacked `ur` and depth (`HOST_SYNCS_PER_STEREO_FRAME` = 3); so does a
+    rig's frame, the fetch of its depth (the right rows stay on the
+    device). The frame's inputs go up through pinned memory without a sync
+    (`convert.tensor`); the reference keyframe's pose for the trajectory log
+    rides in the bundle; extraction is not waited for. Initialization and keyframe
     frames read more (the two-view result, the depth points, the mapping
     pass). A monocular-inertial frame makes the monocular 2 before the IMU
     is initialized (its preintegration goes up without a sync), and
     `HOST_SYNCS_PER_INERTIAL_FRAME` = 4 after it: the 2, the one fetch of
     the IMU prediction (the pose the motion-model stage projects with), and
     the one fetch of the pose-inertial result, as the reference reads them
-    (`tracking.py:1172-1177, 1298`)."""
+    (`tracking.py:1172-1177, 1298`); a stereo-inertial frame (a rectified
+    pair or a rig) makes the stereo 3 before the initialization and
+    `HOST_SYNCS_PER_STEREO_INERTIAL_FRAME` = 3 + 2 after it."""
 
     HOST_SYNCS_PER_FRAME = 2
     HOST_SYNCS_PER_STEREO_FRAME = 3
     HOST_SYNCS_PER_INERTIAL_FRAME = 4
+    HOST_SYNCS_PER_STEREO_INERTIAL_FRAME = 5
 
     def __init__(self, model: cam.CameraModel, params: torch.Tensor, img_wh: Tuple[int, int],
                  store: st.MapStore, orb_params: feat.OrbParams = feat.OrbParams(),
-                 bf: float = 0.0, fps: float = 20.0, imu_calib: imu_ops.ImuCalib | None = None):
+                 bf: float = 0.0, fps: float = 20.0, imu_calib: imu_ops.ImuCalib | None = None,
+                 camera2=None):
         self.model = model
         self.params = params
         self.device = params.device
@@ -389,6 +412,22 @@ class Tracker:
         self.th_depth = 35.0  # ref ThDepth: close points lie under th_depth baselines
         self.is_stereo_like = False  # stereo or RGB-D (set by System)
         self.img_wh_t = convert.tensor(np.asarray(img_wh, np.float32), self.device)
+        # A two-camera rig (`Frame.cc:1187`): camera2 = (params2, Tlr (4x4,
+        # the right camera in the left frame), lap1, lap2); each lapping area
+        # is a (u_lo, u_hi) range, the whole width when empty.
+        self.camera2 = None
+        if camera2 is not None:
+            params2, Tlr, lap1, lap2 = camera2
+            Tlr = np.asarray(Tlr, np.float64)
+            R_rl = Tlr[:3, :3].T
+            W = float(img_wh[0])
+            self.camera2 = dict(
+                params=convert.tensor(np.asarray(params2, np.float32), self.device),
+                R_rl=convert.tensor(R_rl.astype(np.float32), self.device),
+                t_rl=convert.tensor((-R_rl @ Tlr[:3, 3]).astype(np.float32), self.device),
+                lap1=tuple(lap1) if lap1 else (0.0, W - 1.0),
+                lap2=tuple(lap2) if lap2 else (0.0, W - 1.0),
+                baseline=float(np.linalg.norm(Tlr[:3, 3])))
         self.store = store
         self.orb = orb_params
         self.state = TrackState.NO_IMAGES_YET
@@ -577,10 +616,6 @@ class Tracker:
             out.append((ts, Rwc, -Rwc @ t_cw))
         return out
 
-    # -- entries that wait for their slices -----------------------------
-    def process_stereo_fisheye_frame(self, img_left, img_right, timestamp):
-        raise NotImplementedError("the two-camera fisheye rig is ROADMAP A12")
-
     def grab_imu(self, t: float, acc, gyro):
         """`Tracking::GrabImuData`: queue one sample (host)."""
         self.imu_queue.push(t, acc, gyro)
@@ -612,9 +647,38 @@ class Tracker:
         ur, depth = torch.stack([sm.ur, sm.depth]).cpu().numpy()
         return self._process_with_features(f, timestamp, ur=ur, depth=depth)
 
+    def process_stereo_fisheye_frame(self, img_left, img_right,
+                                     timestamp: float) -> fr.FrameData:
+        """A two-camera rig's frame (`Frame.cc:1187`,
+        `ComputeStereoFishEyeMatches`): features of both images (kernel B2
+        on each atlas), the lapping-area match and its triangulation
+        (`stereo.match_stereo_fisheye`, kernel B1 twice), each left
+        keypoint's depth fetched once; its right match's pixel, octave
+        variance and existence stay on the device for the right-camera rows.
+        `ur` is -1 everywhere (no rectified row), as the reference's."""
+        c2 = self.camera2
+        if c2 is None:
+            raise ValueError("a two-camera rig's frame needs a Tracker built with camera2")
+        f = self._extract(img_left)
+        f_r = self._extract(img_right)
+        with spans.span("fisheye match"):
+            fs = stereo.match_stereo_fisheye(self.model, self.params, c2["params"], f, f_r,
+                                             c2["R_rl"], c2["t_rl"], self.sigma2_table,
+                                             lap_l=c2["lap1"], lap_r=c2["lap2"])
+        ridx = torch.clamp(fs.right_idx, min=0).to(torch.int64)
+        L = self.sigma2_table.shape[0]
+        sig2_r = self.sigma2_table[torch.clamp(f_r.octave[ridx], 0, L - 1).to(torch.int64)]
+        depth = fs.depth.cpu().numpy()  # the frame's one read of the match
+        return self._process_with_features(
+            f, timestamp, ur=np.full(f.n, -1.0, np.float32), depth=depth, uv_r=f_r.uv[ridx],
+            sig2_r=sig2_r, has_r=fs.valid & (fs.right_idx >= 0))
+
     def _process_with_features(self, f: feat.Features, timestamp: float,
                                ur: Optional[np.ndarray] = None,
-                               depth: Optional[np.ndarray] = None) -> fr.FrameData:
+                               depth: Optional[np.ndarray] = None,
+                               uv_r: Optional[torch.Tensor] = None,
+                               sig2_r: Optional[torch.Tensor] = None,
+                               has_r: Optional[torch.Tensor] = None) -> fr.FrameData:
         # Timestamp anomalies (`Tracking::Track`, Tracking.cc:987-1031): a
         # frame older than the last one resets the active map; an inertial
         # gap of more than 1 s reports "gap_init" (IMU initialized) or
@@ -627,7 +691,8 @@ class Tracker:
                 self.anomaly_cb("gap_init" if self.imu_ready else "gap_uninit")
         cur = fr.FrameData(features=f, timestamp=timestamp, frame_id=self.frame_id,
                            R=np.eye(3, dtype=np.float32), t=np.zeros(3, np.float32),
-                           mp_assoc=np.full(f.n, -1, np.int32), ur=ur, depth=depth)
+                           mp_assoc=np.full(f.n, -1, np.int32), ur=ur, depth=depth,
+                           uv_r=uv_r, sig2_r=sig2_r, has_r=has_r)
         self.frame_id += 1
         self.pi_taken = False
         # IMU preintegration over the frame gap (`PreintegrateIMU`), merged
@@ -891,6 +956,11 @@ class Tracker:
         def up(x, dtype):
             return convert.tensor(np.asarray(x, dtype), self.device)
 
+        c2 = self.camera2
+        rig = None
+        if c2 is not None and cur.uv_r is not None:
+            rig = (c2["params"], c2["R_rl"], c2["t_rl"], cur.uv_r, cur.sig2_r, cur.has_r)
+
         bundle, (fnd, vis) = _track_step(
             self.model, self.params, s, cur.features, up(R_pred, np.float32),
             up(t_pred, np.float32), up(have_pred, bool), up(last_mp, np.int32), last_oct,
@@ -898,7 +968,7 @@ class Tracker:
             self.scale_table, self.sigma2_table, self.img_wh_t,
             up(3 if self.store.n_kf > 2 else 2, np.int32),
             ur=up(cur.ur, np.float32) if cur.ur is not None else None, bf=self.bf,
-            obs_count=self._obs_count_cached(), n_levels=self.orb.n_levels,
+            obs_count=self._obs_count_cached(), n_levels=self.orb.n_levels, rig=rig,
         )
         b = fetch_bundle(bundle)  # the frame's one round trip
         if not bool(b["ok1"]):
@@ -1042,7 +1112,8 @@ class Tracker:
         `_close_depth_cutoff`; fewer than 100 tracked close points and more
         than 70 untracked ones need a keyframe); the ratio to `ref_matches`,
         the reference keyframe's well-observed points (0.9 monocular, 0.75
-        stereo-like, 0.4 while the map has < 2 keyframes); the c1a/c1b frame
+        stereo-like, 0.4 while the map has < 2 keyframes, 0.75 always for a
+        two-camera rig); the c1a/c1b frame
         gates and, for stereo-like sensors, c1c (a quarter of
         `ref_matches`, or the census). Monocular-inertial: a keyframe every
         0.25 s until the IMU is initialized; after it the ratio is 0.75 above
@@ -1074,6 +1145,8 @@ class Tracker:
         th_ratio = 0.9 if mono_like and not inertial else 0.75
         if nkf < 2:
             th_ratio = 0.4
+        if self.camera2 is not None:
+            th_ratio = 0.75
         if inertial and mono_like:
             th_ratio = 0.75 if n_inl > 350 else 0.9
         c1a = cur.frame_id >= self.last_kf_frame_id + self.max_frames
@@ -1096,7 +1169,10 @@ class Tracker:
         return False
 
     def _close_depth_cutoff(self) -> float:
-        """ThDepth baselines, in metres (`Tracking.cc:1616, 2624`)."""
+        """ThDepth baselines, in metres (`Tracking.cc:1616, 2624`): the rig's
+        baseline for a two-camera rig, else bf / fx."""
+        if self.camera2 is not None:
+            return self.th_depth * self.camera2["baseline"]
         return self.th_depth * (self.bf / self.focal)
 
     def _create_depth_points(self, cur: fr.FrameData, slot: int):

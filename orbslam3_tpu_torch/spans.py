@@ -1,9 +1,11 @@
-"""Timed spans around the inertial calls of the tracker and the mapper.
+"""Timed spans around the inertial calls of the tracker and the mapper and
+a two-camera rig's calls (its match, its pose solves with right rows).
 
 `with span(name):` at a call site records, while a `Recorder` is active,
 the host clock and, on CUDA, two events around the call. With no recorder
 active it costs one read of a module global. `entry.replay` activates one
-for "mono_vi" and returns what it read (`ReplayResult.inertial_ms`).
+for the inertial sensors and returns what it read
+(`ReplayResult.inertial_ms`).
 """
 
 from __future__ import annotations

@@ -1,30 +1,37 @@
 """The public entry of the port — `System` of `orbslam3_tpu/system.py`
-(`ORB_SLAM3::System`) for a monocular, monocular-inertial, rectified stereo
-or RGB-D pinhole camera.
+(`ORB_SLAM3::System`) for every sensor of ORB-SLAM3: monocular, rectified
+stereo, RGB-D, monocular-inertial and stereo-inertial, with a pinhole or a
+Kannala-Brandt 8 (fisheye) camera, and for stereo a two-camera rig.
 
-`System(sensor, CameraModel.PINHOLE, params, (W, H), orb, device, bf=...)`
+`System(sensor, camera_model, params, (W, H), orb, device, bf=...)`
 wires a `Tracker` and a synchronous `LocalMapper` over one `MapStore` on
 `device`: the first CUDA card when `device` is None (it raises where there
 is none and never falls back), the CPU (the kernels' plain versions) only
 when the caller asks for it with `device="cpu"`. `bf` is the stereo
-baseline times fx (ORB-SLAM3's `Camera.bf`), for `Sensor.STEREO` and
-`Sensor.RGBD`; `imu_calib` (`ops/imu.py::ImuCalib`) the IMU's extrinsics
-and noise, for `Sensor.IMU_MONOCULAR`. `track_monocular(img, t[,
-imu_measurements])`, `track_stereo(left, right, t)` and `track_rgbd(img,
-depth, t)` run a frame (and, on a new keyframe, its mapping pass, then the
-keyframe's hand-off to loop closing; a frame older than the last one first
-resets the active map, and so does an inertial gap of more than 1 s, or
-the bad-IMU watchdog) and `get_trajectory()` reads the camera centres back
-through the current keyframe poses.
+baseline times fx (ORB-SLAM3's `Camera.bf`), for a rectified pair and
+RGB-D; `camera2 = (params2, Tlr, lap1, lap2)` makes the stereo sensors a
+two-camera rig (ORB-SLAM3's `Camera2.*`, the right camera's pose in the
+left camera's frame, 4x4, and each camera's lapping area, a (u_lo, u_hi)
+range or None for the whole width): its frames are matched in the lapping
+areas and triangulated, and its pose solves gain right-camera rows;
+`imu_calib` (`ops/imu.py::ImuCalib`) the IMU's extrinsics and noise, for
+`Sensor.IMU_MONOCULAR` and `Sensor.IMU_STEREO` (whose IMU initialization
+keeps the scale the stereo depth fixed). `track_monocular(img, t[,
+imu_measurements])`, `track_stereo(left, right, t[, imu_measurements])` and
+`track_rgbd(img, depth, t)` run a frame (and, on a new keyframe, its mapping
+pass, then the keyframe's hand-off to loop closing; a frame older than the
+last one first resets the active map, and so does an inertial gap of more
+than 1 s, or the bad-IMU watchdog) and `get_trajectory()` reads the camera
+centres back through the current keyframe poses.
 `enable_rectification(left, right)` remaps raw stereo pairs on the device
 before `track_stereo`. `enable_place_recognition(vocabulary)` attaches a
 keyframe database and a `LoopCloser` (relocalization of a lost map, loop
 closing, the background global BA, one chunk of it after each frame), all
 on the system's device (an inertial one closes loops with the scale fixed
-and the 4-DoF essential graph). Not ported yet: IMU_STEREO, the fisheye
-model and the two-camera rig (A12), multi-map, atlas save/load and the
-trajectory writers (A13, A14), asynchronous mapping and localization mode
-(A14).
+and the 4-DoF essential graph). Not ported yet: the Atlas's multi-map
+(A13); atlas save/load, the trajectory writers, the settings file's
+parsing, asynchronous mapping and localization mode (A14); the PCG and
+sharded solvers (A15).
 """
 
 from __future__ import annotations
@@ -55,7 +62,8 @@ class Sensor(enum.Enum):
     IMU_STEREO = 4
 
 
-_NOT_PORTED = {Sensor.IMU_STEREO: "A12"}
+_INERTIAL = (Sensor.IMU_MONOCULAR, Sensor.IMU_STEREO)
+_STEREO = (Sensor.STEREO, Sensor.IMU_STEREO)
 
 
 class System:
@@ -63,15 +71,11 @@ class System:
                  img_wh: Tuple[int, int], orb_params: feat.OrbParams = feat.OrbParams(),
                  device=None, bf: float = 0.0, camera2=None, Kmax: int = 256,
                  Pmax: int = 16384, fps: float = 20.0, imu_calib: imu_ops.ImuCalib | None = None):
-        if sensor in _NOT_PORTED:
-            raise NotImplementedError(f"{sensor.name} is ROADMAP {_NOT_PORTED[sensor]}")
-        if camera_model != cam.CameraModel.PINHOLE:
-            raise NotImplementedError("the Kannala-Brandt model is ROADMAP A12")
-        if camera2 is not None:
-            raise NotImplementedError("the two-camera rig (camera2) is ROADMAP A12")
-        inertial = sensor == Sensor.IMU_MONOCULAR
+        inertial = sensor in _INERTIAL
         if inertial and imu_calib is None:
-            raise ValueError("IMU_MONOCULAR needs imu_calib")
+            raise ValueError(f"{sensor.name} needs imu_calib")
+        if camera2 is not None and sensor not in _STEREO:
+            raise ValueError(f"a two-camera rig (camera2) is a stereo sensor, not {sensor.name}")
         self.sensor = sensor
         self.device = require_cuda() if device is None else torch.device(device)
         if inertial:  # the calibration on the system's device
@@ -80,11 +84,14 @@ class System:
                               device=self.device)
         params = torch.from_numpy(np.array(camera_params, np.float32)).to(self.device)
         self.tracker = Tracker(camera_model, params, img_wh, self.store, orb_params, bf=bf,
-                               fps=fps, imu_calib=imu_calib if inertial else None)
+                               fps=fps, imu_calib=imu_calib if inertial else None,
+                               camera2=camera2)
         self.mapper = LocalMapper(camera_model, params, img_wh, self.store, orb_params, bf=bf,
-                                  imu_calib=imu_calib if inertial else None, mono=True)
-        # Metric-depth sensors keep every observation in the local BA.
-        stereo_like = sensor in (Sensor.STEREO, Sensor.RGBD)
+                                  imu_calib=imu_calib if inertial else None,
+                                  mono=sensor == Sensor.IMU_MONOCULAR)
+        # Metric-depth sensors (a rectified pair, RGB-D, a two-camera rig)
+        # keep every observation in the local BA.
+        stereo_like = sensor in (Sensor.STEREO, Sensor.RGBD, Sensor.IMU_STEREO)
         self.tracker.is_stereo_like = stereo_like
         self.mapper.stereo_like = stereo_like
         self.mapper.tracker = self.tracker
@@ -115,9 +122,9 @@ class System:
         `LoopCloser` fed every keyframe after its mapping pass
         (`System.cc:83-95`). `consecutive` keyframes must confirm a loop
         (`LoopClosing.cc:367`); `async_gba` runs the global BA in chunks
-        after the frames instead of at once. An IMU_MONOCULAR system's loop
-        closer is inertial: Sim3 steps with the scale fixed, the 4-DoF
-        essential graph."""
+        after the frames instead of at once. An inertial system's loop closer
+        is inertial: Sim3 steps with the scale fixed, the 4-DoF essential
+        graph."""
         from orbslam3_tpu_torch.atlas.kfdb import KeyFrameDB
         from orbslam3_tpu_torch.ops import bow
         from orbslam3_tpu_torch.pipeline.gba import AsyncGBA
@@ -130,7 +137,7 @@ class System:
         self.loop_closer = LoopCloser(
             t.model, t.params, self.store, kfdb, t.sigma2_table, run_gba=run_gba,
             min_bow_matches=min_bow_matches, min_sim3_inliers=min_sim3_inliers,
-            consecutive=consecutive, inertial=self.sensor == Sensor.IMU_MONOCULAR,
+            consecutive=consecutive, inertial=self.sensor in _INERTIAL,
             img_wh=t.img_wh_t, scale_table=t.scale_table, mapper=self.mapper, bf=t.bf)
         if run_gba and async_gba:
             self.loop_closer.gba_async = AsyncGBA(t.model, t.params, t.sigma2_table, bf=t.bf)
@@ -162,8 +169,8 @@ class System:
         raw pair on the device before extraction. Returns the rectifier."""
         from orbslam3_tpu_torch.ops.rectify import StereoRectifier
 
-        if self.sensor != Sensor.STEREO:
-            raise ValueError(f"rectification needs Sensor.STEREO, not {self.sensor.name}")
+        if self.sensor not in _STEREO:
+            raise ValueError(f"rectification needs a stereo sensor, not {self.sensor.name}")
         self.rectifier = StereoRectifier(rect_left, rect_right, self.device)
         return self.rectifier
 
@@ -181,14 +188,24 @@ class System:
         self._post_frame()
         return out
 
-    def track_stereo(self, img_left, img_right, timestamp: float):
-        """`System::TrackStereo`: a rectified grey pair (H, W), remapped
-        first when `enable_rectification` was called. Returns the left
+    def track_stereo(self, img_left, img_right, timestamp: float, imu_measurements=None):
+        """`System::TrackStereo`: a grey pair (H, W), rectified (remapped
+        first when `enable_rectification` was called) or, with `camera2`, a
+        two-camera rig's pair; for IMU_STEREO, the IMU samples since the
+        last frame as (t, acc (3,), gyro (3,)) tuples. Returns the left
         frame's `FrameData`."""
-        self._require(Sensor.STEREO)
+        if self.sensor not in _STEREO:
+            self._require(Sensor.STEREO)
+        if imu_measurements and self.sensor != Sensor.IMU_STEREO:
+            raise ValueError(f"a {self.sensor.name} System takes no IMU samples")
+        for t, acc, gyro in imu_measurements or ():
+            self.tracker.grab_imu(t, acc, gyro)
         if self.rectifier is not None:
             img_left, img_right = self.rectifier(img_left, img_right)
-        out = self.tracker.process_stereo_frame(img_left, img_right, timestamp)
+        if self.tracker.camera2 is not None:
+            out = self.tracker.process_stereo_fisheye_frame(img_left, img_right, timestamp)
+        else:
+            out = self.tracker.process_stereo_frame(img_left, img_right, timestamp)
         self._post_frame()
         return out
 
@@ -252,7 +269,8 @@ class System:
         self.mapper.preints = {}
         self.mapper.bad_imu = False
         if self.mapper.imu_init is not None:
-            self.mapper.imu_init = ImuInitializer(self.mapper.imu_calib, mono=True)
+            self.mapper.imu_init = ImuInitializer(self.mapper.imu_calib,
+                                                  mono=self.sensor == Sensor.IMU_MONOCULAR)
         lc = self.loop_closer
         if lc is not None:  # a fresh database for the fresh map
             from orbslam3_tpu_torch.atlas.kfdb import KeyFrameDB

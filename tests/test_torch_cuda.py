@@ -378,6 +378,26 @@ def test_global_ba_256_cameras_on_card_equals_cpu(dev):
                                    getattr(out["cpu"], k).numpy(), rtol=0, atol=1e-4, err_msg=k)
 
 
+def test_camera_sums_on_card_repeat_and_equal_cpu(dev):
+    """`optim/ba.py::CameraSums` on the card, the per-camera sums of both
+    BAs (the one-hot product, set up once per solve): at the whole-map BA's
+    shape (256 cameras x 1000 rows each, 42 values a row, rows of one
+    camera spread over the array), two calls are equal bit for bit and
+    within 1e-3 (float32 sums of 1000 rows) of the CPU's `index_add_`."""
+    from orbslam3_tpu_torch.optim import ba as ba_mod
+
+    rng = np.random.default_rng(5)
+    C, per = 256, 1000
+    oc = torch.from_numpy(rng.permutation(np.repeat(np.arange(C), per)))
+    vals = torch.from_numpy(rng.normal(size=(C * per, 42)).astype(np.float32))
+    ref = ba_mod.CameraSums(oc, C)(vals)
+    sums = ba_mod.CameraSums(oc.to(dev), C)
+    assert sums.onehot is not None and sums.onehot.shape == (C * per, C)
+    a, b = sums(vals.to(dev)), sums(vals.to(dev))
+    assert torch.equal(a, b)
+    np.testing.assert_allclose(a.cpu().numpy(), ref.numpy(), rtol=0, atol=1e-3)
+
+
 def test_stereo_match_and_remap_on_card_equal_cpu(dev):
     """The scanline match on a rendered pair of the stereo test scene, from
     the same features, and the raw-stereo remap of one synthetic EuRoC pair:
@@ -488,3 +508,121 @@ def test_preintegration_and_pose_inertial_on_card_equal_cpu(dev):
         for name in ("R_wb", "p_wb", "v", "bg", "ba", "Rcw", "tcw"):
             np.testing.assert_allclose(getattr(rg, name), getattr(rc, name), atol=1e-4)
         np.testing.assert_allclose(rg.H, rc.H, atol=1e-3 * np.abs(rc.H).max())
+
+
+def _fisheye_features(where):
+    """Features of config 4's first fisheye pair (512x512, 1000 features on
+    8 levels) extracted on `where`, and the pair."""
+    _, imgs, _ = E.euroc_frames(1, 0, fisheye=True)
+    orb = E.EUROC_STEREO_VI_FISHEYE["orb"]
+    pair = [torch.from_numpy(imgs[0, i].astype(np.float32)).to(where) for i in (0, 1)]
+    return [feat.extract(im, orb) for im in pair], pair
+
+
+def test_fisheye_kernels_equal_plain_on_card(dev):
+    """Config 4's new call sites: B2 on the 512x512 fisheye atlas (left and
+    right) and B1 at the fisheye match (unwindowed, both directions), each
+    exactly equal to its plain version, one launch a call."""
+    orb = E.EUROC_STEREO_VI_FISHEYE["orb"]
+    (fl, fr_), pair = _fisheye_features(dev)
+    for img in pair:
+        atlas = feat.build_atlas(img, orb)
+        n0 = cuda_fast.LAUNCHES
+        got = cuda_fast.fast_score_nms(atlas, orb.min_th, orb.ini_th)
+        assert cuda_fast.LAUNCHES == n0 + 1
+        ref = feat.fast_score_nms_plain(atlas, orb.min_th, orb.ini_th)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert int(got[1].sum()) > 500
+    for a, b, vb in ((fl.desc, fr_.desc, fr_.valid), (fr_.desc, fl.desc, fl.valid)):
+        n0 = cuda_match.LAUNCHES
+        got = cuda_match.hamming_top2(a, b, vb)
+        assert cuda_match.LAUNCHES == n0 + 1
+        with _build.force_plain():
+            ref = cuda_match.hamming_top2(a, b, vb)
+        for k_, p_ in zip(got, ref):
+            assert torch.equal(k_, p_)
+
+
+def test_match_stereo_fisheye_on_card_equals_cpu(dev):
+    """`match_stereo_fisheye` on config 4's first pair from the same
+    features: indices and the valid set equal on the card and the CPU, depth
+    and points within 1e-4 m; most left keypoints matched."""
+    from orbslam3_tpu_torch.ops import stereo
+
+    cfg = E.EUROC_STEREO_VI_FISHEYE
+    (fl, fr_), _ = _fisheye_features("cpu")
+    params2, Tlr, lap1, lap2 = cfg["camera2"]
+    R_rl = Tlr[:3, :3].T.astype(np.float32)
+    t_rl = (-R_rl @ Tlr[:3, 3]).astype(np.float32)
+    out = {}
+    for where in ("cpu", dev):
+        T = lambda x: convert.tensor(np.asarray(x, np.float32), where)  # noqa: E731
+        mv = lambda f: feat.Features(*(x.to(where) for x in f))  # noqa: E731
+        s2 = T(feat.sigma2(cfg["orb"]))
+        res = stereo.match_stereo_fisheye(CameraModel.KB8, T(cfg["camera"]), T(params2), mv(fl),
+                                          mv(fr_), T(R_rl), T(t_rl), s2, lap_l=lap1, lap_r=lap2)
+        out[str(where)] = convert.to_numpy(res)
+    c, g = out["cpu"], out[str(dev)]
+    np.testing.assert_array_equal(g.valid, c.valid)
+    np.testing.assert_array_equal(g.right_idx, c.right_idx)
+    np.testing.assert_allclose(g.depth, c.depth, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(g.Xl[c.valid], c.Xl[c.valid], atol=1e-4, rtol=0)
+    assert c.valid.sum() > 300
+
+
+def test_rig_pose_solve_on_card_without_sync(dev):
+    """The tracker's pose solve with a rig's right-camera rows
+    (`_pose_opt_from_assoc(rig=...)`, KB8 pair) makes no host sync on the
+    card (`set_sync_debug_mode("warn")`), and equals the CPU's: the same
+    inliers, the pose within 1e-4."""
+    import warnings
+
+    from orbslam3_tpu_torch.ops import lie
+    from orbslam3_tpu_torch.ops.cameras import kb8_project
+    from orbslam3_tpu_torch.pipeline import tracking as trk
+
+    cfg = E.EUROC_STEREO_VI_FISHEYE
+    params2, Tlr, _, _ = cfg["camera2"]
+    rng = np.random.default_rng(5)
+    n, P = 1000, 4096
+    Xw = np.stack([rng.uniform(-2, 2, n), rng.uniform(-2, 2, n), rng.uniform(1, 5, n)],
+                  -1).astype(np.float32)
+    R_rl = Tlr[:3, :3].T.astype(np.float32)
+    t_rl = (-R_rl @ Tlr[:3, 3]).astype(np.float32)
+    pl, pr = (torch.tensor(np.asarray(p, np.float32)) for p in (cfg["camera"], params2))
+    uv_l = kb8_project(pl, torch.from_numpy(Xw)).numpy() + rng.normal(0, 0.5, (n, 2))
+    uv_r = kb8_project(pr, torch.from_numpy(Xw @ R_rl.T + t_rl)).numpy() + rng.normal(0, 0.5, (n, 2))
+    mp_pos = np.zeros((P, 3), np.float32)
+    mp_pos[1:n + 1] = Xw
+    assoc = np.arange(1, n + 1, dtype=np.int32)
+    assoc[rng.uniform(size=n) < 0.2] = -1
+    has_r = rng.uniform(size=n) < 0.6
+    s2 = feat.sigma2(cfg["orb"])
+    octave = rng.integers(0, 4, n).astype(np.int32)
+    out = {}
+    for where in ("cpu", dev):
+        T = lambda x: convert.tensor(np.asarray(x), where)  # noqa: E731
+        f = feat.Features(uv=T(uv_l.astype(np.float32)), response=T(np.ones(n, np.float32)),
+                          octave=T(octave), angle=T(np.zeros(n, np.float32)),
+                          desc=T(np.zeros((n, 32), np.uint8)), valid=T(np.ones(n, bool)))
+        mp_valid = T(np.arange(P) <= n)
+        R0, t0 = lie.exp_se3(T(np.array([0.02, -0.01, 0.03, 0.01, 0.02, -0.01], np.float32)))
+        rig = (T(pr.numpy()), T(R_rl), T(t_rl), T(uv_r.astype(np.float32)),
+               T(s2[octave]), T(has_r))
+        if str(where) != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = trk._pose_opt_from_assoc(CameraModel.KB8, T(pl.numpy()), R0, t0, T(assoc), f,
+                                           T(mp_pos), mp_valid, T(s2), rig=rig)
+        if str(where) != "cpu":
+            torch.cuda.set_sync_debug_mode("default")
+            assert not [w for w in caught if "synchroniz" in str(w.message)], caught
+        out[str(where)] = convert.to_numpy(res)
+    c, g = out["cpu"], out[str(dev)]
+    np.testing.assert_array_equal(g.inlier, c.inlier)
+    np.testing.assert_allclose(g.R, c.R, atol=1e-4)
+    np.testing.assert_allclose(g.t, c.t, atol=1e-4)
+    assert c.inlier.sum() > 0.7 * n and np.abs(c.t).max() < 1e-2  # back to the true pose
+

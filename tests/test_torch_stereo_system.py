@@ -335,20 +335,38 @@ def test_local_ba_with_stereo_rows(obs_cap):
 
 def test_stereo_and_rgbd_take_the_card_unless_asked_for_the_cpu(monkeypatch):
     """`System(STEREO)` and `System(RGBD)` without a device take the first
-    CUDA card and raise where there is none; IMU_STEREO and a second camera
-    name A12 (IMU_MONOCULAR is ported: `tests/test_torch_vi_system.py`); the
-    CPU runs a frame when asked for."""
+    CUDA card and raise where there is none, and so do a two-camera rig
+    (`camera2`, a Kannala-Brandt 8 pair) and IMU_STEREO (the stereo-inertial
+    parity: `tests/test_torch_stereo_vi_system.py`); asked for the CPU they
+    are built there, the rig with its right camera's extrinsics; a rig is a
+    stereo sensor; the CPU runs a frame when asked for."""
+    from orbslam3_tpu_torch.ops.imu import ImuCalib
+
     left, right, depth, _ = scene.stereo_frames(2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    Tlr = np.eye(4)
+    Tlr[0, 3] = 0.12
+    kb8 = np.array([160.0, 160.0, 160.0, 120.0, 0.0035, 0.0007, -0.002, 0.0002], np.float32)
+    calib = ImuCalib.create(np.eye(3), np.zeros(3), 1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0)
+    rig = dict(camera2=(kb8, Tlr, None, (10.0, 300.0)))
+    builds = [(Sensor.STEREO, CameraModel.KB8, rig), (Sensor.IMU_STEREO, CameraModel.PINHOLE,
+                                                       dict(bf=scene.BF, imu_calib=calib)),
+              (Sensor.IMU_STEREO, CameraModel.KB8, dict(rig, imu_calib=calib))]
     for sensor in ("stereo", "rgbd"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             _port_system(sensor, device=None)
-    with pytest.raises(NotImplementedError, match="A12"):
-        System(Sensor.IMU_STEREO, CameraModel.PINHOLE, scene.PARAMS, (scene.W, scene.H),
-               device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        System(Sensor.STEREO, CameraModel.PINHOLE, scene.PARAMS, (scene.W, scene.H),
-               device="cpu", camera2=(scene.PARAMS, np.eye(4), None, None))
+    for sensor, model, kw in builds:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            System(sensor, model, kb8, (scene.W, scene.H), **kw)
+        s = System(sensor, model, kb8, (scene.W, scene.H), device="cpu", **kw)
+        assert s.device.type == "cpu" and s.tracker.is_stereo_like and s.mapper.stereo_like
+        assert (s.tracker.camera2 is not None) == ("camera2" in kw)
+    c2 = s.tracker.camera2
+    assert c2["lap1"] == (0.0, scene.W - 1.0) and c2["lap2"] == (10.0, 300.0)
+    np.testing.assert_allclose(c2["t_rl"].numpy(), [-0.12, 0.0, 0.0])
+    assert c2["baseline"] == pytest.approx(0.12) and not s.mapper.imu_init.mono
+    with pytest.raises(ValueError, match="stereo sensor"):
+        System(Sensor.MONOCULAR, CameraModel.KB8, kb8, (scene.W, scene.H), device="cpu", **rig)
     slam = _port_system("stereo")
     with pytest.raises(ValueError):
         slam.track_rgbd(left[0], depth[0], 0.0)

@@ -414,17 +414,20 @@ def test_system_takes_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 def test_port_imports_no_jax():
     """Importing the System, the entry points, the kernel bench, place
-    recognition's modules, the stereo ones and the inertial ones (and
-    loading the synthetic sequence's script) leaves JAX and the JAX package
-    out of the process."""
+    recognition's modules, the stereo ones, the inertial ones and the
+    fisheye rig's (the KB8 camera, the rig's match and pose rows; and
+    loading the synthetic sequence's script, rendering a fisheye pair)
+    leaves JAX and the JAX package out of the process."""
     code = ("import sys, orbslam3_tpu_torch.system, orbslam3_tpu_torch.entry as E, "
             "orbslam3_tpu_torch.kernel_bench, orbslam3_tpu_torch.pipeline.loop_closing, "
             "orbslam3_tpu_torch.pipeline.gba, orbslam3_tpu_torch.io.vocab_io, "
             "orbslam3_tpu_torch.ops.stereo, orbslam3_tpu_torch.ops.rectify, "
             "orbslam3_tpu_torch.ops.imu, orbslam3_tpu_torch.optim.inertial, "
             "orbslam3_tpu_torch.optim.pose_inertial, "
-            "orbslam3_tpu_torch.pipeline.inertial_support; "
-            "E.synth_euroc(); "
+            "orbslam3_tpu_torch.pipeline.inertial_support, orbslam3_tpu_torch.ops.cameras, "
+            "orbslam3_tpu_torch.optim.pose_only, orbslam3_tpu_torch.optim.ba, "
+            "orbslam3_tpu_torch.pipeline.tracking, orbslam3_tpu_torch.spans; "
+            "E.synth_euroc(); E.euroc_frames(1, fisheye=True); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'orbslam3_tpu')]; "
             "assert not bad, bad")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

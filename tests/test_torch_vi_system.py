@@ -287,18 +287,28 @@ def test_gap_over_one_second_resets_the_map(imu_ready):
 
 def test_imu_monocular_takes_the_card_unless_asked_for_the_cpu(monkeypatch):
     """`System(IMU_MONOCULAR, imu_calib=...)` without a device takes the
-    first CUDA card and raises where there is none; it needs a calibration;
-    IMU_STEREO names A12."""
+    first CUDA card and raises where there is none; it needs a calibration,
+    and so does IMU_STEREO, which takes the card as well; asked for the CPU,
+    IMU_STEREO is built there with a stereo (fixed-scale) IMU initializer
+    (its parity: `tests/test_torch_stereo_vi_system.py`)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _port_system(device=None)
     with pytest.raises(ValueError, match="imu_calib"):
         _port_system(calib=False)
-    with pytest.raises(NotImplementedError, match="A12"):
+    c = imu_t.ImuCalib.create(np.eye(3), np.zeros(3), **scene.NOISE)
+    with pytest.raises(ValueError, match="imu_calib"):
         System(Sensor.IMU_STEREO, CameraModel.PINHOLE, scene.PARAMS, (scene.W, scene.H),
-               device="cpu")
+               device="cpu", bf=30.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        System(Sensor.IMU_STEREO, CameraModel.PINHOLE, scene.PARAMS, (scene.W, scene.H),
+               bf=30.0, imu_calib=c)
+    stereo = System(Sensor.IMU_STEREO, CameraModel.PINHOLE, scene.PARAMS, (scene.W, scene.H),
+                    device="cpu", bf=30.0, imu_calib=c)
+    assert not stereo.mapper.imu_init.mono and stereo.tracker.is_stereo_like
     slam = _port_system()
     assert slam.mapper.imu_init is not None and slam.tracker.imu_calib is not None
+    assert slam.mapper.imu_init.mono
     assert slam.tracker.imu_calib.cov.device.type == "cpu"
 
 

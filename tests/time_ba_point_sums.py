@@ -1,5 +1,5 @@
 """Device time of the port's whole-map BA with each form of its per-point
-sums, on one GPU, all in one process.
+sums, and of a background GBA chunk, on one GPU, all in one process.
 
     python tests/time_ba_point_sums.py [--reps 3]
 
@@ -18,12 +18,18 @@ each form of `optim/ba.py::point_sum` on CUDA:
 - "one reduction": the slots, then one sum over the camera axis (the
   port's form).
 
-The forms run in the order a, b, c, c, b, a, `--reps` times each, timed
-by CUDA events and the host clock around the call. Prints, per map and
-form, the median device and host ms, whether two runs of the form gave
-equal states, and the largest difference of the keyframe positions from
-"one reduction"'s; then the card's name and power limit. Not a test:
-nothing collects it.
+The per-camera sums are the checkout's own in every form
+(`optim/ba.py::CameraSums` where it exists). The forms run in the order a,
+b, c, c, b, a, `--reps` times each, timed by CUDA events and the host
+clock around the call. Prints, per map and form, the median device and
+host ms, whether two runs of the form gave equal states, and the largest
+difference of the keyframe positions from "one reduction"'s; then, per
+map, a background GBA chunk (`gba.gba_step` with 2 iterations, what
+`AsyncGBA.tick` launches, the checkout's default forms) timed the same
+way, `--reps` x 4 times, and whether two whole-map BAs with the default
+forms give equal states; then the card's name and power limit. Run it in
+two checkouts on one card to compare them. Not a test: nothing collects
+it.
 """
 
 from __future__ import annotations
@@ -142,6 +148,31 @@ def main(argv=None) -> int:
                   f"{name}: device {rows[name]['device_ms']:.3f} ms, host "
                   f"{rows[name]['host_ms']:.3f} ms (median of {len(times[name])}), repeats "
                   f"exactly {repeats}, kf_t vs one reduction {rows[name]['max_kf_t_diff']:.2e}")
+        chunk = []
+        fixed = torch.zeros(K, dtype=torch.bool, device=dev)
+        fixed[0] = True
+        params = torch.from_numpy(LS.PARAMS.copy()).to(dev)
+        s2 = torch.from_numpy(feat.sigma2(feat.OrbParams(n_levels=4))).to(dev)
+        state = st.MapState(**{k: v.clone() for k, v in arrays.items()})
+        for _ in range(4 * args.reps):
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            h0 = time.perf_counter()
+            ev[0].record()
+            gba.gba_step(CameraModel.PINHOLE, params, state, fixed, s2, 30.0, 2)
+            ev[1].record()
+            torch.cuda.synchronize()
+            chunk.append((ev[0].elapsed_time(ev[1]), (time.perf_counter() - h0) * 1e3))
+        a = run_once(arrays, info, K, dev, ba_mod.point_sum)[2]
+        b = run_once(arrays, info, K, dev, ba_mod.point_sum)[2]
+        repeats = all(torch.equal(getattr(a, k), getattr(b, k)) for k in ("kf_R", "kf_t", "mp_pos"))
+        rows["gba chunk"] = dict(device_ms=statistics.median(d for d, _ in chunk),
+                                 host_ms=statistics.median(h for _, h in chunk), runs=len(chunk))
+        rows["default forms repeat exactly"] = repeats
+        print(f"GBA chunk (2 LM iterations), {K} keyframes: device "
+              f"{rows['gba chunk']['device_ms']:.3f} ms, host {rows['gba chunk']['host_ms']:.3f} "
+              f"ms (median of {len(chunk)}); two whole-map BAs with the default forms equal: "
+              f"{repeats}")
         out[K] = rows
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
