@@ -100,8 +100,28 @@ the median ms and syncs per frame kind, the ms of the fisheye match, of the
 pose solves with the right-camera rows and of the pose-inertial solves,
 B1's launches by call and B2's; then B2 on the 512x512 right atlas and B1
 at the fisheye match's call, each exact against its plain version and
-timed. Every run prints the wall time of each phase and of the whole
-script.
+timed.
+
+Phase 15 drives config 1 with place recognition and the Atlas
+(`entry.replay(cuda, "mono", 360, vocabulary=..., t_loop=16, multimap=True,
+blind=(80, 110))`: the synthetic sequence's lap shortened to 16 s, the lens
+covered for frames 80-189) at full width: map 0 stored within 2 frames of
+the JAX `System`'s frame (185) and 2 maps after it, a merge within 2
+keyframes of JAX's (the merged map's keyframe count) and 1 map after it,
+the post-merge GBA finished, the Sim3 ATE over the frames that are not
+blind within max(2 x JAX's, 0.01 m), 2 host syncs per tracked frame; at
+the merging keyframe `_merge_sim3` and then `merge_maps` with the weld fuse
+re-run on copies of the two maps through the kernels and through the plain
+versions (the same matches and outcome, Sim3 within 1e-4, the same `kf_mp`
+rows, floats within 1e-4); `save_atlas`, then `load_atlas` into a fresh
+`System` on the card (every array equal bit for bit) and map 0's images
+relocalized into it within 5 frames. It prints the median ms per frame kind
+(tracked, keyframe, blind, the merging frame), `_try_merge`'s ms per
+keyframe, `_do_merge`'s split, the atlas's save and load ms, and B1 at its
+two new calls (the merge's verification match, the weld fuse) exact and
+timed. Every run prints how many CUDA graphs the pose solves captured and
+replayed (`optim.graphed`), and the wall time of each phase and of the
+whole script.
 
 Every phase prints its lines; any failure ends the run with a non-zero
 exit. Without a CUDA device it exits non-zero and prints no result.
@@ -112,6 +132,11 @@ also writes the kernels' inputs of phases 7 and 10 to FILE, for `python -m
 orbslam3_tpu_torch.kernel_bench FILE` to time another checkout's kernels on
 the same inputs.
 
+    python3 chip_smoke.py --only 15
+
+builds the kernels and runs phase 15 alone (its record holds B1's rows of
+that phase only).
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -121,6 +146,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -158,6 +184,8 @@ B1_SITES = {"_track_last_frame": "motion model", "_track_local_map_match": "loca
             "_fuse_neighbors": "fuse into the keyframe"}
 # The two-camera rig's B1 call (phase 14).
 B1_RIG_SITES = {"match_stereo_fisheye": "fisheye match"}
+# The Atlas's B1 calls (phase 15), named before all others.
+B1_MM_SITES = {"_merge_sim3": "merge verify match", "_weld_fuse": "weld fuse"}
 # Place recognition's B1 calls (phase 10); a call is named by the first of
 # these functions on its stack, before those of B1_SITES (relocalization's
 # reference-keyframe match goes through `_track_reference_kf`).
@@ -234,6 +262,25 @@ JAX_FE_SCALE = 0.996263
 FE_ATE_GATE = max(2 * JAX_FE_ATE_SE3, 0.01)
 FE_SCALE_TOL = max(2 * abs(1 - JAX_FE_SCALE), 0.02)
 
+# Phase 15: the multi-map lap (config 1 with the Atlas). The JAX `System` on
+# the same frames on a CPU (`python tests/jax_multimap_lap.py --t-loop 16
+# --frames 360 --blind-at 80 --blind-n 110`, 1307 s on 8 CPU cores):
+# initialized at frame 24, 18 keyframes when the lens is covered at frame 80;
+# RECENTLY_LOST for 5 s, LOST from frame 181, map 0 stored at frame 185 (18
+# keyframes); map 1 initialized at frame 191 on a part of the room map 0 never
+# saw; merged into map 0 at frame 304 (keyframe 31 of the 36-keyframe map 1
+# onto keyframe 1, s 0.99608), 54 keyframes after it, every frame OK from
+# frame 191, the post-merge GBA finished, 63 keyframes at the end, no loop
+# closed; Sim3 ATE 0.041078 m over the 227 poses of the 250 frames that are
+# not blind.
+MM_T_LOOP = 16.0
+MM_FRAMES = 360
+MM_BLIND = (80, 110)  # frames 80-189: a uniform grey 35 image
+JAX_MM_STORED = (185, 18)  # frame, keyframes of the stored map
+JAX_MM_MERGE = (304, 36, 31, 1)  # frame, keyframes of the active map, the keyframe pair
+JAX_MM_ATE = 0.041078
+MM_ATE_GATE = max(2 * JAX_MM_ATE, 0.01)
+MM_RELOC_FRAMES = (40, 50)  # map 0's images fed to the loaded atlas
 
 @contextlib.contextmanager
 def _b1_calls(calls: list, keep_args):
@@ -253,7 +300,8 @@ def _b1_calls(calls: list, keep_args):
         while f is not None:
             names.append(f.f_code.co_name)
             f = f.f_back
-        site = next((B1_PR_SITES[n] for n in names if n in B1_PR_SITES), None) or next(
+        site = next((B1_MM_SITES[n] for n in names if n in B1_MM_SITES), None) or next(
+            (B1_PR_SITES[n] for n in names if n in B1_PR_SITES), None) or next(
             (B1_SITES[n] for n in names if n in B1_SITES), None) or next(
             (B1_RIG_SITES[n] for n in names if n in B1_RIG_SITES), "other")
         if COMPARING[0]:
@@ -1176,6 +1224,241 @@ def phase14_stereo_fisheye_inertial(dev) -> dict:
     return dict(rep=rep, launches=launches, sites=sites, args=args, right=right)
 
 
+def _clone_store(store):
+    """A copy of a `MapStore` whose tensors and host bookkeeping are its own."""
+    import copy
+
+    from orbslam3_tpu_torch.atlas import store as st
+
+    c = copy.copy(store)
+    c.state = st.MapState(*(x.clone() for x in store.state))
+    c.kf_ts, c.kf_frame_id = store.kf_ts.copy(), store.kf_frame_id.copy()
+    c.free_mp_slots, c.free_kf_slots = list(store.free_mp_slots), list(store.free_kf_slots)
+    c._mirrors = {}
+    return c
+
+
+def _same_store(a, b) -> bool:
+    """Every array equal bit for bit, and the host bookkeeping equal."""
+    return (all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a.state, b.state))
+            and (a.n_kf, a.n_mp, a.change_index) == (b.n_kf, b.n_mp, b.change_index)
+            and list(a.free_mp_slots) == list(b.free_mp_slots)
+            and list(a.free_kf_slots) == list(b.free_kf_slots)
+            and np.array_equal(a.kf_ts, b.kf_ts) and np.array_equal(a.kf_frame_id, b.kf_frame_id))
+
+
+def phase15_multimap(dev) -> dict:
+    """Phase 15: config 1 with place recognition and the Atlas
+    (`entry.replay(cuda, "mono", MM_FRAMES, multimap=True, blind=MM_BLIND)`,
+    the 16 s lap, its lens covered for MM_BLIND[1] frames): map 0 stored
+    within 2 frames of the JAX `System`'s frame and 2 maps after it; a merge
+    within 2 keyframes of JAX's (the active map's count) and 1 map after it;
+    the post-merge GBA finished; the Sim3 ATE over the frames that are not
+    blind within max(2 x JAX's, 0.01 m); 2 host syncs per tracked frame. At
+    the merging keyframe `_merge_sim3` (B1 unwindowed, twice) and then
+    `merge_maps` and the weld fuse (B1 windowed per Nf chunk) run again on
+    copies of the two maps through the kernels and through the plain
+    versions: the same matches and outcome, the Sim3 within 1e-4, the same
+    `kf_mp` rows, poses and points within 1e-4. Then `save_atlas`, and
+    `load_atlas` into a fresh `System` on the card: every array equal bit for
+    bit, and map 0's images relocalize into the loaded map within 5 frames."""
+    import tempfile
+
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch.io.vocab_io import load_binary_vocabulary
+    from orbslam3_tpu_torch.ops import _build, cuda_fast, cuda_match
+    from orbslam3_tpu_torch.ops import cameras as cam
+    from orbslam3_tpu_torch.pipeline import map_merging
+    from orbslam3_tpu_torch.pipeline import multimap as mm_mod
+    from orbslam3_tpu_torch.pipeline.tracking import Tracker, TrackState
+    from orbslam3_tpu_torch.system import Sensor, System
+
+    frame = [0]
+    found, extra_ms, gba_at_merge = {}, {}, []
+    orig_do_merge = mm_mod.MultiMapManager._do_merge
+
+    def do_merge(self, act, target, R, t, s):
+        if "merge" not in found:  # copies of both maps for the kernels-vs-plain re-run
+            with _comparing() as took:
+                found["merge"] = dict(act=_clone_store(act), tgt=_clone_store(target), R=R, t=t,
+                                      s=s, verify=dict(self.last_verify), frame=frame[0],
+                                      pre=target.state.mp_valid.cpu().numpy().copy())
+            extra_ms[frame[0]] = extra_ms.get(frame[0], 0.0) + took[0]
+        out = orig_do_merge(self, act, target, R, t, s)
+        lc = self.system.loop_closer
+        gba_at_merge.append(lc.gba_async.n_finished)
+        return out
+
+    def on_frame(k, slam):
+        frame[0] = k + 1
+
+    torch.cuda.synchronize()
+    cuda_fast.LAUNCHES = 0
+    cuda_match.LAUNCHES = 0
+    t0 = time.perf_counter()
+    mm_mod.MultiMapManager._do_merge = do_merge
+    try:
+        with _b1_calls([], keep_args=set(B1_MM_SITES.values())) as calls:
+            rep = E.replay(dev, "mono", MM_FRAMES, vocabulary=VOC_100K, t_loop=MM_T_LOOP,
+                           multimap=True, blind=MM_BLIND, on_frame=on_frame)
+    finally:
+        mm_mod.MultiMapManager._do_merge = orig_do_merge
+    wall_s = time.perf_counter() - t0
+    sites = {site: sum(c[0] == site for c in calls)
+             for site in (list(B1_SITES.values()) + list(B1_PR_SITES.values())
+                          + list(B1_MM_SITES.values()) + ["comparison", "other"])}
+    launches = {"fast_nms": cuda_fast.LAUNCHES,
+                "hamming_top2": cuda_match.LAUNCHES - sites["comparison"]}
+    check(sum(sites.values()) == cuda_match.LAUNCHES and sites["other"] == 0,
+          f"phase 15 B1 calls by site {sites}")
+    sysm = rep.system
+    mm = sysm.multimap
+
+    print(f"phase 15 outcome: initialized at frame {rep.states.index('OK')}; stored "
+          f"{rep.stored}; merges "
+          f"{[{k: v for k, v in m.items() if k not in ('R', 't')} for m in rep.merges]}; "
+          f"maps at the end {mm.atlas.n_maps}, {rep.n_kf} keyframes, {rep.n_mp} points, loops "
+          f"{len(rep.loops)}; GBA {rep.gba_finished} finished, {rep.gba_aborted} aborted; ATE "
+          f"{rep.ate:.6f} m over {len(rep.ts)} poses", flush=True)
+    # Gates.
+    check(len(rep.stored) >= 1, f"phase 15: no map stored: states {rep.states[70:200]}")
+    st0 = rep.stored[0]
+    check(abs(st0["frame"] - JAX_MM_STORED[0]) <= 2 and rep.n_maps[st0["frame"]] == 2,
+          f"phase 15: map 0 stored at frame {st0['frame']} ({rep.n_maps[st0['frame']]} maps), "
+          f"JAX {JAX_MM_STORED}")
+    check(len(rep.merges) >= 1, f"phase 15: no merge: states {rep.states[185:]}")
+    mg = rep.merges[0]
+    check(abs(mg["n_kf_active"] - JAX_MM_MERGE[1]) <= 2 and rep.n_maps[mg["frame"]] == 1,
+          f"phase 15: merge at frame {mg['frame']} with {mg['n_kf_active']} keyframes in the "
+          f"active map, {rep.n_maps[mg['frame']]} maps after it; JAX {JAX_MM_MERGE}")
+    check(rep.gba_finished > gba_at_merge[0],
+          f"phase 15: the post-merge GBA did not finish ({rep.gba_finished} finished, "
+          f"{gba_at_merge[0]} before the merge)")
+    check(np.isfinite(rep.pos).all() and rep.ate <= MM_ATE_GATE,
+          f"phase 15: ATE {rep.ate} m above the gate {MM_ATE_GATE} m")
+    for site in B1_MM_SITES.values():
+        check(sites[site] > 0, f"phase 15: B1 never launched at {site}: {sites}")
+
+    kinds = rep.frame_kinds()
+    blind = set(range(MM_BLIND[0], MM_BLIND[0] + MM_BLIND[1]))
+    ms = [m - extra_ms.get(k, 0.0) for k, m in enumerate(rep.ms)]
+    by_kind = {}
+    for k, (kind, n_sync, m) in enumerate(zip(kinds, rep.syncs, ms)):
+        kind = "blind" if k in blind else "merge" if k == mg["frame"] else kind
+        by_kind.setdefault(kind, []).append((n_sync, m))
+    tracked = [n for n, _ in by_kind.get("tracked", [])]
+    check(tracked and set(tracked) == {Tracker.HOST_SYNCS_PER_FRAME},
+          f"phase 15: host syncs per tracked frame {sorted(set(tracked))}")
+
+    # Kernels against plain at the merging keyframe, on copies of the two maps.
+    m0 = found["merge"]
+    v0 = m0["verify"]
+    runs = {}
+    with _comparing():
+        for mode in ("kernels", "plain"):
+            with _build.force_plain() if mode == "plain" else contextlib.nullcontext():
+                act, tgt = _clone_store(m0["act"]), _clone_store(m0["tgt"])
+                S = mm._merge_sim3(act, tgt, v0["kf"], v0["cand"])
+                v = dict(mm.last_verify)
+                kf_remap, _ = map_merging.merge_maps(tgt, act, m0["R"], m0["t"], m0["s"])
+                mm._weld_fuse(tgt, list(kf_remap.values()), m0["pre"])
+            runs[mode] = (S, v, tgt)
+    (S_k, v_k, t_k), (S_p, v_p, t_p) = runs["kernels"], runs["plain"]
+    check(S_k is not None and S_p is not None, "phase 15: the merge did not verify again")
+    same_m = (np.array_equal(v_k["valid"], v_p["valid"])
+              and np.array_equal(v_k["idx"][v_k["valid"]], v_p["idx"][v_p["valid"]]))
+    check(same_m and v_k["matches"] == v_p["matches"] == v0["matches"]
+          and v_k["sim3_inliers"] == v_p["sim3_inliers"],
+          f"phase 15 merge verify, kernels vs plain: {v_k['matches']} / {v_k['sim3_inliers']} vs "
+          f"{v_p['matches']} / {v_p['sim3_inliers']} (the lap {v0['matches']})")
+    dS = max(float(np.abs(np.asarray(a) - np.asarray(b)).max()) for a, b in zip(S_k, S_p))
+    dS0 = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+              for a, b in zip(S_k, (m0["R"], m0["t"], m0["s"])))
+    check(dS <= 1e-4 and dS0 <= 1e-4,
+          f"phase 15 merge Sim3, kernels vs plain {dS}, vs the lap {dS0}")
+    check(torch.equal(t_k.state.kf_mp, t_p.state.kf_mp),
+          "phase 15 merge + weld fuse, kernels vs plain: kf_mp rows differ")
+    dW = max(float((getattr(t_k.state, f) - getattr(t_p.state, f)).abs().max())
+             for f in ("kf_R", "kf_t", "mp_pos", "mp_normal"))
+    check(dW <= 1e-4, f"phase 15 merge + weld fuse, kernels vs plain: floats {dW}")
+
+    # Save the Atlas, load it into a fresh System on the card, relocalize.
+    voc = load_binary_vocabulary(VOC_100K, dev)
+    cfg = E.EUROC_MONO
+    with tempfile.TemporaryDirectory() as d, _comparing():
+        t1 = time.perf_counter()
+        sysm.save_atlas(d)
+        save_ms = (time.perf_counter() - t1) * 1e3
+        fresh = System(Sensor.MONOCULAR, cam.CameraModel.PINHOLE, cfg["camera"], cfg["img_wh"],
+                       cfg["orb"], device=dev, Kmax=cfg["Kmax"], Pmax=cfg["Pmax"], fps=cfg["fps"])
+        fresh.enable_place_recognition(voc)
+        fresh.enable_multimap(voc)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fresh.load_atlas(d)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t1) * 1e3
+        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    maps_a, maps_b = mm.atlas.maps, fresh.multimap.atlas.maps
+    check(len(maps_a) == len(maps_b) and all(_same_store(a, b) for a, b in zip(maps_a, maps_b))
+          and fresh.store is maps_b[mm.atlas.active_idx]
+          and all(m.device == dev for m in maps_b),
+          "phase 15: the loaded atlas differs from the saved one")
+    check(fresh.tracking_state == TrackState.LOST, f"phase 15: loaded state {fresh.tracking_state}")
+    imgs = E._rendered("mono", MM_FRAMES, 0, MM_T_LOOP, None, MM_BLIND)[1]  # still cached
+    t_next = float(rep.gt_ts[-1]) + 1.0
+    reloc_states = []
+    for j, k in enumerate(range(*MM_RELOC_FRAMES)):
+        fresh.track_monocular(imgs[k], t_next + 0.05 * j)
+        reloc_states.append(fresh.tracking_state.name)
+    first_ok = reloc_states.index("OK") if "OK" in reloc_states else None
+    check(first_ok is not None and first_ok < 5 and fresh.multimap.atlas.n_maps == len(maps_a),
+          f"phase 15: the loaded atlas did not relocalize within 5 frames: {reloc_states}")
+
+    fps = MM_FRAMES / (sum(ms) / 1e3)
+    med = lambda xs: statistics.median(xs) if xs else float("nan")  # noqa: E731
+    spans_ms = rep.multimap_ms
+    print(f"phase 15 lap: {MM_FRAMES} frames of the synthetic EuRoC sequence with a "
+          f"{MM_T_LOOP:g} s lap, frames {MM_BLIND[0]}-{sum(MM_BLIND) - 1} blind; launches "
+          f"{launches}; {fps:.2f} frames/s over the replay ({wall_s:.1f} s wall, "
+          f"{rep.render_s:.1f} s of rendering)")
+    print(f"phase 15 map 0 stored at frame {st0['frame']} with {st0['n_kf']} keyframes (JAX "
+          f"{JAX_MM_STORED[0]}, {JAX_MM_STORED[1]}); merged at frame {mg['frame']}: keyframe "
+          f"{mg['kf']} of the {mg['n_kf_active']}-keyframe map onto {mg['cand']} (JAX frame "
+          f"{JAX_MM_MERGE[0]}, {JAX_MM_MERGE[1]} keyframes, {JAX_MM_MERGE[2]} onto "
+          f"{JAX_MM_MERGE[3]}), s {mg['s']:.6f}, {mg['n_kf']} keyframes after it; maps per frame "
+          f"{sorted(set(rep.n_maps))}; ATE {rep.ate:.6f} m, gate {MM_ATE_GATE:.6f} m (2 x the "
+          f"JAX System's {JAX_MM_ATE} m); GBA {rep.gba_finished} finished")
+    print("phase 15 host syncs and ms per frame kind: " + "; ".join(
+        f"{kind} {len(v)} frames, syncs median {med([n for n, _ in v])} (max "
+        f"{max(n for n, _ in v)}), ms median {med([m for _, m in v]):.2f}"
+        for kind, v in sorted(by_kind.items())))
+
+    def span_line(name):
+        v = spans_ms.get(name, [])
+        return (f"{name} {len(v)} calls, host ms median {med([h for _, h, _ in v]):.2f}, device "
+                f"ms median {med([d for _, _, d in v if d is not None]):.2f}")
+
+    at_merge = [h for f_, h, _ in spans_ms.get("try merge", []) if f_ == mg["frame"]]
+    print(f"phase 15 ms: {span_line('try merge')} (one per keyframe frame of a map while "
+          f"another is stored; {at_merge} at the merging frame); _do_merge at frame "
+          f"{mg['frame']}: " + "; ".join(
+              f"{name[len('merge: '):]} host {h:.2f} / device {dv:.2f}"
+              for name in ("merge: merge maps", "merge: weld fuse", "merge: weld BA",
+                           "merge: essential graph", "merge: GBA start")
+              for f_, h, dv in spans_ms.get(name, []) if f_ == mg["frame"]))
+    print(f"phase 15 kernels vs plain at the merging keyframe ({v0['kf']} onto {v0['cand']}): "
+          f"{v_k['matches']} matches equal, {v_k['sim3_inliers']} Sim3 inliers, Sim3 within "
+          f"{dS:.1e} (within {dS0:.1e} of the lap's); merge_maps + weld fuse: kf_mp rows equal, "
+          f"floats within {dW:.1e}")
+    print(f"phase 15 atlas: save {save_ms:.1f} ms, load {load_ms:.1f} ms ({len(maps_a)} maps, "
+          f"{size} bytes on disk), every array equal bit for bit; map 0's frames "
+          f"{MM_RELOC_FRAMES[0]}-{MM_RELOC_FRAMES[1] - 1} fed to it: {reloc_states}")
+    print(f"phase 15 B1 launches by call over the replay: {sites}")
+    args = {site: next(c[1] for c in calls if c[0] == site) for site in B1_MM_SITES.values()}
+    return dict(rep=rep, sites=sites, launches=launches, args=args)
+
+
 def check(ok, what: str) -> None:
     """Fail the run (every phase's checks are hard failures)."""
     if not ok:
@@ -1186,11 +1469,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--save-inputs", metavar="FILE",
                     help="write phase 7's kernel inputs to FILE (torch.save)")
+    ap.add_argument("--only", choices=["15"],
+                    help="build, then run this phase alone (its B1 rows in the record)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    return run(opts)
 
+
+def run(opts) -> int:
+    """The phases (`main` has checked for the card)."""
     from orbslam3_tpu_torch import convert
     from orbslam3_tpu_torch import entry as E
     from orbslam3_tpu_torch import kernel_bench as KB
@@ -1214,6 +1503,16 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s to load")
     print(_build.resource_report(), end="")
     walls["build"] = time.perf_counter()
+    card = smi.stdout.strip().splitlines()[0]
+    if opts.only == "15":
+        err, rows, launches = phase15_rows(dev, card)
+        walls["phase 15"] = time.perf_counter()
+        record = {"kernels": [{"name": "hamming_top2", "route": "cuda",
+                               "source": "orbslam3_tpu_torch/csrc/hamming_top2.cu",
+                               "replaces": "orbslam3_tpu/ops/pallas_match.py:155",
+                               "launches": launches["hamming_top2"], "max_abs_err": err,
+                               "calls": rows}]}
+        return finish(walls, record)
 
     cfg = E.EUROC
     orb = cfg.orb
@@ -1576,7 +1875,6 @@ def main(argv=None) -> int:
 
     walls["phase 6"] = time.perf_counter()
     # --- Phase 7: device-only times, call times and bounds ------------------
-    card = smi.stdout.strip().splitlines()[0]
     b2_t = KB.time_b2(atlas, orb.min_th, orb.ini_th)
     with _build.force_plain():
         b2_plain_ms = KB.call_us(lambda: cuda_fast.fast_score_nms(atlas, orb.min_th, orb.ini_th),
@@ -1797,6 +2095,11 @@ def main(argv=None) -> int:
                  "cross-check"):
         print(f"phase 14 B1 {site}: {p14['sites'][site]} launches in the phase-14 replay")
     walls["phase 14"] = time.perf_counter()
+    # --- Phase 15: the Atlas: a map stored, a merge, save and load ----------
+    err15, rows15, launches15 = phase15_rows(dev, card)
+    err_b1 = max(err_b1, err15)
+    b1_rows.extend(rows15)
+    walls["phase 15"] = time.perf_counter()
 
     if opts.save_inputs:
         per_replay = {**per_site, **p10["sites"]}
@@ -1808,7 +2111,7 @@ def main(argv=None) -> int:
     for k in launches:
         launches[k] += sum(run[k] for run in (launches5, launches6, launches8, p10["launches"],
                                               p11["launches"], p12["rgbd"], p12["raw"],
-                                              p13["launches"], p14["launches"]))
+                                              p13["launches"], p14["launches"], launches15))
     lm = next(r for r in b1_rows if r["call"] == "local map")  # the kernel's headline call
     record = {"kernels": [
         {"name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",
@@ -1827,7 +2130,55 @@ def main(argv=None) -> int:
          "device_us": lm["device_us"], "call_us": lm["call_us"], "bound_us": lm["bound_us"],
          "launches_per_replay": launches6["hamming_top2"], "calls": b1_rows},
     ]}
+    return finish(walls, record)
+
+
+def phase15_rows(dev, card: str):
+    """Phase 15, then B1 at its two new calls (the merge's verification
+    match, the weld fuse) exact against plain and timed. Returns (the largest
+    B1 difference, the rows, the phase's launches)."""
+    from orbslam3_tpu_torch import kernel_bench as KB
+    from orbslam3_tpu_torch.ops import _build, cuda_match
+
+    p15 = phase15_multimap(dev)
+    err, rows = 0.0, []
+    n_kf = sum(p15["rep"].keyframe)
+    for site, a in p15["args"].items():
+        got = cuda_match.hamming_top2(*a)
+        with _build.force_plain():
+            ref = cuda_match.hamming_top2(*a)
+        torch.cuda.synchronize()
+        for what, k_, p_ in zip(("d1", "d2", "j1"), got, ref):
+            check(torch.equal(k_, p_), f"B1 {site} (phase 15): {what} differs from plain")
+        err = max(err, float((got[0] - ref[0]).abs().max()), float((got[1] - ref[1]).abs().max()))
+        t = KB.time_b1(a)
+        with _build.force_plain():
+            plain_ms = KB.call_us(lambda: cuda_match.hamming_top2(*a), iters=10) / 1e3
+        bd = KB.b1_bound(*a)
+        n15 = p15["sites"][site]
+        rows.append({"call": site, "shape": [a[0].shape[0], a[1].shape[0]],
+                     "windowed": a[3] is not None, **t, "plain_ms": plain_ms,
+                     "bound_us": bd["bound_us"], "bound_by": bd["bound_by"],
+                     "in_window_pairs": bd["pairs"], "launches_per_replay": n15,
+                     "replay": "phase 15", "keyframes": n_kf})
+        print(f"phase 15 B1 {site} {a[0].shape[0]}x{a[1].shape[0]} "
+              f"{'windowed' if a[3] is not None else 'unwindowed'}: exact vs plain; device "
+              f"{t['device_us']:.2f} us (graph of {KB.GRAPH_CALLS}), call {t['call_us']:.2f} us, "
+              f"profiler {t['profiler_us']} us, bound {bd['bound_us']:.3f} us ({bd['bound_by']}; "
+              f"{bd['bytes']} bytes, {bd['pairs']} pairs to popcount), plain {plain_ms:.4f} ms; "
+              f"{n15} launches in the phase-15 replay [{card}]")
+    for site in ("motion model", "local map", "fuse into a neighbour", "fuse into the keyframe",
+                 "cross-check", "loop verify match", "reloc reference-keyframe match"):
+        print(f"phase 15 B1 {site}: {p15['sites'][site]} launches in the phase-15 replay")
+    return err, rows, p15["launches"]
+
+
+def finish(walls: dict, record: dict) -> int:
+    """The wall time per phase, the kernels' record, the last line."""
     names = list(walls)
+    from orbslam3_tpu_torch.optim import graphed
+
+    print(f"pose solves: {graphed.CAPTURES} CUDA graphs captured, {graphed.REPLAYS} replays")
     print("wall per phase (s): " + ", ".join(
         f"{b} {walls[b] - walls[a]:.1f}" for a, b in zip(names, names[1:]))
         + f"; whole script {time.perf_counter() - walls['start']:.1f}")

@@ -408,9 +408,9 @@ def erase_keyframe(state: MapState, slot: int) -> MapState:
 
 class MapStore:
     """Host-side owner of one map on `device` (None: the first CUDA card,
-    raising where there is none): slot allocation, keyframe timestamps, and
-    host mirrors of derived structures, each cached until `change_index`
-    moves (`bump`)."""
+    raising where there is none): slot allocation, keyframe timestamps and
+    source frame numbers, and host mirrors of derived structures, each cached
+    until `change_index` moves (`bump`)."""
 
     def __init__(self, Kmax: int = 256, Pmax: int = 16384, Nf: int = 1024, device=None):
         self.device = require_cuda() if device is None else torch.device(device)
@@ -418,6 +418,7 @@ class MapStore:
         self.n_kf = 0
         self.n_mp = 0
         self.kf_ts = np.zeros(Kmax, np.float64)
+        self.kf_frame_id = np.zeros(Kmax, np.int64)  # the frame each keyframe was made from
         self.free_mp_slots: list[int] = []
         self.free_kf_slots: list[int] = []
         self.change_index = 0  # ref Map::GetMapChangeIndex

@@ -24,8 +24,10 @@ depth) on a stream of frames rendered by `scripts/make_synth_euroc.py`
 (752x480, the synthetic room's circle), 1000 features on 8 levels, Kmax
 256, Pmax 16384, scored by the Sim3 and the SE3 ATE against the rendered
 camera centres; with a vocabulary, place recognition on, over a shortened
-lap and a kidnap (earlier images at later timestamps). The inertial sensors
-add the script's 200 Hz IMU stream: monocular-inertial (config 3),
+lap and a kidnap (earlier images at later timestamps); with `multimap`, the
+Atlas too, over a lap with a blind interval (a covered lens: the map is
+stored, a new one starts, and the two merge when the camera returns). The
+inertial sensors add the script's 200 Hz IMU stream: monocular-inertial (config 3),
 stereo-inertial on the rectified pair, and config 4, the stereo-inertial
 two-camera fisheye rig of `make_synth_euroc.py --fisheye` (512x512
 Kannala-Brandt 8 cameras 0.15 m apart in a smaller room).
@@ -535,7 +537,7 @@ def synth_euroc():
 def euroc_frames(n_frames: int, seed: int = 0, t_loop: float | None = None,
                  kidnap: tuple[int, int] | None = None, stereo: bool = False,
                  raw: bool = False, depth: bool = False, imu: bool = False,
-                 fisheye: bool = False):
+                 fisheye: bool = False, blind: tuple[int, int] | None = None):
     """(timestamps (n,), uint8 images, camera centres (n, 3)) of the synthetic
     sequence, rendered as the script's `main` renders them: t = k / 20 s,
     then sensor noise of 1.5 grey levels from the same generator as the
@@ -561,7 +563,11 @@ def euroc_frames(n_frames: int, seed: int = 0, t_loop: float | None = None,
     `t_loop` sets the script's lap length (`T_LOOP`, seconds; its default
     60 s when None). `kidnap` = (at, src): frame k >= at shows the scene of
     frame src + k - at, still at time k / 20 s (a camera carried back along
-    its path, timestamps increasing), and its centre is that frame's."""
+    its path, timestamps increasing), and its centre is that frame's.
+    `blind` = (at, n): frames at ... at + n - 1 are a uniform grey 35 image
+    (a covered lens, both cameras of a pair); the camera moves on along its
+    path, and the noise of those frames is still drawn, so every other frame
+    is the one the sequence without `blind` has."""
     M = synth_euroc()
     R_raw, dirs, dirs_r, baseline = np.eye(3), None, None, M.BASELINE_M
     if fisheye:  # the script's --fisheye room and rig
@@ -585,16 +591,25 @@ def euroc_frames(n_frames: int, seed: int = 0, t_loop: float | None = None,
     def noisy(img):
         return np.clip(img + rng.normal(0, 1.5, img.shape), 0, 255).astype(np.uint8)
 
+    shape = (M.H, M.W) if dirs is None else dirs.shape[:2]
+
+    def view(R_render, p, dirs_i, covered):
+        if covered:  # a covered lens; its noise is drawn all the same
+            noisy(np.zeros(shape))
+            return np.full(shape, 35, np.uint8)
+        return noisy(M.render(tex, R_render, p, dirs=dirs_i))
+
     ts, imgs, centres, depths = [], [], [], []
     for k in range(n_frames):
         t = k / M.CAM_HZ
         src = k if kidnap is None or k < kidnap[0] else kidnap[1] + k - kidnap[0]
         R_wc, p = M.pose_at(src / M.CAM_HZ)
         R_render = R_wc @ R_raw if raw else R_wc
-        img = noisy(M.render(tex, R_render, p, dirs=dirs))
+        covered = blind is not None and blind[0] <= k < blind[0] + blind[1]
+        img = view(R_render, p, dirs, covered)
         if stereo:
             p_r = p + R_wc @ np.array([baseline, 0.0, 0.0])
-            img = np.stack([img, noisy(M.render(tex, R_render, p_r, dirs=dirs_r))])
+            img = np.stack([img, view(R_render, p_r, dirs_r, covered)])
         imgs.append(img)
         if depth:
             depths.append(ray_depth(M, R_wc, p))
@@ -720,6 +735,13 @@ class ReplayResult(NamedTuple):
     viba2: int | None = None  # the frame of VIBA2
     pi_taken: list = []  # per frame: whether the pose-inertial result was taken
     inertial_ms: dict = {}  # per inertial call: list of (frame, host ms, device ms)
+    # Multi-map (`multimap=True`; empty otherwise):
+    n_maps: list = []  # per frame: the Atlas's map count after it
+    stored: list = []  # per stored map: dict(frame, n_kf of the map stored)
+    merges: list = []  # per merge: dict(frame, kf, cand, R, t, s (the world Sim3), n_kf_active
+    #                    (the merged map's keyframes), n_kf (the target's after it))
+    multimap_ms: dict = {}  # per span ("try merge", "merge: ..."): list of (frame, host ms,
+    #                         device ms)
 
     def frame_kinds(self) -> list:
         """Each frame's kind: "init" (before the first OK), "lost" (not OK),
@@ -758,11 +780,11 @@ def vi_calib(device, cfg: dict = EUROC_MONO_VI):
 
 
 @functools.lru_cache(maxsize=1)
-def _rendered(sensor: str, n_frames: int, seed: int, t_loop, kidnap):
+def _rendered(sensor: str, n_frames: int, seed: int, t_loop, kidnap, blind=None):
     """`euroc_frames` for a replay of `sensor`; the last sequence is kept, so
     a replay of a prefix of the same sequence (`n_track`, the plain run
     after the kernels' one) does not render it again."""
-    return euroc_frames(n_frames, seed, t_loop=t_loop, kidnap=kidnap,
+    return euroc_frames(n_frames, seed, t_loop=t_loop, kidnap=kidnap, blind=blind,
                         stereo=sensor in ("stereo", "stereo_vi"), raw=sensor == "raw_stereo",
                         depth=sensor == "rgbd", imu=sensor in INERTIAL_SENSORS,
                         fisheye=sensor == "stereo_vi_fisheye")
@@ -776,7 +798,8 @@ def mono_replay(device, n_frames: int, **kw) -> ReplayResult:
 def replay(device, sensor: str, n_frames: int, seed: int = 0,
            orb: feat.OrbParams = EUROC_MONO["orb"], vocabulary: str | None = None,
            t_loop: float | None = None, kidnap: tuple[int, int] | None = None,
-           on_frame: Callable | None = None, n_track: int | None = None) -> ReplayResult:
+           on_frame: Callable | None = None, n_track: int | None = None,
+           multimap: bool = False, blind: tuple[int, int] | None = None) -> ReplayResult:
     """Drive the `System` of `sensor` with ORB parameters `orb` over the
     first `n_frames` of the synthetic EuRoC sequence on `device` and score
     it against the rendered camera centres. `sensor` is one of `SENSORS`:
@@ -804,7 +827,17 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
     called after each frame. `n_track` tracks only the first frames of the
     `n_frames` rendered: "mono_vi"'s IMU noise is drawn after every image,
     so a shorter sequence has other IMU samples, and a prefix of a run is
-    this."""
+    this.
+
+    `multimap` (with a vocabulary) enables the Atlas after place recognition,
+    as `scripts/run_sequence.py` does, and records per frame the map count,
+    each stored map (its frame and keyframe count), each merge (its frame,
+    keyframe pair, world Sim3) and the ms of each multi-map span: "try
+    merge" on each keyframe frame of a map while another is stored, and
+    `_do_merge`'s split ("merge: merge maps", "merge: weld fuse", "merge:
+    weld BA", "merge: essential graph", "merge: GBA start"). `blind` =
+    (at, n) covers the lens for n frames from frame `at` (`euroc_frames`);
+    the ATEs are then over the other frames."""
     from orbslam3_tpu_torch.ate import associate, umeyama
     from orbslam3_tpu_torch.io.vocab_io import load_binary_vocabulary
     from orbslam3_tpu_torch.ops import cuda_fast, cuda_match
@@ -815,8 +848,13 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
     t0 = time.perf_counter()
     inertial = sensor in INERTIAL_SENSORS
     fisheye = sensor == "stereo_vi_fisheye"
-    frames = _rendered(sensor, n_frames, seed, t_loop, kidnap)
+    if multimap and vocabulary is None:
+        raise ValueError("multimap needs a vocabulary")
+    frames = _rendered(sensor, n_frames, seed, t_loop, kidnap, blind)
     gt_ts, imgs, gt_pos = frames[:3]
+    seen = np.ones(n_frames, bool)  # the frames the ATE is scored on
+    if blind is not None:
+        seen[blind[0]:blind[0] + blind[1]] = False
     imu = imu_batches(gt_ts, frames[3]) if inertial else None
     render_s = time.perf_counter() - t0
     dev = torch.device(device)
@@ -845,12 +883,15 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
 
     loops = []
     if vocabulary is not None:
-        slam.enable_place_recognition(load_binary_vocabulary(vocabulary, dev))
+        voc = load_binary_vocabulary(vocabulary, dev)
+        slam.enable_place_recognition(voc)
+        if multimap:
+            slam.enable_multimap(voc)
         frame_no = [0]
 
         def on_correction(phase, kf_id, loop_kf):
             ts, pos = slam.get_trajectory()
-            ate = ate_rmse(ts, pos, gt_ts, gt_pos, with_scale=True, max_dt=0.01)
+            ate = ate_rmse(ts, pos, gt_ts[seen], gt_pos[seen], with_scale=True, max_dt=0.01)
             if phase == "before":
                 loops.append(dict(kf=int(kf_id), loop_kf=int(loop_kf), frame=frame_no[0],
                                   ate_before=ate))
@@ -862,14 +903,17 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
     states, keyframe, ms, syncs, b2, b1, chunks = [], [], [], [], [], [], []
     vi_frames = dict(init=None, kfs=None, viba1=None, viba2=None)
     pi_taken = []
+    n_maps, stored, merges = [], [], []
+    mm = slam.multimap
     timer = spans.Recorder(cuda)
-    with timer if inertial else contextlib.nullcontext():
+    with timer if inertial or multimap else contextlib.nullcontext():
         for k, t in enumerate(gt_ts[:n_track]):
             timer.frame = k
             if vocabulary is not None:
                 frame_no[0] = k
             n2, n1 = cuda_fast.LAUNCHES, cuda_match.LAUNCHES
             n_chunks = gba.n_chunks if gba is not None else 0
+            store0, merges0 = slam.store, mm.n_merges if mm is not None else 0
             if cuda:
                 torch.cuda.synchronize(dev)
                 torch.cuda.set_sync_debug_mode("warn")
@@ -887,6 +931,16 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
             b2.append(cuda_fast.LAUNCHES - n2)
             b1.append(cuda_match.LAUNCHES - n1)
             chunks.append(gba is not None and gba.n_chunks > n_chunks)
+            if mm is not None:
+                if mm.atlas.n_maps > (n_maps[-1] if n_maps else 1) and store0 in mm.atlas.maps:
+                    stored.append(dict(frame=k, n_kf=store0.n_kf))
+                if mm.n_merges > merges0:
+                    v = mm.last_verify
+                    R, tw, sw = v["world"]
+                    merges.append(dict(frame=k, kf=v["kf"], cand=v["cand"], R=R.tolist(),
+                                       t=tw.tolist(), s=sw, n_kf_active=store0.n_kf,
+                                       n_kf=slam.store.n_kf))
+                n_maps.append(mm.atlas.n_maps)
             if inertial:
                 pi_taken.append(slam.tracker.pi_taken)
                 ini = slam.mapper.imu_init
@@ -900,9 +954,10 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
                 on_frame(k, slam)
     slam.shutdown()
     ts, pos = slam.get_trajectory()
-    ate = ate_rmse(ts, pos, gt_ts, gt_pos, with_scale=True, max_dt=0.01)
-    ia, ib = associate(ts, gt_ts, 0.01)
-    scale = (float(umeyama(pos[ia], gt_pos[ib], with_scale=True)[0]) if len(ia) >= 3
+    gt_ts_s, gt_pos_s = gt_ts[seen], gt_pos[seen]
+    ate = ate_rmse(ts, pos, gt_ts_s, gt_pos_s, with_scale=True, max_dt=0.01)
+    ia, ib = associate(ts, gt_ts_s, 0.01)
+    scale = (float(umeyama(pos[ia], gt_pos_s[ib], with_scale=True)[0]) if len(ia) >= 3
              else float("nan"))
     lost, reloc = [], None
     if kidnap is not None:
@@ -912,11 +967,14 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
     return ReplayResult(ts=ts, pos=pos, gt_ts=gt_ts, gt_pos=gt_pos, states=states,
                         keyframe=keyframe, ms=ms, syncs=syncs, b2=b2, b1=b1, gba_chunk=chunks,
                         n_kf=slam.n_keyframes, n_mp=slam.n_map_points, ate=ate,
-                        ate_se3=ate_rmse(ts, pos, gt_ts, gt_pos, with_scale=False, max_dt=0.01),
+                        ate_se3=ate_rmse(ts, pos, gt_ts_s, gt_pos_s, with_scale=False,
+                                         max_dt=0.01),
                         scale=scale, render_s=render_s, loops=loops,
                         gba_finished=gba.n_finished if gba is not None else 0,
                         gba_aborted=gba.n_aborted if gba is not None else 0,
                         lost=lost, relocalized=reloc, system=slam,
                         imu_init_frame=vi_frames["init"], imu_init_kfs=vi_frames["kfs"],
                         viba1=vi_frames["viba1"], viba2=vi_frames["viba2"], pi_taken=pi_taken,
-                        inertial_ms=timer.result() if inertial else {})
+                        inertial_ms=timer.result() if inertial else {}, n_maps=n_maps,
+                        stored=stored, merges=merges,
+                        multimap_ms=timer.result() if multimap else {})

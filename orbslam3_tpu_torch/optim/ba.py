@@ -135,7 +135,7 @@ def _robust_cost(chi2, ok, is_stereo, n_struct=None):
                       2.0 * torch.sqrt(d2 * torch.clamp(chi2, min=1e-12)) - d2)
     cost = torch.sum(torch.where(ok, rho, 0.0))
     if n_struct is not None:
-        cost = cost + 1e3 * (n_struct - torch.sum(ok.to(torch.float32)))
+        cost = cost + 1e3 * (n_struct - torch.sum(ok.to(cost.dtype)))
     return cost
 
 
@@ -251,7 +251,7 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
     fixed_w = fixed[:n_opt]
     oc = prob.obs_cam.to(torch.int64)
     op = prob.obs_point.to(torch.int64)
-    n_struct = torch.sum((prob.obs_valid & prob.point_valid[op]).to(torch.float32))
+    n_struct = torch.sum((prob.obs_valid & prob.point_valid[op]).to(dtype))
     active = torch.ones_like(prob.obs_valid)
 
     # A (point, camera) pair holds at most one observation, so the coupling
@@ -339,7 +339,7 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
 
     base = (prob.cam_R, prob.cam_t, prob.points)
     lin = linearize_pack(*base)
-    lam = torch.full((), 1e-4, dtype=torch.float32, device=dev)
+    lam = torch.full((), 1e-4, dtype=dtype, device=dev)
     cand = damped_step(lin, base, lam)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(iters):

@@ -35,7 +35,7 @@ from orbslam3_tpu_torch import convert
 from orbslam3_tpu_torch.ops import cameras as cam
 from orbslam3_tpu_torch.ops import imu as imu_ops
 from orbslam3_tpu_torch.ops import lie
-from orbslam3_tpu_torch.optim import lm
+from orbslam3_tpu_torch.optim import graphed, lm
 from orbslam3_tpu_torch.optim.inertial import imu_residual, imu_residual_jac
 from orbslam3_tpu_torch.optim.pose_only import PoseObs
 
@@ -200,7 +200,25 @@ def optimize_pose_inertial(model: cam.CameraModel, params: torch.Tensor, obs: Po
     """The LastKeyFrame variant: the anchor keyframe's body state (R_kf ..
     ba_kf) is fixed, `pre` integrates keyframe -> frame, (R0_wb, p0_wb, v0)
     is the initial guess (the IMU prediction) and the biases start at the
-    keyframe's. `H` is J^T J of the 15-dof block at the solution."""
+    keyframe's. `H` is J^T J of the 15-dof block at the solution. On a CUDA
+    device the solve is replayed from a CUDA graph (`graphed.run`)."""
+    return graphed.run(_last_kf_flat, (model, bf, rounds, iters_per_round),
+                       (params, *obs, Rbc, tbc, R_kf, p_kf, v_kf, bg_kf, ba_kf, *pre, R0_wb,
+                        p0_wb, v0))
+
+
+def _last_kf_flat(model, bf, rounds, iters_per_round, params, *rest):
+    obs, rest = PoseObs(*rest[:5]), rest[5:]
+    anchor, pre, init = rest[:7], imu_ops.Preintegrated(*rest[7:19]), rest[19:]
+    return optimize_pose_inertial_eager(model, params, obs, *anchor, pre, *init, bf=bf,
+                                        rounds=rounds, iters_per_round=iters_per_round)
+
+
+def optimize_pose_inertial_eager(model: cam.CameraModel, params: torch.Tensor, obs: PoseObs, Rbc,
+                                 tbc, R_kf, p_kf, v_kf, bg_kf, ba_kf,
+                                 pre: imu_ops.Preintegrated, R0_wb, p0_wb, v0, bf: float = 0.0,
+                                 rounds: int = 4, iters_per_round: int = 5) -> PoseInertialResult:
+    """`optimize_pose_inertial` op by op."""
     L_imu, L_rw = _whitening(pre)
     g = imu_ops.gravity(obs.uv.device, obs.uv.dtype)
 
@@ -239,11 +257,28 @@ def optimize_pose_inertial_last_frame(model: cam.CameraModel, params: torch.Tens
     the PSD cone by `psd_clamp` here, then uploaded without a sync); `pre`
     integrates last frame -> frame, whose edge reads the last frame's
     biases. On return `H` is the 15x15 prior of the current frame, the
-    Schur complement of the last frame in the 30x30 system."""
+    Schur complement of the last frame in the 30x30 system. On a CUDA
+    device the solve after the upload is replayed from a CUDA graph."""
+    Hp = convert.tensor(psd_clamp(H_prior), obs.uv.device)
+    return graphed.run(_last_frame_flat, (model, bf, rounds, iters_per_round),
+                       (params, *obs, Rbc, tbc, R_lf, p_lf, v_lf, bg_lf, ba_lf, Hp, *pre, R0_wb,
+                        p0_wb, v0))
+
+
+def _last_frame_flat(model, bf, rounds, iters_per_round, params, *rest):
+    obs, rest = PoseObs(*rest[:5]), rest[5:]
+    anchor, pre, init = rest[:8], imu_ops.Preintegrated(*rest[8:20]), rest[20:]
+    return _last_frame_solve(model, params, obs, *anchor, pre, *init, bf=bf, rounds=rounds,
+                             iters_per_round=iters_per_round)
+
+
+def _last_frame_solve(model, params, obs: PoseObs, Rbc, tbc, R_lf, p_lf, v_lf, bg_lf, ba_lf, Hp,
+                      pre: imu_ops.Preintegrated, R0_wb, p0_wb, v0, bf, rounds,
+                      iters_per_round) -> PoseInertialResult:
+    """`optimize_pose_inertial_last_frame` after the prior's upload, op by op."""
     dev, dt = obs.uv.device, obs.uv.dtype
     L_imu, L_rw = _whitening(pre)
     eye15 = torch.eye(15, dtype=dt, device=dev)
-    Hp = convert.tensor(psd_clamp(H_prior), dev)
     L_pr = torch.linalg.cholesky_ex(Hp + 1e-6 * eye15).L
     g = imu_ops.gravity(dev, dt)
 

@@ -29,7 +29,7 @@ import torch
 
 from orbslam3_tpu_torch.ops import cameras as cam
 from orbslam3_tpu_torch.ops import lie
-from orbslam3_tpu_torch.optim import lm
+from orbslam3_tpu_torch.optim import graphed, lm
 
 
 class PoseObs(NamedTuple):
@@ -131,7 +131,31 @@ def optimize_pose(model: cam.CameraModel, params: torch.Tensor, R0: torch.Tensor
     `obs_r` (with `params_r`, `R_rl`, `t_rl`): a two-camera rig's right-camera
     rows, one per left feature with a right match. They enter H and b beside
     the left rows, gate at the 2-DoF chi2 and are re-gated each round; the
-    returned inlier and chi2 arrays stay left-indexed."""
+    returned inlier and chi2 arrays stay left-indexed. On a CUDA device the
+    solve is replayed from a CUDA graph (`graphed.run`); `optimize_pose_eager`
+    issues the same ops one by one."""
+    tensors = (params, R0, t0, *obs)
+    if obs_r is not None:
+        tensors += (*obs_r, params_r, R_rl, t_rl)
+    return graphed.run(_optimize_pose_flat, (model, bf, rounds, iters_per_round,
+                                             obs_r is not None), tensors)
+
+
+def _optimize_pose_flat(model, bf, rounds, iters_per_round, two_cam, params, R0, t0, *rest):
+    obs = PoseObs(*rest[:5])
+    if not two_cam:
+        return optimize_pose_eager(model, params, R0, t0, obs, bf, rounds, iters_per_round)
+    return optimize_pose_eager(model, params, R0, t0, obs, bf, rounds, iters_per_round,
+                               PoseObs(*rest[5:10]), *rest[10:])
+
+
+def optimize_pose_eager(model: cam.CameraModel, params: torch.Tensor, R0: torch.Tensor,
+                        t0: torch.Tensor, obs: PoseObs, bf: float = 0.0, rounds: int = 4,
+                        iters_per_round: int = 10, obs_r: Optional[PoseObs] = None,
+                        params_r: Optional[torch.Tensor] = None,
+                        R_rl: Optional[torch.Tensor] = None,
+                        t_rl: Optional[torch.Tensor] = None) -> PoseResult:
+    """`optimize_pose` op by op."""
     dev, dt = R0.device, R0.dtype
     eye6 = torch.eye(6, dtype=dt, device=dev)
     R, t = R0, t0

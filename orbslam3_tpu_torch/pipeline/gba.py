@@ -18,8 +18,6 @@ their anchors (`LoopClosing.cc:2559-2680`).
 
 from __future__ import annotations
 
-import weakref
-
 import numpy as np
 import torch
 
@@ -103,22 +101,22 @@ class AsyncGBA:
         self._valid0_mp = s.mp_valid.cpu().numpy().copy()
         self._first0 = s.mp_first_kf.cpu().numpy().copy()
         self._ts0 = store.kf_ts.copy()
-        self._store_ref = weakref.ref(store)  # the snapshot's map, while it lives
         self._R0, self._t0 = s.kf_R, s.kf_t
 
     def abort(self):
-        """Drop the in-flight solve; the map keeps its pose-graph state."""
+        """Drop the in-flight solve and its snapshot; the map keeps its
+        pose-graph state."""
         if self.running:
             self._state = None
+            self._R0 = self._t0 = None
             self.n_aborted += 1
 
     def tick(self, store: st.MapStore) -> bool:
         """Launch one chunk of iterations; True when the solve just finished
-        and its result was folded into `store`."""
+        and its result was folded into `store`, the map it was started on:
+        whatever makes another map active (`System._attach_store`,
+        `MultiMapManager._do_merge`) aborts the solve first."""
         if not self.running:
-            return False
-        if self._store_ref() is not store:  # reset: the snapshot is another map's
-            self.abort()
             return False
         n = min(self.chunk, self.iters - self._it)
         self._state, _ = gba_step(self.model, self.params, self._state, self._fixed,

@@ -459,6 +459,10 @@ class Tracker:
         self.time_lost: Optional[float] = None  # ref mTimeStampLost
         self.last_reloc_frame_id = -(10**9)
         self.last_kf_frame_id = -(10**9)
+        # Localization mode (`System::ActivateLocalizationMode` ->
+        # `Tracking::InformOnlyTracking`): track against the frozen map and
+        # never insert a keyframe.
+        self.only_tracking = False
         # Inertial plumbing (ref Tracking.cc:621-850).
         self.imu_calib = imu_calib
         if imu_calib is not None:
@@ -992,7 +996,8 @@ class Tracker:
             Rwc, twc = Rl.T, -Rl.T @ tl
             self.velocity = (cur.R @ Rwc, cur.R @ twc + cur.t)
 
-        if self._need_new_keyframe(cur, n_inl, int(b["ref_matches"])):
+        if not self.only_tracking and self._need_new_keyframe(cur, n_inl,
+                                                              int(b["ref_matches"])):
             self._create_keyframe(cur)
         return True
 
@@ -1231,6 +1236,7 @@ class Tracker:
             vel=imu[0:3], bias_g=imu[3:6], bias_a=imu[6:9], prev_kf=self.last_kf_id,
         )
         self.store.kf_ts[slot] = cur.timestamp
+        self.store.kf_frame_id[slot] = cur.frame_id
         if self.is_stereo_like and cur.depth is not None:
             self._create_depth_points(cur, slot)
         self.store.bump()
@@ -1239,11 +1245,17 @@ class Tracker:
         self.last_kf_frame_id = cur.frame_id
         preint, self.pre_from_kf = self.pre_from_kf, None
         self._map_transformed = False
-        if self.new_kf_callback is not None and (
-                self.new_kf_callback(slot, initial=False, preint=preint)
-                or self._map_transformed):
-            # A loop correction (fault C12) or the IMU initialization's
-            # gravity and scale alignment (fault C13) moved the map under
+        store_before = self.store
+        moved = self.new_kf_callback is not None and (
+            self.new_kf_callback(slot, initial=False, preint=preint) or self._map_transformed)
+        # A merge (`pipeline/multimap.py`) moves the map, this keyframe with
+        # it, into another store's slot by the merge's Sim3: `last_kf_id`
+        # follows the keyframe.
+        migrated = self.store is not store_before or self.last_kf_id != slot
+        slot = self.last_kf_id
+        if moved or migrated:
+            # A loop correction (fault C12), the IMU initialization's gravity
+            # and scale alignment (fault C13) or a merge moved the map under
             # this frame: the frame takes its keyframe's pose, as ORB-SLAM3's
             # UpdateLastFrame / UpdateFrameIMU give it to the next frame.
             cur.R = self.store.state.kf_R[slot].cpu().numpy()

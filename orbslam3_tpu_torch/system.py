@@ -28,10 +28,20 @@ before `track_stereo`. `enable_place_recognition(vocabulary)` attaches a
 keyframe database and a `LoopCloser` (relocalization of a lost map, loop
 closing, the background global BA, one chunk of it after each frame), all
 on the system's device (an inertial one closes loops with the scale fixed
-and the 4-DoF essential graph). Not ported yet: the Atlas's multi-map
-(A13); atlas save/load, the trajectory writers, the settings file's
-parsing, asynchronous mapping and localization mode (A14); the PCG and
-sharded solvers (A15).
+and the 4-DoF essential graph). `enable_multimap(vocabulary)` adds the
+Atlas (`pipeline/multimap.py`): a map that stays LOST is stored and a
+fresh one starts (an inertial gap after the IMU initialization does the
+same), and place recognition merges the active map back into a stored one
+(the weld fuse, the weld BA, the essential graph, the post-merge GBA).
+`save_atlas(path)` / `load_atlas(path)` write and read every map in the JAX
+package's format (a loaded atlas goes onto the system's device, and
+tracking relocalizes into it); `activate_localization_mode()` tracks
+against a frozen map (no keyframes, so no mapping, loop closing or map
+storing); `save_trajectory_tum`, `_kitti`, `_euroc` and
+`save_keyframe_trajectory_tum`, `_euroc` write the trajectory files
+(`io/trajectory.py`). Not ported yet: the settings file's parsing, the
+dataset loaders, asynchronous mapping, the stream server and the viewer
+(A14); the PCG and sharded solvers and the distributed Atlas (A15).
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ import torch
 
 from orbslam3_tpu_torch.atlas.store import MapStore
 from orbslam3_tpu_torch.device import require_cuda
+from orbslam3_tpu_torch.io import trajectory as traj_io
 from orbslam3_tpu_torch.ops import cameras as cam
 from orbslam3_tpu_torch.ops import features as feat
 from orbslam3_tpu_torch.ops import imu as imu_ops
@@ -99,6 +110,7 @@ class System:
         self.tracker.new_kf_callback = self._on_new_keyframe
         self.tracker.anomaly_cb = self._on_timestamp_anomaly
         self.loop_closer = None
+        self.multimap = None  # MultiMapManager (enable_multimap)
         # Consumers of a keyframe after its mapping pass (the LocalMapping ->
         # LoopClosing hand-off, `LocalMapping.cc:280`).
         self._kf_downstream = []
@@ -143,9 +155,29 @@ class System:
             self.loop_closer.gba_async = AsyncGBA(t.model, t.params, t.sigma2_table, bf=t.bf)
         self._kf_downstream.append(self.loop_closer.process_keyframe)
 
+    def enable_multimap(self, vocabulary, **kw):
+        """The Atlas's multi-map (`Tracking::CreateMapInAtlas`,
+        `LoopClosing::MergeLocal`): a map that stays LOST is stored and a
+        fresh one starts; a stored map found again by place recognition
+        takes the active map in. The vocabulary goes to the system's device;
+        `kw` are `MultiMapManager`'s thresholds."""
+        from orbslam3_tpu_torch.pipeline.multimap import MultiMapManager
+
+        self.multimap = MultiMapManager(self, vocabulary, **kw)
+        self._kf_downstream.append(self.multimap.on_new_keyframe)
+
     @property
     def n_loops_closed(self) -> int:
         return 0 if self.loop_closer is None else self.loop_closer.n_loops_closed
+
+    def activate_localization_mode(self):
+        """`System::ActivateLocalizationMode`: tracking goes on against the
+        frozen map; no keyframes, so no mapping and no loop closing."""
+        self.tracker.only_tracking = True
+
+    def deactivate_localization_mode(self):
+        """`System::DeactivateLocalizationMode`."""
+        self.tracker.only_tracking = False
 
     def shutdown(self):
         """`System::Shutdown` (`System.cc:474`): run a background GBA to its
@@ -156,11 +188,14 @@ class System:
 
     def _on_timestamp_anomaly(self, kind: str):
         """`Tracking::Track` (Tracking.cc:987-1031): a reordered frame
-        ("reorder") or an inertial gap of more than 1 s ("gap_uninit",
-        "gap_init") resets the active map. With a multi-map atlas (A13) the
-        reference keeps an initialized map on "gap_init" and starts a new
-        one; without one, as here, it resets."""
-        self.reset_active_map()
+        ("reorder") or an inertial gap of more than 1 s before the IMU
+        initialization ("gap_uninit") resets the active map; a gap after it
+        ("gap_init") keeps the gravity-aligned map in the Atlas and starts a
+        new one, or resets without an Atlas."""
+        if kind == "gap_init" and self.multimap is not None:
+            self.multimap._create_map()
+        else:
+            self.reset_active_map()
 
     def enable_rectification(self, rect_left, rect_right):
         """Raw (unrectified) pinhole stereo: the reference's LEFT./RIGHT.
@@ -227,6 +262,8 @@ class System:
             # The watchdog fired during mapping: too little motion to ever
             # initialize the IMU (`LocalMapping.cc:183-192`).
             self.reset_active_map()
+        elif self.multimap is not None:
+            self.multimap.on_frame_done()
         else:
             self._lost_recovery_fallback()
 
@@ -240,8 +277,9 @@ class System:
     def _lost_recovery_fallback(self):
         """Hard-LOST policy without a multi-map atlas: a map of <= 10
         keyframes that stays LOST for 5 frames is discarded and
-        initialization restarts; a larger one waits for relocalization."""
-        if self.tracker.state != TrackState.LOST:
+        initialization restarts; a larger one waits for relocalization.
+        Localization mode never changes the map."""
+        if self.tracker.state != TrackState.LOST or self.tracker.only_tracking:
             self._lost_streak = 0
             return
         self._lost_streak += 1
@@ -250,21 +288,49 @@ class System:
             self._lost_streak = 0
 
     def reset(self):
-        """`System::Reset`: drop the map and the trajectory."""
+        """`System::Reset`: drop every map, database and the trajectory."""
         self.tracker.reset_map_state(full=True)
         self._swap_fresh_store()
+        if self.multimap is not None:
+            self.multimap.atlas.maps = [self.store]
+            self.multimap.atlas.active_idx = 0
+            self.multimap.kfdbs = {}
+            self.multimap.lost_streak = 0
 
     def reset_active_map(self):
-        """`System::ResetActiveMap`: drop the map and its trajectory entries."""
+        """`System::ResetActiveMap`: drop the active map and its trajectory
+        entries; the Atlas's stored maps and their entries stay."""
+        old = self.store
         self.tracker.reset_map_state(full=False)
         self._swap_fresh_store()
+        if self.multimap is not None:
+            maps = self.multimap.atlas.maps
+            maps[maps.index(old)] = self.store
+            self.multimap.kfdbs.pop(old, None)
+            self.multimap.lost_streak = 0
 
     def _swap_fresh_store(self):
         s = self.store.state
-        new = MapStore(Kmax=s.Kmax, Pmax=s.Pmax, Nf=s.Nf, device=self.device)
-        self.store = new
-        self.tracker.store = new
-        self.mapper.store = new
+        self._attach_store(MapStore(Kmax=s.Kmax, Pmax=s.Pmax, Nf=s.Nf, device=self.device))
+
+    def _point_at(self, store: MapStore):
+        """The one place that points the tracker, the mapper and the loop
+        closer at `store` as the active map."""
+        self.store = store
+        self.tracker.store = store
+        self.mapper.store = store
+        self.mapper._covis_pin = None
+        if self.loop_closer is not None:
+            self.loop_closer.store = store
+
+    def _attach_store(self, new: MapStore):
+        """Make `new` the active map with fresh per-map state: the mapper's
+        recent points, preintegrations and IMU initialization, and the loop
+        closer's keyframe database (the tracker's too), pending loop and
+        loop edges. A background GBA of the previous map is aborted here
+        (`AsyncGBA.tick` folds into the map it is given and checks nothing)."""
+        # The asynchronous mapper (A14) drops its in-flight keyframes here.
+        self._point_at(new)
         self.mapper.recent_mp = []
         self.mapper.preints = {}
         self.mapper.bad_imu = False
@@ -277,11 +343,12 @@ class System:
 
             kfdb = KeyFrameDB(lc.kfdb.voc, Kmax=new.state.Kmax)
             lc.kfdb = kfdb
-            lc.store = new
             lc._pending = None
             lc.last_loop_kf = -10_000
             lc.loop_edges = []
             self.tracker.kfdb = kfdb
+            if lc.gba_async is not None:
+                lc.gba_async.abort()
 
     @property
     def tracking_state(self) -> TrackState:
@@ -301,3 +368,138 @@ class System:
         chained through the current keyframe poses."""
         rows = self.tracker.reconstructed_trajectory()
         return np.asarray([r[0] for r in rows]), np.asarray([r[2] for r in rows])
+
+    # -- Atlas checkpoint and resume (`System::SaveAtlas` / `LoadAtlas`) ---
+    def save_atlas(self, path: str):
+        """Write every map: the Atlas's with `enable_multimap`, else the
+        active map as an Atlas of one."""
+        from orbslam3_tpu_torch.atlas.atlas import Atlas
+
+        if self.multimap is not None:
+            atlas = self.multimap.atlas
+        else:
+            s = self.store.state
+            atlas = Atlas(Kmax=s.Kmax, Pmax=s.Pmax, Nf=s.Nf, device=self.device,
+                          maps=[self.store])
+        atlas.imu_initialized = bool(self.tracker.imu_ready)
+        atlas.save(path)
+
+    def load_atlas(self, path: str):
+        """Read a saved Atlas onto the system's device and make its active map
+        the system's; the keyframe databases are rebuilt from the stored
+        descriptors (derived state, as the reference's PostLoad rewiring,
+        `KeyFrameDatabase.cc:899-927`), and tracking drops to LOST so that
+        relocalization attaches the next frames to the loaded map."""
+        from orbslam3_tpu_torch.atlas.atlas import Atlas
+
+        atlas = Atlas.load(path, self.device)
+        act = atlas.active
+        self._attach_store(act)
+        if self.loop_closer is not None:
+            self._reindex_kfdb(self.loop_closer.kfdb, act)
+        if self.multimap is not None:
+            self.multimap.atlas = atlas
+            self.multimap.kfdbs = {}
+            self.multimap.lost_streak = 0
+            for m in atlas.maps:
+                self._reindex_kfdb(self.multimap._kfdb(m), m)
+        tr = self.tracker
+        tr.last_frame = None
+        tr.init_frame = None
+        tr.ref_kf = -1
+        tr.last_kf_id = -1
+        tr.velocity = None
+        tr.pre_from_kf = None
+        tr.frame_prior = None
+        tr._ref_pose = None
+        tr.imu_ready = bool(atlas.imu_initialized) and tr.imu_calib is not None
+        tr.state = TrackState.LOST if act.n_kf > 0 else TrackState.NOT_INITIALIZED
+
+    @staticmethod
+    def _reindex_kfdb(db, store: MapStore):
+        s = store.state
+        kf_valid = s.kf_valid.cpu().numpy()
+        for k in range(store.n_kf):
+            if kf_valid[k]:
+                db.add(k, s.kf_desc[k], s.kf_feat_valid[k])
+
+    # -- trajectory files (`System::SaveTrajectory*`, System.cc:524-1010) --
+    def _largest_map(self) -> MapStore:
+        maps = [self.store] if self.multimap is None else list(self.multimap.atlas.maps)
+        return max(maps, key=lambda m: int(m.state.kf_valid[: max(m.n_kf, 1)].sum()))
+
+    def save_trajectory_tum(self, path: str):
+        """`System::SaveTrajectoryTUM`: every tracked frame's Twc."""
+        rows = self.tracker.reconstructed_trajectory()
+        traj_io.save_tum(path, [r[0] for r in rows], [r[1] for r in rows], [r[2] for r in rows])
+
+    def save_trajectory_kitti(self, path: str):
+        """`System::SaveTrajectoryKITTI`: one 3x4 row-major Twc per line."""
+        rows = self.tracker.reconstructed_trajectory()
+        traj_io.save_kitti(path, [r[1] for r in rows], [r[2] for r in rows])
+
+    def save_trajectory_euroc(self, path: str):
+        """`System::SaveTrajectoryEuRoC` (`System.cc:599-712`): the frames
+        tracked in the Atlas's largest map (by keyframes), re-rooted at its
+        first keyframe, as body-frame poses through Tbc for the inertial
+        sensors and camera poses otherwise. Trajectory entries always name a
+        live keyframe (culling re-roots them), so no parent chain is walked."""
+        big = self._largest_map()
+        kv = big.state.kf_valid[: big.n_kf].cpu().numpy()
+        if not kv.any():
+            open(path, "w").close()
+            return
+        first = int(np.flatnonzero(kv)[0])
+        kf_R = big.state.kf_R.cpu().numpy()
+        kf_t = big.state.kf_t.cpu().numpy()
+        R0wc = kf_R[first].T  # the first keyframe's Twc: the new world frame
+        t0wc = -R0wc @ kf_t[first]
+        tr = self.tracker
+        inertial = tr.imu_calib is not None
+        rows_ts, rows_R, rows_t = [], [], []
+        for ts, store_e, ref, R_cr, t_cr in tr.trajectory:
+            if store_e is not big:
+                continue
+            if ref >= 0:
+                R_cw = R_cr @ kf_R[ref]
+                t_cw = R_cr @ kf_t[ref] + t_cr
+            else:
+                R_cw, t_cw = R_cr, t_cr
+            R_cw2 = R_cw @ R0wc  # Tcw' = Tcw Twc(first)
+            t_cw2 = R_cw @ t0wc + t_cw
+            if inertial:
+                R_cw2, t_cw2 = tr.Rbc @ R_cw2, tr.Rbc @ t_cw2 + tr.tbc
+            Rw = R_cw2.T
+            rows_R.append(Rw)
+            rows_t.append(-Rw @ t_cw2)
+            rows_ts.append(ts)
+        traj_io.save_euroc(path, rows_ts, rows_R, rows_t)
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        """`System::SaveKeyFrameTrajectoryTUM`: the active map's keyframes in
+        slot order."""
+        s = self.store.state
+        ids = np.flatnonzero(s.kf_valid.cpu().numpy()[: self.store.n_kf])
+        kf_R = s.kf_R.cpu().numpy()
+        kf_t = s.kf_t.cpu().numpy()
+        traj_io.save_tum(path, self.store.kf_ts[ids], [kf_R[i].T for i in ids],
+                         [-kf_R[i].T @ kf_t[i] for i in ids])
+
+    def save_keyframe_trajectory_euroc(self, path: str):
+        """`System::SaveKeyFrameTrajectoryEuRoC` (`System.cc:722`): the
+        largest map's keyframes in slot order, body frame for the inertial
+        sensors."""
+        big = self._largest_map()
+        s = big.state
+        ids = np.flatnonzero(s.kf_valid.cpu().numpy()[: big.n_kf])
+        kf_R = s.kf_R.cpu().numpy()
+        kf_t = s.kf_t.cpu().numpy()
+        tr = self.tracker
+        Rwl, twl = [], []
+        for i in ids:
+            R_cw, t_cw = kf_R[i], kf_t[i]
+            if tr.imu_calib is not None:
+                R_cw, t_cw = tr.Rbc @ R_cw, tr.Rbc @ t_cw + tr.tbc
+            Rwl.append(R_cw.T)
+            twl.append(-R_cw.T @ t_cw)
+        traj_io.save_euroc(path, big.kf_ts[ids], Rwl, twl)

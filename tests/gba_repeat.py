@@ -5,11 +5,13 @@
     python tests/gba_repeat.py [--cpu-only]
 
 Runs `pipeline.gba.global_ba` twice on the first CUDA card and on the CPU
-with 1 and with 8 threads, and prints whether the two card runs are equal
-bit for bit, and the largest difference of the poses and points between
-the card and each CPU run and between the two CPU runs; then the card's
-name and power limit. `--cpu-only` runs the two CPU runs alone. Not a
-test: nothing collects it.
+with 1 and with 8 threads, all in float32, and once more on the CPU in
+float64 (the map, the camera and the octave variances cast up: the
+reference solve). Prints whether the two card runs are equal bit for bit,
+the largest difference of the poses and points between the card and each
+CPU run and between the two CPU runs, and each float32 solve's largest
+difference from the float64 one; then the card's name and power limit.
+`--cpu-only` runs the CPU solves alone. Not a test: nothing collects it.
 """
 
 from __future__ import annotations
@@ -36,16 +38,23 @@ K = 256
 FIELDS = ("kf_R", "kf_t", "mp_pos")
 
 
-def run(arrays, info, where: str, threads: int | None = None) -> dict:
+def run(arrays, info, where: str, threads: int | None = None,
+        dtype: torch.dtype = torch.float32) -> dict:
+    """The whole-map BA of the test's map on `where`, its float arrays, the
+    camera and the octave variances in `dtype`."""
     if threads is not None:
         torch.set_num_threads(threads)
+
+    def up(v):
+        x = torch.from_numpy(np.array(v)).to(where)
+        return x.to(dtype) if x.is_floating_point() else x
+
     store = st.MapStore(Kmax=K, Pmax=2048, Nf=256, device=where)
-    store.state = st.MapState(**{k: torch.from_numpy(np.array(v)).to(where)
-                                 for k, v in arrays.items()})
+    store.state = st.MapState(**{k: up(v) for k, v in arrays.items()})
     store.n_kf, store.n_mp, store.kf_ts = K, info["n_mp"], info["kf_ts"]
-    gba.global_ba(store, CameraModel.PINHOLE, torch.from_numpy(LS.PARAMS.copy()).to(where),
-                  torch.from_numpy(feat.sigma2(feat.OrbParams(n_levels=4))).to(where), bf=30.0)
-    return {k: getattr(store.state, k).cpu() for k in FIELDS}
+    gba.global_ba(store, CameraModel.PINHOLE, up(LS.PARAMS.copy()),
+                  up(feat.sigma2(feat.OrbParams(n_levels=4))), bf=30.0)
+    return {k: getattr(store.state, k).cpu().double() for k in FIELDS}
 
 
 def diff(a: dict, b: dict) -> dict:
@@ -65,13 +74,17 @@ def main(argv=None) -> int:
     arrays["mp_pos"][1:info["n_mp"]] += rng.normal(0, 0.05, (info["n_mp"] - 1, 3)).astype(
         np.float32)
     cpu1, cpu8 = run(arrays, info, "cpu", 1), run(arrays, info, "cpu", 8)
+    f64 = run(arrays, info, "cpu", 8, torch.float64)
     print(f"GBA {K} keyframes: CPU 1 thread vs 8 threads {diff(cpu1, cpu8)}")
+    print(f"GBA {K} keyframes: float64 vs CPU 1 thread {diff(cpu1, f64)}, "
+          f"vs CPU 8 threads {diff(cpu8, f64)}")
     if args.cpu_only:
         return 0
     a, b = run(arrays, info, "cuda"), run(arrays, info, "cuda")
     same = all(torch.equal(a[k], b[k]) for k in FIELDS)
     print(f"GBA {K} keyframes: two card runs equal bit for bit: {same}; card vs CPU 1 thread "
-          f"{diff(a, cpu1)}, card vs CPU 8 threads {diff(a, cpu8)}")
+          f"{diff(a, cpu1)}, card vs CPU 8 threads {diff(a, cpu8)}, card vs float64 "
+          f"{diff(a, f64)}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     return 0

@@ -2,7 +2,7 @@
 phase 10 replays on the card, on the CPU.
 
     JAX_PLATFORMS=cpu python tests/jax_loop_lap.py --t-loop 8 --frames 300 \
-        --kidnap-at 280 --kidnap-src 40 [--out FILE]
+        --kidnap-at 280 --kidnap-src 40 [--out FILE] [--init-out FILE.npz]
 
 Renders the synthetic EuRoC sequence of `scripts/make_synth_euroc.py`
 (seed 0) with its lap shortened to `--t-loop` seconds, runs
@@ -50,6 +50,7 @@ def main(argv=None):
     ap.add_argument("--kidnap-at", type=int, required=True)
     ap.add_argument("--kidnap-src", type=int, required=True)
     ap.add_argument("--out")
+    ap.add_argument("--init-out", help="an .npz of the two-view initialization's map")
     a = ap.parse_args(argv)
     t0 = time.time()
     gt_ts, imgs, gt_pos = E.euroc_frames(a.frames, 0, t_loop=a.t_loop,
@@ -71,11 +72,19 @@ def main(argv=None):
             loops[-1]["ate_after"] = ate
 
     slam.loop_closer.on_correction = on_correction
-    states = []
+    states, init = [], None
     for k, (t, img) in enumerate(zip(gt_ts, imgs)):
         frame[0] = k
         slam.track_monocular(img.astype(np.float32), float(t))
         states.append(slam.tracking_state.name)
+        if init is None and states[-1] == "OK":
+            s = slam.store.state
+            n = slam.store.n_kf
+            init = dict(frame=k, n_kf=n, n_mp=int(np.asarray(s.mp_valid).sum()))
+            if a.init_out:
+                np.savez(a.init_out, frame=k, kf_R=np.asarray(s.kf_R)[:n],
+                         kf_t=np.asarray(s.kf_t)[:n], mp_valid=np.asarray(s.mp_valid),
+                         mp_pos=np.asarray(s.mp_pos), kf_mp=np.asarray(s.kf_mp)[:n])
         print(k, states[-1], slam.store.n_kf, flush=True, file=sys.stderr)
     gba = slam.loop_closer.gba_async
     n_fin_before_join = gba.n_finished
@@ -86,7 +95,7 @@ def main(argv=None):
     reloc = next((k for k in range(a.kidnap_at, a.frames)
                   if states[k] == "OK" and k > a.kidnap_at and states[k - 1] != "OK"), None)
     out = dict(t_loop=a.t_loop, frames=a.frames, kidnap_at=a.kidnap_at, kidnap_src=a.kidnap_src,
-               loops=loops, n_loops=slam.loop_closer.n_loops_closed,
+               init=init, loops=loops, n_loops=slam.loop_closer.n_loops_closed,
                gba_finished=n_fin_before_join, gba_finished_after_join=gba.n_finished,
                gba_aborted=gba.n_aborted, n_kf=slam.store.n_kf, lost_after_kidnap=lost,
                relocalized_at=reloc, states=states, ate=ate, poses=len(ts),

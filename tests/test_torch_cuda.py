@@ -626,3 +626,73 @@ def test_rig_pose_solve_on_card_without_sync(dev):
     np.testing.assert_allclose(g.t, c.t, atol=1e-4)
     assert c.inlier.sum() > 0.7 * n and np.abs(c.t).max() < 1e-2  # back to the true pose
 
+
+
+def test_pose_solves_replayed_from_cuda_graphs_equal_eager(dev):
+    """The three per-frame pose solves on the card, replayed from their CUDA
+    graphs (`optim.graphed`), equal the same solves issued op by op bit for
+    bit: the pose-only solve (mono rows, then a KB8 rig's right rows), and
+    both pose-inertial solves. Each signature is captured once; a second
+    call with other inputs replays the graph on them, so nothing stale is
+    read from the first call's tensors."""
+    from orbslam3_tpu_torch.ops import imu as imu_t
+    from orbslam3_tpu_torch.ops import lie
+    from orbslam3_tpu_torch.ops.cameras import kb8_project
+    from orbslam3_tpu_torch.optim import graphed
+    from orbslam3_tpu_torch.optim import pose_inertial as pi
+    from orbslam3_tpu_torch.optim import pose_only as po
+
+    def same(a, b):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+    cfg = E.EUROC_STEREO_VI_FISHEYE
+    params2, Tlr, _, _ = cfg["camera2"]
+    T = lambda x: convert.tensor(np.asarray(x), dev)  # noqa: E731
+    R_rl = Tlr[:3, :3].T.astype(np.float32)
+    t_rl = (-R_rl @ Tlr[:3, 3]).astype(np.float32)
+    pl, pr = (torch.tensor(np.asarray(p, np.float32)) for p in (cfg["camera"], params2))
+    n = 1000
+    captures = []
+    for seed in (1, 2):
+        rng = np.random.default_rng(seed)
+        Xw = np.stack([rng.uniform(-2, 2, n), rng.uniform(-2, 2, n), rng.uniform(1, 5, n)],
+                      -1).astype(np.float32)
+        uv_l = kb8_project(pl, torch.from_numpy(Xw)).numpy() + rng.normal(0, 0.5, (n, 2))
+        uv_r = (kb8_project(pr, torch.from_numpy(Xw @ R_rl.T + t_rl)).numpy()
+                + rng.normal(0, 0.5, (n, 2)))
+        s2 = T(rng.choice([1.0, 1.44, 2.07], n).astype(np.float32))
+        obs = po.PoseObs(Xw=T(Xw), uv=T(uv_l.astype(np.float32)), ur=T(np.full(n, -1, np.float32)),
+                         sigma2=s2, valid=T(rng.uniform(size=n) < 0.8))
+        obs_r = obs._replace(uv=T(uv_r.astype(np.float32)),
+                             valid=obs.valid & T(rng.uniform(size=n) < 0.6))
+        R0, t0 = lie.exp_se3(T(rng.normal(0, 0.02, 6).astype(np.float32)))
+        for kw in ({}, dict(obs_r=obs_r, params_r=T(pr.numpy()), R_rl=T(R_rl), t_rl=T(t_rl))):
+            got = po.optimize_pose(CameraModel.KB8, T(pl.numpy()), R0, t0, obs, **kw)
+            ref = po.optimize_pose_eager(CameraModel.KB8, T(pl.numpy()), R0, t0, obs, **kw)
+            same(got, ref)
+            assert int(ref.n_inliers) > 0.5 * n
+
+        d = _vi_inputs()
+        calib = imu_t.ImuCalib.create(np.eye(3), np.zeros(3), 1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0,
+                                      device=dev)
+        z3 = torch.zeros(3, device=dev)
+        pre = imu_t.integrate(T(d["acc"]), T(d["gyro"]), T(d["dt"]), z3, z3, calib)
+        vobs = po.PoseObs(Xw=T(d["Xw"]), uv=T(d["uv"]), ur=T(d["ur"]), sigma2=T(d["sigma2"]),
+                          valid=T(d["valid"]))
+        params = torch.tensor([300.0, 300.0, 320.0, 240.0, 0, 0, 0, 0], device=dev)
+        eye = torch.eye(3, device=dev)
+        dp = 0.01 * seed
+        args = (CameraModel.PINHOLE, params, vobs, eye, z3, eye, z3, T(d["v"]), z3, z3, pre,
+                T(d["R"]), T(d["p"]) + dp, T(d["v"]))
+        r1 = pi.optimize_pose_inertial(*args, bf=33.0)
+        same(r1, pi.optimize_pose_inertial_eager(*args, bf=33.0))
+        H_host = r1.H.cpu().numpy()
+        lf = (CameraModel.PINHOLE, params, vobs, eye, z3, eye, z3, T(d["v"]), z3, z3)
+        r2 = pi.optimize_pose_inertial_last_frame(*lf, H_host, pre, T(d["R"]), T(d["p"]) - dp,
+                                                  T(d["v"]), bf=33.0)
+        Hp = convert.tensor(pi.psd_clamp(H_host), dev)
+        same(r2, pi._last_frame_solve(*lf, Hp, pre, T(d["R"]), T(d["p"]) - dp, T(d["v"]),
+                                      bf=33.0, rounds=4, iters_per_round=5))
+        captures.append(graphed.CAPTURES)
+    assert captures[0] == captures[1] and len(graphed._GRAPHS) >= 4

@@ -73,6 +73,28 @@ def test_optimize_pose_matches(seed, stereo):
     assert int(ref.n_inliers) > 300
 
 
+@pytest.mark.parametrize("stereo", [False, True])
+def test_optimize_pose_on_the_cpu_runs_op_by_op(stereo):
+    """On CPU tensors `optimize_pose` is `optimize_pose_eager` bit for bit
+    (its arguments packed for `graphed.run` and unpacked again, right
+    camera rows included) and neither captures nor replays a CUDA graph."""
+    from orbslam3_tpu_torch.optim import graphed
+
+    obs, R0, t0, bf = _problem(3, stereo=stereo)
+    o = po_t.PoseObs(**{k: torch.from_numpy(v) for k, v in obs.items()})
+    args = (cam_t.CameraModel.PINHOLE, cam_t.make_pinhole(*K), torch.from_numpy(R0),
+            torch.from_numpy(t0), o)
+    rig = dict(obs_r=o._replace(uv=o.uv + 0.5), params_r=cam_t.make_pinhole(*K),
+               R_rl=torch.eye(3), t_rl=torch.tensor([-0.1, 0.0, 0.0])) if stereo else {}
+    counts = graphed.CAPTURES, graphed.REPLAYS
+    got = po_t.optimize_pose(*args, bf=bf, **rig)
+    ref = po_t.optimize_pose_eager(*args, bf=bf, **rig)
+    assert (graphed.CAPTURES, graphed.REPLAYS) == counts
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int(ref.n_inliers) > 300
+
+
 def test_huber_weight_matches():
     c2 = np.linspace(0, 40, 101).astype(np.float32)
     np.testing.assert_allclose(

@@ -414,10 +414,12 @@ def test_system_takes_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 def test_port_imports_no_jax():
     """Importing the System, the entry points, the kernel bench, place
-    recognition's modules, the stereo ones, the inertial ones and the
-    fisheye rig's (the KB8 camera, the rig's match and pose rows; and
-    loading the synthetic sequence's script, rendering a fisheye pair)
-    leaves JAX and the JAX package out of the process."""
+    recognition's modules, the stereo ones, the inertial ones, the fisheye
+    rig's (the KB8 camera, the rig's match and pose rows; and loading the
+    synthetic sequence's script, rendering a fisheye pair) and the Atlas's
+    (the Atlas, map merging, the multi-map manager, the trajectory writers;
+    rendering a blind frame) leaves JAX and the JAX package out of the
+    process."""
     code = ("import sys, orbslam3_tpu_torch.system, orbslam3_tpu_torch.entry as E, "
             "orbslam3_tpu_torch.kernel_bench, orbslam3_tpu_torch.pipeline.loop_closing, "
             "orbslam3_tpu_torch.pipeline.gba, orbslam3_tpu_torch.io.vocab_io, "
@@ -426,8 +428,10 @@ def test_port_imports_no_jax():
             "orbslam3_tpu_torch.optim.pose_inertial, "
             "orbslam3_tpu_torch.pipeline.inertial_support, orbslam3_tpu_torch.ops.cameras, "
             "orbslam3_tpu_torch.optim.pose_only, orbslam3_tpu_torch.optim.ba, "
-            "orbslam3_tpu_torch.pipeline.tracking, orbslam3_tpu_torch.spans; "
-            "E.synth_euroc(); E.euroc_frames(1, fisheye=True); "
+            "orbslam3_tpu_torch.pipeline.tracking, orbslam3_tpu_torch.spans, "
+            "orbslam3_tpu_torch.atlas.atlas, orbslam3_tpu_torch.pipeline.map_merging, "
+            "orbslam3_tpu_torch.pipeline.multimap, orbslam3_tpu_torch.io.trajectory; "
+            "E.synth_euroc(); E.euroc_frames(1, fisheye=True); E.euroc_frames(2, blind=(1, 1)); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'orbslam3_tpu')]; "
             "assert not bad, bad")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
