@@ -119,7 +119,35 @@ relocalized into it within 5 frames. It prints the median ms per frame kind
 (tracked, keyframe, blind, the merging frame), `_try_merge`'s ms per
 keyframe, `_do_merge`'s split, the atlas's save and load ms, and B1 at its
 two new calls (the merge's verification match, the weld fuse) exact and
-timed. Every run prints how many CUDA graphs the pose solves captured and
+timed.
+
+Phase 16 writes phase 10's 8 s lap without the kidnap (260 frames, with its
+ground truth and IMU stream) to a EuRoC directory with the port's own PNG
+writer and gates its digest (decoded pixels and CSV text) equal to the
+CPU's, then runs the runner at its defaults (`run_sequence.main`: async
+mapping, Kmax 512, Pmax 65536, the 97k-word vocabulary, place recognition
+and the Atlas) in this process, and `python -m
+orbslam3_tpu_torch.run_sequence ... --sync-mapping` as a subprocess. Each
+run: every frame OK from the map's initialization on, a loop closed within
+30 frames of the JAX runner's on the same files, the closure lowering the
+ATE, a GBA finished on the matrix-free PCG path, the mapper idle after
+shutdown, the Sim3 ATE under max(2 x the JAX runner's, 0.01 m), the TUM
+files written and read back; it prints frames/s, the median, p95 and max
+ms per frame, syncs and ms per frame kind, the GBA's chunk ms and each
+mapping stage's ms (`mapping/*` spans). In the async run the local-map
+match of one frame runs again through the kernels and through the plain
+versions (equal), and B1 at its 65536-key call is held exact and timed.
+Phase 17 writes config 3's first 80 frames to disk and serves them to an
+IMU_MONOCULAR `System` on the card (async mapping, the viewer on) over a
+UNIX socket from a thread, with `serve_stream.replay` as the client: every
+frame answered, the states and poses equal (within 1e-4) to the same
+System driven directly by `track_monocular` after the serve, the viewer's
+`/state.json` during and after the serve (its counts the System's),
+`/frame.png` and `/map.png` decoded by `io/png.py`, and no tensor read by
+any thread but the serving one; it prints the IMU initialization's frame,
+the ms per frame and of `viewer.update` and the syncs it adds.
+
+Every run prints how many CUDA graphs the pose solves captured and
 replayed (`optim.graphed`), and the wall time of each phase and of the
 whole script.
 
@@ -135,7 +163,7 @@ the same inputs.
     python3 chip_smoke.py --only 15
 
 builds the kernels and runs phase 15 alone (its record holds B1's rows of
-that phase only).
+that phase only); `--only 16` and `--only 17` do the same for those.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -1459,6 +1487,465 @@ def phase15_multimap(dev) -> dict:
     return dict(rep=rep, sites=sites, launches=launches, args=args)
 
 
+# Phase 16: the runner at its defaults on a sequence on disk. Phase 10's 8 s
+# lap without the kidnap (seed 0, 752x480, 260 frames, with its ground truth
+# and 200 Hz IMU) written in the EuRoC layout by `entry.write_euroc_sequence`;
+# its digest over the decoded pixels and the CSV text, taken when the CPU
+# wrote it. The JAX runner on the same files on a CPU (`python
+# tests/jax_runner_lap.py --seq DIR` and `--sync-mapping`, about an hour each on
+# 8 cores; every flag at its default: Kmax 512, Pmax 65536, the 97k-word
+# vocabulary, place recognition and the Atlas): initialized at frame 1, every
+# frame OK after it, one loop closed (async: keyframe 31 onto 2 after frame
+# 167; sync: 67 onto 5 after frame 156), the GBA finished on the PCG path, 47
+# and 75 keyframes, Sim3 ATE 0.020303 m (async) and 0.012712 m (sync).
+SEQ16_FRAMES = 260
+SEQ16_T_LOOP = 8.0
+SEQ16_DIGEST = "2592ec37f0f0b18819bc18b578e12b7c4ce567c6b6aea6bf43b6aa4259e8faed"
+JAX_RUNNER = {
+    "async": dict(ate=0.020303, loop_frame=167, n_kf=47, gba_finished=1),
+    "sync": dict(ate=0.012712, loop_frame=156, n_kf=75, gba_finished=1),
+}
+RUNNER_LOOP_SLACK = 30  # frames between the port's first closure and the JAX runner's
+RERUN16_FRAME = 200  # the frame whose local-map match runs again, kernels vs plain
+# Phase 17: the stream server and the viewer, config 3's first 80 frames.
+N_STREAM = 80
+
+
+class _NoSummary:
+    """stdout without the runner's `summary {...}` line (this script reads the
+    in-process run's summary from `main`'s result)."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, ""
+
+    def write(self, text):
+        self.buf += text
+        *lines, self.buf = self.buf.split("\n")
+        for line in lines:
+            if not line.startswith("summary "):
+                self.out.write(line + "\n")
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _runner_lines(summ: dict, what: str, jax: dict) -> None:
+    """Gate and print one run of the runner from its summary."""
+    n = summ["n"]
+    ms = summ["frame_ms"]
+    med = lambda xs: statistics.median(xs) if xs else float("nan")  # noqa: E731
+    loops = summ["loops"]
+    print(f"{what} outcome: initialized at frame {summ['first_ok']}, not OK after it "
+          f"{summ['not_ok_after_init']}, loops {[(L['frame'], L['kf'], L['loop_kf']) for L in loops]} "
+          f"(JAX runner: frame {jax['loop_frame']}), {summ['n_kf']} keyframes (JAX {jax['n_kf']}), "
+          f"GBA {summ['gba_path']} path {summ['gba_finished']} finished {summ['gba_aborted']} "
+          f"aborted (JAX {jax['gba_finished']} finished), ATE {summ['ate']} m (JAX runner "
+          f"{jax['ate']} m), mapper idle after shutdown {summ['mapper_idle']}", flush=True)
+    check(summ["first_ok"] is not None and not summ["not_ok_after_init"],
+          f"{what}: frames not OK after the map's initialization {summ['not_ok_after_init']}")
+    check(loops and abs(loops[0]["frame"] - jax["loop_frame"]) <= RUNNER_LOOP_SLACK,
+          f"{what}: no loop closed within {RUNNER_LOOP_SLACK} frames of the JAX runner's "
+          f"(frame {jax['loop_frame']}): {loops}")
+    check(not loops or loops[0]["ate_after"] < loops[0]["ate_before"],
+          f"{what}: the closure raised the ATE")
+    check(summ["gba_path"] == "pcg" and summ["gba_finished"] >= 1,
+          f"{what}: no GBA finished on the PCG path ({summ['gba_path']}, "
+          f"{summ['gba_finished']} finished)")
+    check(summ["mapper_idle"], f"{what}: the mapper is busy after shutdown")
+    gate = max(2 * jax["ate"], 0.01)
+    check(summ["ate"] is not None and summ["ate"] <= gate,
+          f"{what}: ATE {summ['ate']} m above the gate {gate} m")
+    check(summ["syncs"] is not None, f"{what}: host syncs not counted")
+    syncs = summ["syncs"] or [-1] * n
+    by_kind = {}
+    for kind, sy, m in zip(summ["kinds"], syncs, ms):
+        by_kind.setdefault(kind, []).append((sy, m))
+    print(f"{what}: {n / (sum(ms) / 1e3):.2f} frames/s over {n} frames ({summ['wall_s']:.1f} s "
+          f"wall with the final drain); ms per frame median {med(ms):.2f}, p95 "
+          f"{float(np.percentile(ms, 95)):.2f}, max {max(ms):.2f} (frame {int(np.argmax(ms))}); "
+          f"ATE {summ['ate']:.6f} m, gate {gate:.6f} m (2 x the JAX runner's {jax['ate']} m)")
+    print(f"{what} syncs and ms per frame kind: " + "; ".join(
+        f"{kind} {len(v)} frames, syncs median {med([s for s, _ in v])} (max "
+        f"{max(s for s, _ in v)}), ms median {med([m for _, m in v]):.2f} p95 "
+        f"{float(np.percentile([m for _, m in v], 95)):.2f}" for kind, v in sorted(by_kind.items())))
+    chunks = summ["gba_chunk_ms"]
+    print(f"{what} GBA chunks (2 LM iterations of 50 CG steps each, PCG path): "
+          f"{[round(d, 2) for _, d in chunks]} ms device, {[round(h, 2) for h, _ in chunks]} ms "
+          f"host")
+    for name, v in sorted(summ["spans"].items()):
+        if name.startswith("mapping/"):
+            dev = [d for _, _, d in v if d is not None]
+            print(f"{what} {name}: {len(v)} calls, device ms median {med(dev):.2f} max "
+                  f"{max(dev) if dev else float('nan'):.2f}, host ms median "
+                  f"{med([h for _, h, _ in v]):.2f}; on frames {sorted({f for f, _, _ in v})[:12]}...")
+
+
+def _trajectory_files(out: str, kf_out: str, summ: dict, what: str) -> None:
+    rows = np.loadtxt(out, ndmin=2)
+    kf_rows = np.loadtxt(kf_out, ndmin=2)
+    n_tracked = summ["n"] - summ["first_ok"] + 1
+    check(rows.shape[1] == 8 and rows.shape[0] >= n_tracked - 1 and np.isfinite(rows).all(),
+          f"{what}: {out} holds {rows.shape} rows (frames tracked {n_tracked})")
+    check(kf_rows.shape[1] == 8 and 2 <= kf_rows.shape[0] <= summ["n_kf"],
+          f"{what}: {kf_out} holds {kf_rows.shape} rows, {summ['n_kf']} keyframes")
+    print(f"{what} trajectory files (TUM): {rows.shape[0]} frame poses and {kf_rows.shape[0]} "
+          f"keyframe poses read back")
+
+
+def phase16_runner(dev, card: str) -> dict:
+    """Phase 16: `python -m orbslam3_tpu_torch.run_sequence` at its defaults
+    (asynchronous mapping, Kmax 512, Pmax 65536, the 97k-word vocabulary,
+    place recognition and the Atlas) on phase 10's lap written to disk, first
+    in this process through `run_sequence.main` (so B1's calls are recorded;
+    the local-map match of frame RERUN16_FRAME runs again through the kernels
+    and through the plain versions), then with `--sync-mapping` as a
+    subprocess, the command as a user types it. Gates and prints in the
+    module docstring. Returns the launches and B1's row at the 65536-key
+    local-map call."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="_chip_smoke_seq_", dir=root) as seq:
+        return _phase16_in(seq, root, card)
+
+
+def _phase16_in(seq: str, root: str, card: str) -> dict:
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch import kernel_bench as KB
+    from orbslam3_tpu_torch import run_sequence, spans
+    from orbslam3_tpu_torch.io import datasets
+    from orbslam3_tpu_torch.ops import _build, cuda_fast, cuda_match
+    from orbslam3_tpu_torch.pipeline import tracking as trk
+
+    t0 = time.perf_counter()
+    E.write_euroc_sequence(seq, SEQ16_FRAMES, 0, t_loop=SEQ16_T_LOOP, imu=True)
+    t1 = time.perf_counter()
+    digest = datasets.sequence_digest(seq)
+    print(f"phase 16 sequence: {SEQ16_FRAMES} frames of the {SEQ16_T_LOOP:g} s lap in the EuRoC "
+          f"layout, written in {t1 - t0:.1f} s; sha256 of its pixels and CSV text {digest} "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    check(digest == SEQ16_DIGEST, f"phase 16: the sequence's digest {digest} is not the CPU's "
+          f"{SEQ16_DIGEST}")
+    settings = os.path.join(seq, "settings.yaml")
+
+    rerun = {}
+    orig_lm = trk._track_local_map_match
+
+    def local_map(*a, **kw):
+        out = orig_lm(*a, **kw)
+        rec = spans._active
+        if rec is not None and rec.frame == RERUN16_FRAME and not rerun:
+            captured = []
+            inner = cuda_match.hamming_top2
+
+            def capture(*args):
+                captured.append(tuple(_clone(x) for x in args + (None,) * (4 - len(args))))
+                return inner(*args)
+
+            with _comparing() as took:
+                cuda_match.hamming_top2 = capture
+                try:
+                    k_ = orig_lm(*a, **kw)
+                finally:
+                    cuda_match.hamming_top2 = inner
+                with _build.force_plain():
+                    p_ = orig_lm(*a, **kw)
+                same = all(torch.equal(x, y) for x, y in zip(k_, p_)) and all(
+                    torch.equal(x, y) for x, y in zip(k_, out))
+            rerun.update(args=captured[0], same=same, took=took, n_assoc=int((k_[0] >= 0).sum()))
+        return out
+
+    out_a, kf_a = os.path.join(seq, "async.txt"), os.path.join(seq, "async_kf.txt")
+    cuda_fast.LAUNCHES = 0
+    cuda_match.LAUNCHES = 0
+    trk._track_local_map_match = local_map
+    try:
+        with _b1_calls([], keep_args=set()) as calls, \
+                contextlib.redirect_stdout(_NoSummary(sys.stdout)):
+            res = run_sequence.main([settings, seq, "--dataset", "euroc", "--mode", "mono",
+                                     "--out", out_a, "--kf-out", kf_a, "--timing"])
+    finally:
+        trk._track_local_map_match = orig_lm
+    sites = {}
+    for c in calls:
+        sites[c[0]] = sites.get(c[0], 0) + 1
+    launches = {"fast_nms": cuda_fast.LAUNCHES,
+                "hamming_top2": cuda_match.LAUNCHES - sites.get("comparison", 0)}
+    check(launches["fast_nms"] >= SEQ16_FRAMES and sites.get("local map", 0) > 0,
+          f"phase 16: launches {launches}, B1 by site {sites}")
+    summ = {k: v for k, v in res.items() if k not in ("system", "states")}
+    check("args" in rerun, f"phase 16: frame {RERUN16_FRAME}'s local-map match did not run")
+    summ["frame_ms"][RERUN16_FRAME] -= rerun["took"][0]
+    _runner_lines(summ, "phase 16 async", JAX_RUNNER["async"])
+    _trajectory_files(out_a, kf_a, summ, "phase 16 async")
+    check(rerun["same"], f"phase 16: frame {RERUN16_FRAME}'s local-map match differs, kernels "
+          f"vs plain")
+    a = rerun["args"]
+    print(f"phase 16 kernels vs plain: frame {RERUN16_FRAME}'s local-map match "
+          f"({a[0].shape[0]} map points x {a[1].shape[0]} keypoints) equal, {rerun['n_assoc']} "
+          f"associations; launches {launches}; B1 by site {sites}")
+    got = cuda_match.hamming_top2(*a)
+    with _build.force_plain():
+        ref = cuda_match.hamming_top2(*a)
+    torch.cuda.synchronize()
+    for what, k_, p_ in zip(("d1", "d2", "j1"), got, ref):
+        check(torch.equal(k_, p_), f"B1 local map {a[0].shape[0]} keys (phase 16): {what} differs")
+    err = max(float((got[0] - ref[0]).abs().max()), float((got[1] - ref[1]).abs().max()))
+    t = KB.time_b1(a)
+    with _build.force_plain():
+        plain_ms = KB.call_us(lambda: cuda_match.hamming_top2(*a), iters=10) / 1e3
+    bd = KB.b1_bound(*a)
+    n_lm = sites.get("local map", 0)
+    n_ok = len(summ["kinds"]) - summ["kinds"].count("not OK")
+    row = {"call": "local map, runner (Pmax 65536)", "shape": [a[0].shape[0], a[1].shape[0]],
+           "windowed": a[3] is not None, **t, "plain_ms": plain_ms, "bound_us": bd["bound_us"],
+           "bound_by": bd["bound_by"], "in_window_pairs": bd["pairs"],
+           "launches_per_replay": n_lm, "replay": "phase 16",
+           "launches_per_tracked_frame": n_lm / max(n_ok, 1)}
+    print(f"phase 16 B1 local map {a[0].shape[0]}x{a[1].shape[0]} windowed: exact vs plain; "
+          f"device {t['device_us']:.2f} us (graph of {KB.GRAPH_CALLS}), call {t['call_us']:.2f} us, "
+          f"profiler {t['profiler_us']} us, bound {bd['bound_us']:.3f} us ({bd['bound_by']}; "
+          f"{bd['bytes']} bytes, {bd['pairs']} pairs to popcount), plain {plain_ms:.4f} ms; {n_lm} "
+          f"launches in the runner's async run [{card}]", flush=True)
+    del res
+    torch.cuda.empty_cache()  # the subprocess's run gets the card's memory back
+
+    out_s, kf_s = os.path.join(seq, "sync.txt"), os.path.join(seq, "sync_kf.txt")
+    cmd = [sys.executable, "-m", "orbslam3_tpu_torch.run_sequence", settings, seq, "--dataset",
+           "euroc", "--mode", "mono", "--sync-mapping", "--out", out_s, "--kf-out", kf_s,
+           "--timing"]
+    t2 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith("summary "):
+            print(f"phase 16 sync | {line}")
+    check(proc.returncode == 0, f"phase 16: the --sync-mapping run exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    summ_s = json.loads(next(x for x in lines if x.startswith("summary "))[len("summary "):])
+    print(f"phase 16 sync: `python -m orbslam3_tpu_torch.run_sequence ... --sync-mapping` took "
+          f"{time.perf_counter() - t2:.1f} s as a subprocess")
+    _runner_lines(summ_s, "phase 16 sync", JAX_RUNNER["sync"])
+    _trajectory_files(out_s, kf_s, summ_s, "phase 16 sync")
+    return dict(launches=launches, row=row, err=err)
+
+
+def phase17_stream_viewer(dev, card: str) -> dict:
+    """Phase 17: the stream server and the viewer. Config 3's first N_STREAM
+    frames written to disk; an IMU_MONOCULAR `System` on the card with
+    asynchronous mapping and the viewer (port 0, 0.2 s) serves them on a UNIX
+    socket from its own thread while `serve_stream.replay` sends each frame's
+    IMU samples, then the frame; a poller fetches the viewer's routes during
+    the serve. After it, the same System is driven directly by
+    `track_monocular` on the same files: states equal, poses within 1e-4.
+    Tensor reads off the serving thread are counted: none may happen."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="_chip_smoke_seq_", dir=root) as seq:
+        return _phase17_in(seq, card)
+
+
+def _phase17_in(seq: str, card: str) -> dict:
+    import socket
+    import threading
+    import urllib.request
+    from types import SimpleNamespace
+
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch import serve_stream
+    from orbslam3_tpu_torch.io import datasets, png, stream
+    from orbslam3_tpu_torch.ops import cuda_fast, cuda_match
+    from orbslam3_tpu_torch.pipeline.tracking import TrackState
+
+    t0 = time.perf_counter()
+    E.write_euroc_sequence(seq, N_STREAM, 0, imu=True)
+    print(f"phase 17 sequence: config 3's first {N_STREAM} frames and their IMU stream in the "
+          f"EuRoC layout ({time.perf_counter() - t0:.1f} s)", flush=True)
+    args = SimpleNamespace(settings=os.path.join(seq, "settings.yaml"), mode="mono-vi", kmax=256,
+                           pmax=16384, device=None, vocab=None, viewer=0)
+    cuda_fast.LAUNCHES = 0
+    cuda_match.LAUNCHES = 0
+    served = serve_stream.build_system(args)
+    viewer = served.viewer
+    check(viewer.min_period_s == 0.2, "phase 17: the viewer's period is not 0.2 s")
+    sock_path = os.path.join(seq, "slam.sock")
+    srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    srv.bind(sock_path)
+    srv.listen(1)
+    info = dict(states=[], imu_init=[], ms=[], update_ms=[], update_syncs=[])
+    fetched, published, done = threading.Event(), threading.Event(), threading.Event()
+    serving = {}
+
+    def serve():
+        serving["thread"] = threading.current_thread()
+        conn, _ = srv.accept()
+        track = served.track_monocular
+        update = viewer.update
+
+        def tracked(img, t, imu_measurements=None):
+            t1 = time.perf_counter()
+            cur = track(img, t, imu_measurements=imu_measurements)
+            info["ms"].append((time.perf_counter() - t1) * 1e3)
+            info["states"].append(served.tracking_state.name)
+            info["imu_init"].append(served.mapper.imu_initialized)
+            info["last"] = (img, cur)
+            return cur
+
+        def timed_update(img=None, frame=None):
+            n0 = viewer.n_published
+            torch.cuda.set_sync_debug_mode("warn")
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t1 = time.perf_counter()
+                update(img, frame)
+                dt = (time.perf_counter() - t1) * 1e3
+            torch.cuda.set_sync_debug_mode(0)
+            if viewer.n_published > n0:
+                info["update_ms"].append(dt)
+                info["update_syncs"].append(sum("synchroniz" in str(w.message) for w in caught))
+
+        served.track_monocular = tracked
+        viewer.update = timed_update
+        try:
+            info["n"] = stream.serve(served, conn)
+            viewer._last_pub = -1e9  # one more publish, of the final state
+            update(*info["last"])
+            info["final"] = (served.n_keyframes, served.n_map_points, served.tracking_state.name)
+            published.set()
+            fetched.wait(timeout=120)
+            served.shutdown()
+            info["idle"] = served.async_mapper.idle()
+        except Exception:
+            import traceback
+
+            info["error"] = traceback.format_exc()
+        finally:
+            published.set()
+            conn.close()
+            done.set()
+
+    # Tensor reads while serving, by thread: only the serving thread may read.
+    reads_off = []
+    methods = ("cpu", "numpy", "item", "tolist", "__array__")
+    originals = {m: getattr(torch.Tensor, m) for m in methods}
+
+    def counted(name):
+        def read(self, *a, **kw):
+            if self.is_cuda and threading.current_thread() is not serving.get("thread"):
+                reads_off.append((threading.current_thread().name, name))
+            return originals[name](self, *a, **kw)
+        return read
+
+    polls = []
+
+    def poll():
+        while not done.is_set():
+            for route in ("/state.json", "/frame.png", "/map.png"):
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{viewer.port}{route}",
+                                                timeout=10) as r:
+                        polls.append((route, r.status, r.read()))
+                except Exception as e:  # /frame.png is 404 until the first publish
+                    polls.append((route, getattr(e, "code", None), b""))
+            time.sleep(0.3)
+
+    th = threading.Thread(target=serve, name="phase17-serve")
+    poller = threading.Thread(target=poll, name="phase17-poll", daemon=True)
+    for m in methods:
+        setattr(torch.Tensor, m, counted(m))
+    try:
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter()
+        th.start()
+        poller.start()
+        sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        sock.connect(sock_path)
+        poses = serve_stream.replay(sock, seq, mode="mono-vi", log_every=0)
+        published.wait(timeout=600)
+        after = {}
+        for route in ("/state.json", "/frame.png", "/map.png"):
+            with urllib.request.urlopen(f"http://127.0.0.1:{viewer.port}{route}", timeout=30) as r:
+                after[route] = r.read()
+        fetched.set()
+        th.join(timeout=600)
+        serve_s = time.perf_counter() - t_serve
+        done.set()
+        poller.join(timeout=30)
+        sock.close()
+        srv.close()
+    finally:
+        for m, f in originals.items():
+            setattr(torch.Tensor, m, f)
+    launches = {"fast_nms": cuda_fast.LAUNCHES, "hamming_top2": cuda_match.LAUNCHES}
+    check(launches["fast_nms"] >= N_STREAM and launches["hamming_top2"] > 0,
+          f"phase 17: the serve launched {launches}")
+    check("error" not in info, f"phase 17: the serving thread failed: {info.get('error')}")
+    check(info.get("n") == N_STREAM == len(poses), f"phase 17: {info.get('n')} frames served, "
+          f"{len(poses)} poses received of {N_STREAM}")
+    check(not reads_off, f"phase 17: tensor reads off the serving thread: {reads_off[:10]}")
+    check(info.get("idle"), "phase 17: the mapper is busy after shutdown")
+    during = [json.loads(b) for r, code, b in polls if r == "/state.json" and code == 200]
+    check(len(during) >= 2 and any(d["frame_id"] >= 0 for d in during),
+          f"phase 17: /state.json fetched {len(during)} times during the serve")
+    last = json.loads(after["/state.json"])
+    n_kf, n_mp, state = info["final"]
+    check((last["n_keyframes"], last["n_map_points"], last["state"]) == (n_kf, n_mp, state),
+          f"phase 17: /state.json after the serve {last['n_keyframes']}, {last['n_map_points']}, "
+          f"{last['state']} vs the System's {n_kf}, {n_mp}, {state}")
+    frame_png = png.decode(after["/frame.png"], png.IMREAD_UNCHANGED)
+    map_png = png.decode(after["/map.png"], png.IMREAD_UNCHANGED)
+    check(frame_png.shape == (480, 752, 3) and map_png.shape == (640, 640, 3),
+          f"phase 17: /frame.png {frame_png.shape}, /map.png {map_png.shape}")
+    n_pngs = sum(code == 200 and r != "/state.json" for r, code, _ in polls)
+
+    # The direct-drive twin, after the serve: the same System, the same files.
+    direct = serve_stream.build_system(SimpleNamespace(**{**vars(args), "viewer": None}))
+    seq_l = datasets.load_euroc_images(seq)
+    imu = datasets.load_euroc_imu(seq)
+    cursor, d_states, dmax, d_ms, d_init = 0, [], 0.0, [], []
+    for k in range(N_STREAM):
+        ts = float(seq_l.timestamps[k])
+        hi = int(np.searchsorted(imu.timestamps, ts, side="right"))
+        batch = [(float(imu.timestamps[j]), imu.acc[j], imu.gyro[j]) for j in range(cursor, hi)]
+        cursor = hi
+        t1 = time.perf_counter()
+        cur = direct.track_monocular(seq_l.read(k), ts, imu_measurements=batch or None)
+        d_ms.append((time.perf_counter() - t1) * 1e3)
+        d_states.append(direct.tracking_state.name)
+        d_init.append(direct.mapper.imu_initialized)
+        Rwc, twc = cur.Twc()
+        t_s, st_s, R_s, tw_s = poses[k]
+        check(t_s == ts, f"phase 17 frame {k}: the POSE's timestamp {t_s} is not {ts}")
+        dmax = max(dmax, float(np.abs(R_s - Rwc).max()), float(np.abs(tw_s - twc).max()))
+    direct.shutdown()
+    served_states = [stream_state for _, stream_state, _, _ in poses]
+    check([TrackState(v).name for v in served_states] == d_states == info["states"],
+          f"phase 17: states served {served_states} vs direct {d_states}")
+    check(dmax <= 1e-4, f"phase 17: served poses {dmax} from the direct drive's")
+    init_s = info["imu_init"].index(True) if True in info["imu_init"] else None
+    init_d = d_init.index(True) if True in d_init else None
+    med = lambda xs: statistics.median(xs) if xs else float("nan")  # noqa: E731
+    first_ok = d_states.index("OK") if "OK" in d_states else None
+    print(f"phase 17 served {N_STREAM} frames over a UNIX socket in {serve_s:.1f} s: every frame "
+          f"answered; states equal to the direct drive's (initialized at frame {first_ok}, "
+          f"{d_states.count('OK')} OK), poses within {dmax:.2e} (gate 1e-4); IMU initialized at "
+          f"frame {init_s} served, {init_d} direct; {n_kf} keyframes, {n_mp} points; launches "
+          f"{launches}")
+    print(f"phase 17 ms per frame: served median {med(info['ms']):.2f} (max {max(info['ms']):.2f}), "
+          f"direct median {med(d_ms):.2f} (max {max(d_ms):.2f}); viewer.update {len(info['update_ms'])} "
+          f"publishes, ms median {med(info['update_ms']):.2f} max {max(info['update_ms']):.2f}, host "
+          f"syncs per publish {sorted(set(info['update_syncs']))} (every 0.2 s, "
+          f"{len(info['update_ms']) / N_STREAM:.2f} per frame) [{card}]")
+    print(f"phase 17 viewer: /state.json fetched {len(during)} times during the serve and once "
+          f"after it (keyframes {last['n_keyframes']}, points {last['n_map_points']}, state "
+          f"{last['state']} equal to the System's); {n_pngs} PNGs during; /frame.png "
+          f"{frame_png.shape}, /map.png {map_png.shape} decoded by io/png.py; tensor reads off "
+          f"the serving thread: {len(reads_off)}")
+    return dict(launches=launches)
+
+
 def check(ok, what: str) -> None:
     """Fail the run (every phase's checks are hard failures)."""
     if not ok:
@@ -1469,7 +1956,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--save-inputs", metavar="FILE",
                     help="write phase 7's kernel inputs to FILE (torch.save)")
-    ap.add_argument("--only", choices=["15"],
+    ap.add_argument("--only", choices=["15", "16", "17"],
                     help="build, then run this phase alone (its B1 rows in the record)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1504,9 +1991,16 @@ def run(opts) -> int:
     print(_build.resource_report(), end="")
     walls["build"] = time.perf_counter()
     card = smi.stdout.strip().splitlines()[0]
-    if opts.only == "15":
-        err, rows, launches = phase15_rows(dev, card)
-        walls["phase 15"] = time.perf_counter()
+    if opts.only in ("15", "16", "17"):
+        err, rows = 0.0, []
+        if opts.only == "15":
+            err, rows, launches = phase15_rows(dev, card)
+        elif opts.only == "16":
+            p16 = phase16_runner(dev, card)
+            err, rows, launches = p16["err"], [p16["row"]], p16["launches"]
+        else:
+            launches = phase17_stream_viewer(dev, card)["launches"]
+        walls[f"phase {opts.only}"] = time.perf_counter()
         record = {"kernels": [{"name": "hamming_top2", "route": "cuda",
                                "source": "orbslam3_tpu_torch/csrc/hamming_top2.cu",
                                "replaces": "orbslam3_tpu/ops/pallas_match.py:155",
@@ -2100,6 +2594,13 @@ def run(opts) -> int:
     err_b1 = max(err_b1, err15)
     b1_rows.extend(rows15)
     walls["phase 15"] = time.perf_counter()
+    # --- Phase 16: the runner at its defaults; phase 17: the stream server ---
+    p16 = phase16_runner(dev, card)
+    err_b1 = max(err_b1, p16["err"])
+    b1_rows.append(p16["row"])
+    walls["phase 16"] = time.perf_counter()
+    p17 = phase17_stream_viewer(dev, card)
+    walls["phase 17"] = time.perf_counter()
 
     if opts.save_inputs:
         per_replay = {**per_site, **p10["sites"]}
@@ -2111,7 +2612,8 @@ def run(opts) -> int:
     for k in launches:
         launches[k] += sum(run[k] for run in (launches5, launches6, launches8, p10["launches"],
                                               p11["launches"], p12["rgbd"], p12["raw"],
-                                              p13["launches"], p14["launches"], launches15))
+                                              p13["launches"], p14["launches"], launches15,
+                                              p16["launches"], p17["launches"]))
     lm = next(r for r in b1_rows if r["call"] == "local map")  # the kernel's headline call
     record = {"kernels": [
         {"name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",

@@ -1,13 +1,16 @@
 """orbslam3_tpu_torch — the PyTorch + CUDA port of `orbslam3_tpu`.
 
 The JAX package `orbslam3_tpu` stays the reference; this package mirrors its
-layout module by module (`ops/`, `optim/`, `atlas/`, `pipeline/`) and runs
-the same functions on torch tensors. The two Pallas kernels of the reference
+layout module by module (`ops/`, `optim/`, `atlas/`, `pipeline/`, `io/`,
+`viz/`, `config.py`) and runs the same functions on torch tensors; its
+commands are `python -m orbslam3_tpu_torch.run_sequence` and
+`python -m orbslam3_tpu_torch.serve_stream`. The two Pallas kernels of the reference
 are hand-written CUDA kernels here (`csrc/`, built at first use by
 `ops/_build.py`); on CPU tensors their wrappers run plain PyTorch versions.
 
 The package never imports `jax` or `orbslam3_tpu`: state crosses over as
-numpy arrays (`convert.py`).
+numpy arrays (`convert.py`). Nor OpenCV or PyYAML: `io/png.py` and
+`config.py` read PNGs and settings files.
 
 Precision: TF32 is switched off for float32 matmuls and convolutions, here at
 import. The pose solve's normal equations, the local BA's reduced camera

@@ -657,6 +657,34 @@ def imu_batches(t_frames: np.ndarray, imu) -> list:
     return out
 
 
+START_NS = 1403636579763555584  # make_synth_euroc.py's --start-ns default
+
+
+def write_euroc_sequence(out_dir: str, n_frames: int, seed: int = 0,
+                         t_loop: float | None = None, imu: bool = False) -> None:
+    """`euroc_frames(n_frames, seed, t_loop, imu=imu)` written to `out_dir` in
+    the mav0 layout of `make_synth_euroc.py`: the images, the ground truth at
+    every frame (the script's `rot_to_quat_wxyz` of `pose_at`), the IMU
+    stream and the script's `SETTINGS_YAML` (752x480, 1000 features, 8
+    levels), at the script's timestamps (`START_NS` + t in ns)."""
+    from orbslam3_tpu_torch.io import datasets
+
+    out = euroc_frames(n_frames, seed=seed, t_loop=t_loop, imu=imu)
+    ts, imgs = out[0], out[1]
+    M = synth_euroc()
+    if t_loop is not None:
+        M.T_LOOP = float(t_loop)
+    poses = [M.pose_at(t) for t in ts]
+    quats = np.asarray([M.rot_to_quat_wxyz(R) for R, _ in poses])
+    ns = [START_NS + int(round(t * 1e9)) for t in ts]
+    imu_rows = None
+    if imu:
+        t_imu, acc, gyro = out[3]
+        imu_rows = ([START_NS + int(round(t * 1e9)) for t in t_imu], gyro, acc)
+    datasets.write_euroc(out_dir, ns, imgs, M.SETTINGS_YAML, imu=imu_rows,
+                         groundtruth=(np.asarray([p for _, p in poses]), quats))
+
+
 def ray_depth(M, R_wc: np.ndarray, p: np.ndarray) -> np.ndarray:
     """(480, 752) float32 z-depth of the pinhole camera at (R_wc, p) in the
     synthetic room: the nearest hit of each pixel's ray (z = 1) on the box's

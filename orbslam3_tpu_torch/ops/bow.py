@@ -2,9 +2,11 @@
 `orbslam3_tpu/ops/bow.py`: the flattened vocabulary tree, the batched
 descent of descriptors to words (`transform`), the dense L1-normalised
 tf-idf vector (`bow_vector`), DBoW2's L1 score (`score_l1`) and the
-shared-word counts (`shared_words`). Training (`build_vocabulary`) is
-offline and stays with the JAX package; `io/vocab_io.py` loads its binary
-files, `load_npz` its npz caches.
+shared-word counts (`shared_words`). Training (`build_vocabulary`, binary
+k-medians over descriptors) is a host-only numpy copy of the reference's,
+the same tree array for array from the same descriptors and seed, for the
+runner's `--train-vocab`; `save_npz` / `load_npz` write and read the npz
+cache, `io/vocab_io.py` the binary files.
 
 This is tensor code in the reference too (no Pallas kernel): each level of
 `transform` is a gather of the ≤ k children, an (N, k, 32) XOR and a
@@ -76,6 +78,94 @@ def load_npz(path: str, device) -> Vocabulary:
 
 
 _POPCOUNT = {}  # device -> (256,) int32 bits set per byte value
+
+
+def save_npz(path: str, voc: Vocabulary):
+    """Cache a vocabulary as the reference's npz (`ops/bow.py::save_npz`)."""
+    np.savez_compressed(
+        path, node_desc=voc.node_desc.cpu().numpy(), node_children=voc.node_children.cpu().numpy(),
+        node_word=voc.node_word.cpu().numpy(), word_weight=voc.word_weight.cpu().numpy(),
+        depth=voc.depth, k=voc.k,
+    )
+
+
+# -- training (host numpy, offline) -------------------------------------------
+_POP = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None], axis=1).sum(1)
+
+
+def _hamming_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """(N,32) x (M,32) -> (N,M) distances."""
+    return _POP[a[:, None, :] ^ b[None, :, :]].sum(-1)
+
+
+def _majority_center(desc: np.ndarray) -> np.ndarray:
+    """Bitwise majority vote (FORB::meanValue)."""
+    bits = np.unpackbits(desc, axis=1)  # (N,256)
+    return np.packbits((bits.sum(0) * 2 >= len(desc)).astype(np.uint8))
+
+
+def _kmedians(desc: np.ndarray, k: int, rng: np.random.Generator, iters: int = 8):
+    """Binary k-medians with kmeans++-style seeding: (centres, assignment)."""
+    n = len(desc)
+    if n <= k:
+        return desc.copy(), np.arange(n)
+    centers = [desc[rng.integers(n)]]
+    d_min = None
+    for _ in range(k - 1):
+        d = _hamming_np(desc, np.stack(centers[-1:]))[:, 0].astype(np.float64)
+        d_min = d if d_min is None else np.minimum(d_min, d)
+        probs = d_min**2
+        s = probs.sum()
+        if s <= 0:
+            centers.append(desc[rng.integers(n)])
+        else:
+            centers.append(desc[rng.choice(n, p=probs / s)])
+    centers = np.stack(centers)
+    assign = np.zeros(n, np.int64)
+    for _ in range(iters):
+        assign = _hamming_np(desc, centers).argmin(1)
+        for c in range(len(centers)):
+            members = desc[assign == c]
+            if len(members):
+                centers[c] = _majority_center(members)
+    return centers, assign
+
+
+def build_vocabulary(descriptors: np.ndarray, k: int = 10, depth: int = 4, seed: int = 0,
+                     device="cpu") -> Vocabulary:
+    """Train a k^depth-word tree (`TemplatedVocabulary::create`) from (N, 32)
+    uint8 descriptors, with uniform word weights as the reference."""
+    rng = np.random.default_rng(seed)
+    node_desc = [np.zeros(32, np.uint8)]  # root (desc unused)
+    node_children = [[]]
+    node_word = [-1]
+
+    def recurse(node_id, desc, level):
+        if level == depth or len(desc) <= 1:
+            node_word[node_id] = 0  # a leaf; word ids come after
+            return
+        centers, assign = _kmedians(desc, k, rng)
+        for c in range(len(centers)):
+            child_id = len(node_desc)
+            node_desc.append(centers[c])
+            node_children.append([])
+            node_word.append(-1)
+            node_children[node_id].append(child_id)
+            recurse(child_id, desc[assign == c], level + 1)
+
+    recurse(0, np.asarray(descriptors, np.uint8), 0)
+    n_nodes = len(node_desc)
+    word_ids = np.full(n_nodes, -1, np.int32)
+    wc = 0
+    for i in range(n_nodes):
+        if node_word[i] == 0 or (i > 0 and not node_children[i]):
+            word_ids[i] = wc
+            wc += 1
+    children = np.full((n_nodes, k), -1, np.int32)
+    for i, ch in enumerate(node_children):
+        children[i, : len(ch)] = ch
+    return from_arrays(np.stack(node_desc), children, word_ids, np.ones(wc, np.float32), depth,
+                       k, device)
 
 
 def _popcount_table(device: torch.device) -> torch.Tensor:

@@ -1,15 +1,18 @@
-"""Bundle adjustment on torch tensors — the dense-Schur path of
-`orbslam3_tpu/optim/ba.py` (`_solve_ba_dense`) on one device, with its
-residuals (`_linearize`: mono and stereo-`ur` rows, and with `cam2` a
-two-camera rig's right-camera rows), robust cost and closed-form 3x3
-Cholesky. The matrix-free PCG path (with `lm.pcg`) and the sharded layouts
-wait for ROADMAP A15, where maps outgrow `auto_dense_schur`'s budget.
+"""Bundle adjustment on torch tensors — `orbslam3_tpu/optim/ba.py` on one
+device: the dense-Schur path (`_solve_ba_dense`) and the matrix-free PCG path
+(`_solve_ba_pcg`, with `lm.pcg`), with their residuals (`_linearize`: mono
+and stereo-`ur` rows, and with `cam2` a two-camera rig's right-camera rows),
+robust cost and closed-form 3x3 Cholesky. `auto_dense_schur` chooses between
+them by the reference's memory budget; the sharded layouts are ROADMAP A15.
 
 The problem is a fixed-shape batch: cameras (C), points (P), observations
-(O) with validity masks. Per LM iteration the reduced camera system
-S = Hcc - W Hpp^-1 W^T over the first `n_opt` cameras is built explicitly
-and solved by one dense Cholesky; a rejected step re-damps the stored
-linearization.
+(O) with validity masks. On the dense path, per LM iteration the reduced
+camera system S = Hcc - W Hpp^-1 W^T over the first `n_opt` cameras is built
+explicitly and solved by one dense Cholesky; a rejected step re-damps the
+stored linearization. On the PCG path S is never formed: each LM iteration
+runs a fixed number of conjugate-gradient steps on it, each a product with
+W Hpp^-1 W^T through the observations, preconditioned by the inverse of
+each camera's 6x6 block (`inv_ex`, no host check).
 
 Sums over observations go through `point_sum` and `CameraSums`: on the
 CPU `index_add_` in row order (the reference's `segment_sum`), on CUDA a
@@ -374,17 +377,95 @@ def auto_dense_schur(C: int, P: int, hbm_budget_bytes: int = 4 << 30) -> bool:
     return dense_schur_bytes(C, P) <= hbm_budget_bytes
 
 
+def _solve_ba_pcg(model, params, prob: BAProblem, bf, iters, pcg_iters, point_damping,
+                  obs_per_cam=None, cam2=None) -> BAResult:
+    """The reference's matrix-free LM (`solve_ba` without `dense_schur`):
+    each iteration linearizes, damps the point blocks (lambda |Hpp| plus
+    `point_damping`) and the camera blocks (lambda |Hcc| plus 1e-8), solves
+    the reduced camera system by `pcg_iters` steps of `lm.pcg` with the
+    block-Jacobi preconditioner, back-substitutes the points, and `lm_loop`
+    accepts the step if it lowers the robust cost. Per-camera sums go through
+    `CameraSums` (`obs_per_cam`: camera-major rows, one reduction), per-point
+    sums through `point_sum`; no host read."""
+    C = prob.cam_R.shape[0]
+    P = prob.points.shape[0]
+    dev, dtype = prob.cam_R.device, prob.cam_R.dtype
+    oc = prob.obs_cam.to(torch.int64)
+    op = prob.obs_point.to(torch.int64)
+    cam_sum = CameraSums(oc, C, obs_per_cam, dtype)
+    active = torch.ones_like(prob.obs_valid)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    fixed = prob.cam_fixed
+
+    def seg_point(vals):
+        return point_sum(vals, op, oc, P, C)
+
+    def gn_step(state, lamb):
+        cam_R, cam_t, points = state
+        e_w, Jc_w, Jp_w, _, _, _ = _linearize(model, params, bf, cam_R, cam_t, points, prob,
+                                              active, cam2=cam2)
+        pp = point_sum(torch.cat([(Jp_w.transpose(1, 2) @ Jp_w).reshape(-1, 9),
+                                  -torch.einsum("oij,oi->oj", Jp_w, e_w)], dim=-1), op, oc, P, C)
+        Hpp, bp = pp[:, :9].reshape(P, 3, 3), pp[:, 9:]
+        Hpp_inv = lm.inv3x3(Hpp + lamb * torch.abs(Hpp) * eye3 + point_damping * eye3)
+        y0 = torch.einsum("pij,pj->pi", Hpp_inv, bp)
+        v0 = torch.einsum("oij,oj->oi", Jp_w, y0[op])
+        cc = cam_sum(torch.cat([(Jc_w.transpose(1, 2) @ Jc_w).reshape(-1, 36),
+                                -torch.einsum("oij,oi->oj", Jc_w, e_w),
+                                torch.einsum("oij,oi->oj", Jc_w, v0)], dim=-1))
+        Hcc = cc[:, :36].reshape(C, 6, 6)
+        Hcc = Hcc + lamb * torch.abs(Hcc) * eye6 + 1e-8 * eye6
+        Hcc = torch.where(fixed[:, None, None], eye6, Hcc)
+        b_red = cc[:, 36:42] - cc[:, 42:]  # bc - W Hpp^-1 bp
+        Hcc_inv, _ = torch.linalg.inv_ex(Hcc)  # the block-Jacobi preconditioner
+
+        def schur_cross(x):  # W Hpp^-1 W^T x, through the observations
+            u = torch.einsum("oij,oj->oi", Jc_w, x[oc])
+            y = torch.einsum("pij,pj->pi", Hpp_inv, seg_point(torch.einsum("oij,oi->oj", Jp_w, u)))
+            return cam_sum(torch.einsum("oij,oi->oj", Jc_w, torch.einsum("oij,oj->oi", Jp_w, y[op])))
+
+        dc = lm.pcg(lambda x: torch.einsum("cij,cj->ci", Hcc, x) - schur_cross(x), b_red,
+                    lambda r: torch.einsum("cij,cj->ci", Hcc_inv, r), iters=pcg_iters).x
+        dc = torch.where(fixed[:, None], 0.0, dc)
+        u = torch.einsum("oij,oj->oi", Jc_w, dc[oc])
+        tp = seg_point(torch.einsum("oij,oi->oj", Jp_w, u))
+        dp = torch.einsum("pij,pj->pi", Hpp_inv, bp - tp)
+        dp = torch.where(prob.point_valid[:, None], dp, 0.0)
+        dR, dt = lie.exp_se3(dc)
+        R_new, t_new = lie.se3_compose(dR, dt, cam_R, cam_t)
+        R_new = lie.normalize_rotation(R_new)
+        R_new = torch.where(fixed[:, None, None], cam_R, R_new)
+        t_new = torch.where(fixed[:, None], cam_t, t_new)
+        return (R_new, t_new, points + dp)
+
+    n_struct = torch.sum((prob.obs_valid & prob.point_valid[op]).to(dtype))
+
+    def cost_fn(state):
+        _, _, _, chi2, ok, is_st = _linearize(model, params, bf, *state, prob, active, cam2=cam2)
+        return _robust_cost(chi2, ok, is_st, n_struct=n_struct)
+
+    (cam_R, cam_t, points), cost = lm.lm_loop((prob.cam_R, prob.cam_t, prob.points), cost_fn,
+                                              gn_step, iters)
+    _, _, _, chi2, ok, is_st = _linearize(model, params, bf, cam_R, cam_t, points, prob, active,
+                                          cam2=cam2)
+    inlier = ok & (chi2 <= torch.where(is_st, lm.CHI2_STEREO, lm.CHI2_MONO))
+    return BAResult(cam_R=cam_R, cam_t=cam_t, points=points, obs_inlier=inlier, cost=cost)
+
+
 def solve_ba(model: cam.CameraModel, params: torch.Tensor, prob: BAProblem, bf: float = 0.0,
-             iters: int = 10, point_damping: float = 1e-6, dense_schur: bool = False,
-             n_opt_prefix: Optional[int] = None, obs_per_cam: Optional[int] = None,
-             early_stop_tol: Optional[float] = None, cam2=None) -> BAResult:
-    """LM bundle adjustment. Only the dense-Schur path is ported. `cam2 =
+             iters: int = 10, pcg_iters: int = 50, point_damping: float = 1e-6,
+             dense_schur: bool = False, n_opt_prefix: Optional[int] = None,
+             obs_per_cam: Optional[int] = None, early_stop_tol: Optional[float] = None,
+             cam2=None) -> BAResult:
+    """LM bundle adjustment: the dense-Schur path with `dense_schur`, else the
+    matrix-free PCG path (`pcg_iters` CG steps per LM iteration; it takes no
+    `n_opt_prefix` or `early_stop_tol`, as in the reference). `cam2 =
     (params2, R_rl, t_rl)`: a two-camera rig's extrinsics for the rows
     flagged in `prob.obs_right`."""
     if not dense_schur:
-        raise NotImplementedError(
-            "the matrix-free PCG path of solve_ba (maps beyond auto_dense_schur's budget) is "
-            "ROADMAP A15")
+        return _solve_ba_pcg(model, params, prob, bf, iters, pcg_iters, point_damping,
+                             obs_per_cam=obs_per_cam, cam2=cam2)
     return _solve_ba_dense(model, params, prob, bf, iters, point_damping,
                            n_opt_prefix=n_opt_prefix, obs_per_cam=obs_per_cam,
                            early_stop_tol=early_stop_tol, cam2=cam2)

@@ -1,8 +1,10 @@
-"""Robust-kernel constants and weights shared by the port's solvers, and
-the Levenberg-Marquardt loop of the inertial solvers — the port's subset of
-`orbslam3_tpu/optim/lm.py` (`pcg` waits for A15)."""
+"""Robust-kernel constants and weights shared by the port's solvers, the
+Levenberg-Marquardt loop and the preconditioned conjugate gradients of the
+matrix-free bundle adjustment: the port of `orbslam3_tpu/optim/lm.py`."""
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -78,3 +80,39 @@ def lm_loop(init_params, cost_fn, step_fn, iters: int, lam0: float = 1e-4, lam_u
         lam = torch.clamp(torch.where(accept, lam * lam_down, lam * lam_up), 1e-9, 1e6)
         cost = torch.where(accept, new_cost, cost)
     return params, cost
+
+
+class PCGResult(NamedTuple):
+    x: torch.Tensor
+    residual_norm: torch.Tensor
+
+
+def pcg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
+        precond: Callable[[torch.Tensor], torch.Tensor], iters: int,
+        tol: float = 1e-6) -> PCGResult:
+    """`iters` steps of preconditioned conjugate gradients on an SPD operator
+    (the reference's fixed-iteration `pcg`): once the relative residual is
+    under `tol`, the steps leave the state as it is (`torch.where`, no host
+    read). `matvec` and `precond` take and return tensors shaped as `b`."""
+    def dot(u, v):
+        return torch.sum(u * v)
+
+    x = torch.zeros_like(b)
+    r = b
+    p = precond(r)
+    rz = dot(r, p)
+    b_norm = torch.sqrt(dot(b, b)) + 1e-30
+    for _ in range(iters):
+        done = torch.sqrt(dot(r, r)) / b_norm < tol
+        Ap = matvec(p)
+        denom = dot(p, Ap)
+        alpha = torch.where(torch.abs(denom) < 1e-30, 0.0, rz / denom)
+        alpha = torch.where(done, 0.0, alpha)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = dot(r, z)
+        beta = torch.where(torch.abs(rz) < 1e-30, 0.0, rz_new / rz)
+        p = torch.where(done, p, z + beta * p)
+        rz = rz_new
+    return PCGResult(x=x, residual_norm=torch.sqrt(dot(r, r)) / b_norm)

@@ -38,6 +38,11 @@ class FrameData:
     sig2_r: Optional[torch.Tensor] = None  # (Nf,) its octave's variance
     has_r: Optional[torch.Tensor] = None  # (Nf,) bool: a right match exists
 
+    def Twc(self):
+        """(Rwc, twc): the camera's pose in the world."""
+        Rwc = np.asarray(self.R).T
+        return Rwc, -Rwc @ np.asarray(self.t)
+
     @property
     def n_features(self) -> int:
         """Valid keypoints (a host read: the initializer's gate only)."""

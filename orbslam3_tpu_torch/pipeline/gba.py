@@ -6,7 +6,10 @@ A15.
 Every feature slot with a map point is one observation row, so at config
 1's Kmax 256 the problem has 256 cameras and 256 x Nf rows, and
 `auto_dense_schur` picks the dense path: a (6 Kmax)^2 reduced camera system
-in float32 (`optim/ba.py::_solve_ba_dense`, every camera in it).
+in float32 (`optim/ba.py::_solve_ba_dense`, every camera in it). The
+runner's default map (Kmax 512, Pmax 65536) is past its 4 GiB budget, so
+there the GBA takes the matrix-free PCG path (`optim/ba.py::_solve_ba_pcg`,
+50 CG steps per LM iteration).
 
 `AsyncGBA` is the reference's interruptible GBA: the map is snapshotted at
 `start`, each `tick` launches `chunk` LM iterations on the snapshot with no
@@ -21,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from orbslam3_tpu_torch import spans
 from orbslam3_tpu_torch.atlas import store as st
 from orbslam3_tpu_torch.optim import ba as ba_mod
 from orbslam3_tpu_torch.pipeline.tracking import fetch_bundle
@@ -45,10 +49,12 @@ def build_gba_problem(state: st.MapState, fixed: torch.Tensor, sigma2_table) -> 
 
 def gba_step(model, params, state: st.MapState, fixed, sigma2_table, bf: float, iters: int):
     """`iters` LM iterations of the whole-map BA (the reference's `_gba_jit`):
-    (new state with the free poses and the valid points moved, cost)."""
+    (new state with the free poses and the valid points moved, cost). The
+    matrix-free path sums each keyframe's Nf rows by one reduction."""
     prob = build_gba_problem(state, fixed, sigma2_table)
-    res = ba_mod.solve_ba(model, params, prob, bf=bf, iters=iters,
-                          dense_schur=ba_mod.auto_dense_schur(state.Kmax, state.Pmax))
+    dense = ba_mod.auto_dense_schur(state.Kmax, state.Pmax)
+    res = ba_mod.solve_ba(model, params, prob, bf=bf, iters=iters, dense_schur=dense,
+                          obs_per_cam=None if dense else state.Nf)
     new_state = state._replace(
         kf_R=torch.where(fixed[:, None, None], state.kf_R, res.cam_R),
         kf_t=torch.where(fixed[:, None], state.kf_t, res.cam_t),
@@ -119,8 +125,9 @@ class AsyncGBA:
         if not self.running:
             return False
         n = min(self.chunk, self.iters - self._it)
-        self._state, _ = gba_step(self.model, self.params, self._state, self._fixed,
-                                  self.sigma2_table, self.bf, n)
+        with spans.span("gba/chunk"):
+            self._state, _ = gba_step(self.model, self.params, self._state, self._fixed,
+                                      self.sigma2_table, self.bf, n)
         self._it += n
         self.n_chunks += 1
         if self._it < self.iters:

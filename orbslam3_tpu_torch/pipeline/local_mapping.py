@@ -372,7 +372,9 @@ class LocalMapper:
     the IMU initialization after each pass until it succeeds (`imu_init`),
     then runs the local inertial BA in place of the local BA and stages
     VIBA1, VIBA2 and the scale refinement; before it, the bad-IMU watchdog
-    (`bad_imu`). The sliced asynchronous form is A14."""
+    (`bad_imu`). `pipeline/async_mapping.AsyncMapper` runs the same pass
+    sliced, one of `STAGES` per tracked frame; under its interrupt
+    (`interrupt_ba`) the pass skips the local BA."""
 
     NB_BATCH = 10  # covisible neighbours of triangulation and fuse
 
@@ -393,6 +395,7 @@ class LocalMapper:
         self.recent_mp: list[tuple[int, np.ndarray]] = []  # (birth_kf, slots)
         self.tracker = None  # set by System: trajectory re-rooting on culls
         self._covis_pin = None
+        self.interrupt_ba = False  # set by AsyncMapper.interrupt
         # IMU: per-keyframe preintegration from its previous keyframe, and
         # the initialization staging.
         self.imu_calib = imu_calib
@@ -425,23 +428,32 @@ class LocalMapper:
         # One covisibility snapshot for the whole pass (UpdateConnections
         # once per keyframe, as the reference).
         self._covis_pin = (kf_id, self.store.covisibility_np())
-        self._cull_points(kf_id)
+        with spans.span("mapping/cull_points"):
+            self._cull_points(kf_id)
 
     def stage_triangulate(self, kf_id: int):
-        self._create_new_points(kf_id)
+        with spans.span("mapping/triangulate"):
+            self._create_new_points(kf_id)
 
     def stage_fuse(self, kf_id: int):
-        self._fuse_neighbors(kf_id)
+        with spans.span("mapping/fuse"):
+            self._fuse_neighbors(kf_id)
 
     def stage_ba(self, kf_id: int):
-        if self.imu_initialized:
-            with spans.span("local inertial BA"):
-                self._local_inertial_ba(kf_id)
-        else:
-            self._local_ba(kf_id)
+        if self.interrupt_ba:
+            # `LocalMapping::InterruptBA`: tracking wants a keyframe in now,
+            # so this pass skips its local BA.
+            return
+        with spans.span("mapping/local_ba"):
+            if self.imu_initialized:
+                with spans.span("local inertial BA"):
+                    self._local_inertial_ba(kf_id)
+            else:
+                self._local_ba(kf_id)
 
     def stage_maintain(self, kf_id: int):
-        self._cull_keyframes(kf_id)
+        with spans.span("mapping/cull_keyframes"):
+            self._cull_keyframes(kf_id)
         if self.imu_init is not None and not self.imu_init.initialized:
             self._try_imu_init(kf_id)
             if not self.imu_init.initialized:

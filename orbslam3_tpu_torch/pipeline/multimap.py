@@ -246,7 +246,10 @@ class MultiMapManager:
         """`MergeLocal`: move `act` into `target` by the world Sim3 and weld
         the seam."""
         sysm = self.system
-        # The asynchronous mapper (A14) is flushed here (`LoopClosing.cc:1348`).
+        if sysm.async_mapper is not None:
+            # `MergeLocal` stops local mapping before the weld
+            # (`LoopClosing.cc:1348`): the queued passes run first.
+            sysm.async_mapper.flush()
         with spans.span("merge: merge maps"):
             pre_merge_points = _np(target.state.mp_valid).copy()
             kf_remap, _ = map_merging.merge_maps(target, act, R, t, s)

@@ -451,6 +451,7 @@ class Tracker:
         # AcceptKeyFrames`, `KeyframesInQueue`): None is a synchronous mapper,
         # always idle with an empty queue.
         self.mapper_idle_query = None  # callable -> bool
+        self.mapping_interrupt = None  # callable (`LocalMapping::InterruptBA`)
         self.mapping_queue_len = None  # callable -> int
         # NeedNewKeyFrame policy state (ref `Tracking.cc:2577-2715`).
         self.max_frames = max(1, int(round(fps)))  # ref mMaxFrames = fps
@@ -594,6 +595,24 @@ class Tracker:
             for (ts, store_e, ref, R_cr, t_cr) in self.trajectory
         ]
 
+    def follow_map(self):
+        """After background work (an asynchronous mapping pass and the loop
+        closing or merge downstream of it) moved the map under the last
+        frame, the last frame takes its pose relative to its reference
+        keyframe composed with that keyframe's new pose, as ORB-SLAM3's
+        `UpdateLastFrame` gives it to the next frame (fault C17). One host
+        read of the keyframe's pose."""
+        last = self.last_frame
+        if last is None or not self.trajectory:
+            return
+        ts, store, ref, R_cr, t_cr = self.trajectory[-1]
+        if store is not self.store or ref < 0 or abs(ts - last.timestamp) > 1e-9:
+            return
+        self._ref_pose = None
+        R_r, t_r = self._kf_pose(ref)
+        last.R = (R_cr @ R_r).astype(np.float32)
+        last.t = (R_cr @ t_r + t_cr).astype(np.float32)
+
     def _obs_count_cached(self):
         """Per-point observation counts, recomputed only when the map moved
         (`compute_obs_count`)."""
@@ -602,10 +621,11 @@ class Tracker:
             self._obs_cache = (ver, compute_obs_count(self.store.state))
         return self._obs_cache[1]
 
-    def reconstructed_trajectory(self):
+    def reconstructed_trajectory(self, known: Optional[dict] = None):
         """(ts, Rwc, twc) per logged frame, chained through each entry's map's
-        current keyframe poses."""
-        cache = {}
+        current keyframe poses; `known` maps a store to host copies of its
+        (kf_R, kf_t) already read."""
+        cache = {id(k): v for k, v in (known or {}).items()}
         out = []
         for ts, store, ref, R_cr, t_cr in self.trajectory:
             if id(store) not in cache:
@@ -1125,7 +1145,7 @@ class Tracker:
         350 inliers (else 0.9), c3 asks for a keyframe 0.5 s after the last
         and c4 on 15-75 inliers or out of RECENTLY_LOST. A busy mapper queues
         a stereo-like keyframe while fewer than 3 wait, and refuses a
-        monocular one."""
+        monocular one; either way it is interrupted."""
         if self.ref_kf < 0:
             return False
         inertial = self.imu_calib is not None
@@ -1168,6 +1188,10 @@ class Tracker:
             return False
         if idle:
             return True
+        # A busy mapper skips its local BA; only stereo-like sensors queue
+        # (`Tracking.cc:2694-2713`).
+        if self.mapping_interrupt is not None:
+            self.mapping_interrupt()
         if not mono_like:
             q = 0 if self.mapping_queue_len is None else int(self.mapping_queue_len())
             return q < 3

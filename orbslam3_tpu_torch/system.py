@@ -39,9 +39,14 @@ tracking relocalizes into it); `activate_localization_mode()` tracks
 against a frozen map (no keyframes, so no mapping, loop closing or map
 storing); `save_trajectory_tum`, `_kitti`, `_euroc` and
 `save_keyframe_trajectory_tum`, `_euroc` write the trajectory files
-(`io/trajectory.py`). Not ported yet: the settings file's parsing, the
-dataset loaders, asynchronous mapping, the stream server and the viewer
-(A14); the PCG and sharded solvers and the distributed Atlas (A15).
+(`io/trajectory.py`). `enable_async_mapping()` slices each keyframe's
+mapping pass over the frames after it (`pipeline/async_mapping.py`), and
+`enable_viewer(port)` serves the live viewer (`viz/server.py`);
+`shutdown()` drains both and a background GBA. The settings files, the
+dataset loaders, the sequence runner and the stream server are
+`config.py`, `io/datasets.py`, `run_sequence.py` and `serve_stream.py`.
+Not ported yet: the sharded solvers, the distributed Atlas and the VI-BA's
+matrix-free path (A15).
 """
 
 from __future__ import annotations
@@ -115,16 +120,46 @@ class System:
         # LoopClosing hand-off, `LocalMapping.cc:280`).
         self._kf_downstream = []
         self._lost_streak = 0
+        self.async_mapper = None  # AsyncMapper (enable_async_mapping)
+        self.viewer = None  # LiveViewer (enable_viewer)
 
     def _on_new_keyframe(self, slot: int, initial: bool = False, preint=None) -> bool:
         """The keyframe's mapping pass (with its preintegration from the
-        previous keyframe), then its hand-off to loop closing. Returns
-        whether a loop correction moved the map (fault C12)."""
-        self.mapper.process_keyframe(slot, initial=initial, preint=preint)
+        previous keyframe), then its hand-off to loop closing; with
+        asynchronous mapping, its submission to the mapper (the initial map's
+        pass still runs at once). Returns whether a loop correction moved the
+        map (fault C12)."""
         loops = self.n_loops_closed
+        if self.async_mapper is not None:
+            self.async_mapper.submit(slot, initial=initial, preint=preint)
+            return self.n_loops_closed > loops
+        self.mapper.process_keyframe(slot, initial=initial, preint=preint)
         for d in self._kf_downstream:
             d(slot)
         return self.n_loops_closed > loops
+
+    def enable_async_mapping(self):
+        """Overlap mapping with tracking (ORB-SLAM3's LocalMapping thread,
+        `System.cc:138`): a keyframe's mapping pass runs sliced, one stage
+        after each tracked frame, and loop closing and the Atlas see the
+        keyframe when its pass completes (`pipeline/async_mapping.py`)."""
+        from orbslam3_tpu_torch.pipeline.async_mapping import AsyncMapper
+
+        self.async_mapper = AsyncMapper(self.mapper, self._kf_downstream)
+        self.tracker.mapper_idle_query = self.async_mapper.idle
+        self.tracker.mapping_interrupt = self.async_mapper.interrupt
+        self.tracker.mapping_queue_len = self.async_mapper.queue_len
+        return self.async_mapper
+
+    def enable_viewer(self, port: int = 0, **kw):
+        """Serve the live viewer over HTTP (ORB-SLAM3's Viewer, FrameDrawer
+        and MapDrawer, `System.cc:175-177`; `viz/server.py`). Its HTTP
+        threads read only the host snapshot that each frame leaves. Returns
+        the viewer; `viewer.port` is the bound port (0 asks for a free one)."""
+        from orbslam3_tpu_torch.viz.server import LiveViewer
+
+        self.viewer = LiveViewer(self, port=port, **kw)
+        return self.viewer
 
     def enable_place_recognition(self, vocabulary, run_gba: bool = True,
                                  min_bow_matches: int = 20, min_sim3_inliers: int = 20,
@@ -180,11 +215,15 @@ class System:
         self.tracker.only_tracking = False
 
     def shutdown(self):
-        """`System::Shutdown` (`System.cc:474`): run a background GBA to its
-        end."""
+        """`System::Shutdown` (`System.cc:474`): drain the asynchronous
+        mapper, run a background GBA to its end, close the viewer."""
+        if self.async_mapper is not None:
+            self.async_mapper.flush()
         lc = self.loop_closer
         if lc is not None and lc.gba_async is not None:
             lc.gba_async.join(self.store)
+        if self.viewer is not None:
+            self.viewer.close()
 
     def _on_timestamp_anomaly(self, kind: str):
         """`Tracking::Track` (Tracking.cc:987-1031): a reordered frame
@@ -220,7 +259,7 @@ class System:
         for t, acc, gyro in imu_measurements or ():
             self.tracker.grab_imu(t, acc, gyro)
         out = self.tracker.process_frame(img, timestamp)
-        self._post_frame()
+        self._post_frame(img)
         return out
 
     def track_stereo(self, img_left, img_right, timestamp: float, imu_measurements=None):
@@ -241,7 +280,7 @@ class System:
             out = self.tracker.process_stereo_fisheye_frame(img_left, img_right, timestamp)
         else:
             out = self.tracker.process_stereo_frame(img_left, img_right, timestamp)
-        self._post_frame()
+        self._post_frame(img_left)
         return out
 
     def track_rgbd(self, img, depth_map, timestamp: float):
@@ -249,14 +288,14 @@ class System:
         (H, W) in metres, <= 0 where there is none."""
         self._require(Sensor.RGBD)
         out = self.tracker.process_rgbd_frame(img, depth_map, timestamp)
-        self._post_frame()
+        self._post_frame(img)
         return out
 
     def _require(self, sensor: Sensor):
         if self.sensor != sensor:
             raise ValueError(f"a {self.sensor.name} System takes no {sensor.name} frame")
 
-    def _post_frame(self):
+    def _post_frame(self, img):
         self._tick_gba()
         if self.mapper.bad_imu:
             # The watchdog fired during mapping: too little motion to ever
@@ -266,10 +305,22 @@ class System:
             self.multimap.on_frame_done()
         else:
             self._lost_recovery_fallback()
+        if self.viewer is not None:
+            self.viewer.update(img, self.tracker.last_frame)
 
     def _tick_gba(self):
-        """One chunk of a running background GBA after each frame (the
-        reference's transient GBA thread, time-sliced)."""
+        """After each frame, one stage of an asynchronous mapping pass (the
+        reference's LocalMapping thread, time-sliced) and one chunk of a
+        running background GBA (its transient GBA thread). Where the stage,
+        or the loop closing or merge after it, moved the map, the last frame
+        follows it (`Tracker.follow_map`, fault C17)."""
+        am = self.async_mapper
+        if am is not None and not am.idle():
+            tr = self.tracker
+            loops, store, tr._map_transformed = self.n_loops_closed, self.store, False
+            am.tick()
+            if self.n_loops_closed > loops or tr._map_transformed or self.store is not store:
+                tr.follow_map()
         lc = self.loop_closer
         if lc is not None and lc.gba_async is not None and lc.gba_async.running:
             lc.gba_async.tick(self.store)
@@ -329,7 +380,8 @@ class System:
         closer's keyframe database (the tracker's too), pending loop and
         loop edges. A background GBA of the previous map is aborted here
         (`AsyncGBA.tick` folds into the map it is given and checks nothing)."""
-        # The asynchronous mapper (A14) drops its in-flight keyframes here.
+        if self.async_mapper is not None:  # its in-flight keyframes are stale
+            self.async_mapper.abort()
         self._point_at(new)
         self.mapper.recent_mp = []
         self.mapper.preints = {}

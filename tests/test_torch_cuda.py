@@ -378,6 +378,41 @@ def test_global_ba_256_cameras_on_card_equals_cpu(dev):
                                    getattr(out["cpu"], k).numpy(), rtol=0, atol=1e-4, err_msg=k)
 
 
+def test_pcg_bundle_adjustment_on_card_equals_cpu_and_repeats(dev):
+    """The matrix-free PCG path of `solve_ba` (the GBA's at the runner's
+    default map, Kmax 512 and Pmax 65536) on a small well-conditioned map
+    (`loop_scene.make_ba_map`'s 12 keyframes, every one seeing every point):
+    two solves on the card are equal bit for bit, and within 1e-4 of the
+    CPU's (poses and points)."""
+    import loop_scene as LS
+
+    from orbslam3_tpu_torch.atlas import store as st
+    from orbslam3_tpu_torch.optim import ba as ba_mod
+    from orbslam3_tpu_torch.pipeline import gba
+
+    arrays, info = LS.make_ba_map()
+    rng = np.random.default_rng(5)
+    K = info["n_kf"]
+    arrays["kf_t"][1:K] += rng.normal(0, 0.02, (K - 1, 3)).astype(np.float32)
+    arrays["mp_pos"][1:info["n_mp"]] += rng.normal(0, 0.05, (info["n_mp"] - 1, 3)).astype(
+        np.float32)
+    out = []
+    for where in (dev, dev, torch.device("cpu")):
+        state = st.MapState(**{k: torch.from_numpy(np.array(v)).to(where)
+                               for k, v in arrays.items()})
+        fixed = ~state.kf_valid
+        fixed[0] = True
+        sigma2 = torch.from_numpy(feat.sigma2(feat.OrbParams(n_levels=4))).to(where)
+        prob = gba.build_gba_problem(state, fixed, sigma2)
+        res = ba_mod.solve_ba(CameraModel.PINHOLE, torch.from_numpy(LS.PARAMS.copy()).to(where),
+                              prob, bf=30.0, iters=10, pcg_iters=50, obs_per_cam=state.Nf)
+        out.append({k: getattr(res, k).cpu().numpy() for k in ("cam_R", "cam_t", "points")})
+    assert float(np.abs(out[2]["cam_t"] - arrays["kf_t"]).max()) > 1e-3
+    for k in ("cam_R", "cam_t", "points"):
+        np.testing.assert_array_equal(out[0][k], out[1][k], err_msg=k)
+        np.testing.assert_allclose(out[0][k], out[2][k], rtol=0, atol=1e-4, err_msg=k)
+
+
 def test_camera_sums_on_card_repeat_and_equal_cpu(dev):
     """`optim/ba.py::CameraSums` on the card, the per-camera sums of both
     BAs (the one-hot product, set up once per solve): at the whole-map BA's

@@ -12,7 +12,8 @@ system over every camera, as `auto_dense_schur` picks at config 1's Kmax
 * `_finish` with a keyframe and points made while the solve ran: they are
   carried through their anchors as the reference carries them (within
   1e-4).
-* `auto_dense_schur` and `solve_ba`'s refusal of the PCG path."""
+* `auto_dense_schur`, and the whole-map problem on the matrix-free PCG path
+  against the reference's PCG path."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -139,10 +140,25 @@ def test_finish_carries_what_was_made_during_the_solve(scene):
     assert moved > 0  # carried by their anchors' corrections
 
 
-def test_auto_dense_schur_and_the_pcg_path():
-    for C, P in ((32, 4096), (256, 16384), (1024, 65536)):
+def test_auto_dense_schur_and_the_pcg_path(scene):
+    """The choice of path is the reference's, and the whole-map problem on
+    the matrix-free PCG path lands within 1e-4 (poses) and 1e-3 (points) of
+    the reference's PCG path."""
+    for C, P in ((32, 4096), (256, 16384), (512, 65536), (1024, 65536)):
         assert ba_t.auto_dense_schur(C, P) == ba_j.auto_dense_schur(C, P)
     assert ba_t.auto_dense_schur(256, 16384)  # config 1: dense
-    assert not ba_t.auto_dense_schur(1024, 65536)
-    with pytest.raises(NotImplementedError, match="A15"):
-        ba_t.solve_ba(cam_t.CameraModel.PINHOLE, torch.zeros(8), None, dense_schur=False)
+    assert not ba_t.auto_dense_schur(512, 65536)  # the runner's default map: PCG
+    store_j, store_t = _pair(scene)
+    fixed = np.zeros(16, bool)
+    fixed[0] = True
+    fixed |= ~np.asarray(store_j.state.kf_valid)
+    model_j, params_j, s2_j = _args_j()
+    model_t, params_t, s2_t = _args_t()
+    prob_j = gba_j.build_gba_problem(store_j.state, jnp.asarray(fixed), s2_j)
+    prob_t = gba_t.build_gba_problem(store_t.state, torch.from_numpy(fixed), s2_t)
+    ref = ba_j.solve_ba(model_j, params_j, prob_j, bf=BF, iters=10, pcg_iters=50)
+    got = ba_t.solve_ba(model_t, params_t, prob_t, bf=BF, iters=10, pcg_iters=50, obs_per_cam=256)
+    np.testing.assert_allclose(got.cam_R.numpy(), np.asarray(ref.cam_R), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.cam_t.numpy(), np.asarray(ref.cam_t), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.points.numpy(), np.asarray(ref.points), rtol=0, atol=1e-3)
+    assert float(got.cost) < float(ba_t.solve_ba(model_t, params_t, prob_t, bf=BF, iters=0).cost)

@@ -412,14 +412,17 @@ def test_system_takes_the_card_unless_asked_for_the_cpu(monkeypatch):
     assert slam.tracking_state == TrackState.NOT_INITIALIZED
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     """Importing the System, the entry points, the kernel bench, place
     recognition's modules, the stereo ones, the inertial ones, the fisheye
     rig's (the KB8 camera, the rig's match and pose rows; and loading the
     synthetic sequence's script, rendering a fisheye pair) and the Atlas's
     (the Atlas, map merging, the multi-map manager, the trajectory writers;
-    rendering a blind frame) leaves JAX and the JAX package out of the
-    process."""
+    rendering a blind frame) and the system surface's (asynchronous mapping,
+    the settings reader, the PNG codec, the dataset loaders and writer, the
+    stream protocol and server, the viewer, the runner; writing a sequence,
+    reading it back, loading its settings, serving the viewer page) leaves
+    JAX and the JAX package out of the process, and OpenCV and PyYAML too."""
     code = ("import sys, orbslam3_tpu_torch.system, orbslam3_tpu_torch.entry as E, "
             "orbslam3_tpu_torch.kernel_bench, orbslam3_tpu_torch.pipeline.loop_closing, "
             "orbslam3_tpu_torch.pipeline.gba, orbslam3_tpu_torch.io.vocab_io, "
@@ -430,9 +433,20 @@ def test_port_imports_no_jax():
             "orbslam3_tpu_torch.optim.pose_only, orbslam3_tpu_torch.optim.ba, "
             "orbslam3_tpu_torch.pipeline.tracking, orbslam3_tpu_torch.spans, "
             "orbslam3_tpu_torch.atlas.atlas, orbslam3_tpu_torch.pipeline.map_merging, "
-            "orbslam3_tpu_torch.pipeline.multimap, orbslam3_tpu_torch.io.trajectory; "
+            "orbslam3_tpu_torch.pipeline.multimap, orbslam3_tpu_torch.io.trajectory, "
+            "orbslam3_tpu_torch.pipeline.async_mapping, orbslam3_tpu_torch.config, "
+            "orbslam3_tpu_torch.io.png, orbslam3_tpu_torch.io.datasets, "
+            "orbslam3_tpu_torch.io.stream, orbslam3_tpu_torch.viz.drawer, "
+            "orbslam3_tpu_torch.viz.server, orbslam3_tpu_torch.run_sequence, "
+            "orbslam3_tpu_torch.serve_stream, urllib.request; "
             "E.synth_euroc(); E.euroc_frames(1, fisheye=True); E.euroc_frames(2, blind=(1, 1)); "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'orbslam3_tpu')]; "
+            "from orbslam3_tpu_torch import config, viz; from orbslam3_tpu_torch.io import datasets; "
+            f"d = {str(tmp_path)!r}; E.write_euroc_sequence(d, 1, imu=True); "
+            "config.load_settings(d + '/settings.yaml'); datasets.load_euroc_images(d).read(0); "
+            "datasets.sequence_digest(d); v = viz.server.LiveViewer(None); "
+            "urllib.request.urlopen(f'http://127.0.0.1:{v.port}/map.png').read(); v.close(); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'orbslam3_tpu', 'cv2', 'yaml')]; "
             "assert not bad, bad")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=300)
