@@ -147,6 +147,29 @@ System driven directly by `track_monocular` after the serve, the viewer's
 any thread but the serving one; it prints the IMU initialization's frame,
 the ms per frame and of `viewer.update` and the syncs it adds.
 
+Phase 18 is BASELINE config 5 on two ranks of the card (both on cuda:0
+over gloo, which stages CUDA tensors through the host; NCCL takes one rank
+a card), spawned by `orbslam3_tpu_torch.parallel.launch` with a 300 s
+timeout on every collective. 18a runs `entry.dryrun_multichip(2)`: the
+sharded BA at the production GBA shape (128 keyframes, 16384 points, 512
+observations each, 3 LM iterations) in both layouts, each held against the
+one-device solve on the card (poses within 2e-3, the points seen from 4 or
+more keyframes within 5e-3, under 2% of the inliers flipped, the cost within
+5%), the ranks equal, a point-sharded rank's peak memory below one device's;
+it prints ms per LM iteration, the collectives per solve with their bytes
+and ms, and the peaks. 18b replays phase 15's multi-map lap as two SPMD
+replicas with `System.enable_distributed()` (each rank renders the lap from
+its seed) against phase 15's one-device result: map 0 stored within 2
+frames, as many merges and the first within 2 keyframes, every GBA chunk
+over the group, every merge query sharded, |ATE - phase 15's| < 5e-3 m and
+the ATE under phase 15's gate, both ranks' map digests equal at every GBA
+start and at the end, the ranks' replays equal, 2 host syncs and no
+collective per tracked frame; it prints per frame kind (GBA-chunk and
+merge-query frames among them) the syncs the sync-debug mode sees, the
+collectives (each a host wait it does not see) with their ms, and both
+summed, then the GBA chunk ms against phase 15's, each rank's B1 and B2
+launches and collectives.
+
 Every run prints how many CUDA graphs the pose solves captured and
 replayed (`optim.graphed`), and the wall time of each phase and of the
 whole script.
@@ -163,7 +186,8 @@ the same inputs.
     python3 chip_smoke.py --only 15
 
 builds the kernels and runs phase 15 alone (its record holds B1's rows of
-that phase only); `--only 16` and `--only 17` do the same for those.
+that phase only); `--only 16` and `--only 17` do the same for those, and
+`--only 18` runs phase 15 (18b's one-device side), then phase 18.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -1946,6 +1970,142 @@ def _phase17_in(seq: str, card: str) -> dict:
     return dict(launches=launches)
 
 
+# Phase 18: BASELINE config 5 ("map merging + global BA across 2 hosts") on
+# two ranks: with one card both on cuda:0 over gloo (NCCL takes one rank a
+# card; with two cards or more, NCCL). Each collective raises after
+# DIST_TIMEOUT s, so a rank that diverges fails the phase instead of the
+# script's time limit.
+DIST_RANKS = 2
+DIST_TIMEOUT = 300
+DIST_WALL = 600  # s for the whole two-rank replay
+DIST_ATE_TOL = 5e-3  # |ATE(2 ranks) - ATE(phase 15)|, scripts/drive_multimap_distributed.py's
+
+
+def _collective_line(stats: dict) -> str:
+    return "; ".join(f"{name} {c} calls, {b / c / 1e6:.3f} MB and {ms / c:.3f} ms each"
+                     for name, (c, b, ms) in sorted(stats.items()))
+
+
+def phase18a_dryrun(dev, card: str) -> dict:
+    """Phase 18a: `entry.dryrun_multichip(2)`, the sharded BA at the
+    production GBA shape on two ranks of the card, both layouts, each against
+    the one-device solve on the card (its gates raise inside)."""
+    from orbslam3_tpu_torch import entry as E
+
+    t0 = time.perf_counter()
+    out = E.dryrun_multichip(DIST_RANKS, device=dev, timeout=DIST_TIMEOUT)
+    sh = out["shape"]
+    print(f"phase 18a dryrun_multichip({DIST_RANKS}): C {sh['C']}, P {sh['P']}, "
+          f"{sh['obs_per_cam']} observations a keyframe, {sh['iters']} LM iterations, "
+          f"pcg_iters {sh['pcg_iters']}; {time.perf_counter() - t0:.1f} s wall [{card}]")
+    for layout, what in (("obs", "observations sharded (PCG)"),
+                         ("point", "points block-partitioned (dense Schur)")):
+        o = out[layout]
+        check(np.isfinite(o["cost"]) and o["same_ranks"], f"phase 18a {layout}: {o}")
+        print(f"phase 18a {what}: ms per LM iteration {[round(x, 2) for x in o['ms_per_iter']]}"
+              f" per rank against {o['single_ms_per_iter']:.2f} on one device; cost "
+              f"{o['cost']:.4f} (one device {o['single_cost']:.4f}); poses within "
+              f"{o['d_pose']:.2e}, points seen 4+ times within {o['d_points']:.2e} (every point "
+              f"{o['d_points_all']:.2e}), inliers flipped {o['inlier_flips']:.4f}; ranks equal; "
+              f"collectives per solve: {_collective_line(o['collectives'])}; peak memory per rank "
+              f"{[None if x is None else round(x / 2**20, 1) for x in o['peak']]} MiB against "
+              f"{o['single_peak'] / 2**20:.1f} MiB on one device")
+    pk = out["point"]
+    check(max(pk["peak"]) < pk["single_peak"],
+          f"phase 18a: a point-sharded rank's peak {pk['peak']} not below one device's "
+          f"{pk['single_peak']}")
+    return out
+
+
+def phase18b_config5(dev, card: str, p15: dict) -> dict:
+    """Phase 18b: phase 15's multi-map lap as two SPMD replicas with
+    `enable_distributed()` (`parallel/launch.py::replay`), held against phase
+    15's one-device run: map 0 stored within 2 frames of it, as many merges
+    and the first within 2 keyframes, every GBA chunk over the group, every
+    merge query sharded, |dATE| < DIST_ATE_TOL and the ATE under phase 15's
+    gate, both ranks' map digests equal at every GBA start and at the end,
+    the ranks equal, 2 host syncs and no collective per tracked frame."""
+    from orbslam3_tpu_torch.parallel import launch
+    from orbslam3_tpu_torch.parallel.context import digests_equal
+    from orbslam3_tpu_torch.pipeline.tracking import Tracker
+
+    rep15 = p15["rep"]
+    t0 = time.perf_counter()
+    ranks = launch.replay(DIST_RANKS, dev, timeout=DIST_TIMEOUT, wall=DIST_WALL, sensor="mono",
+                          n_frames=MM_FRAMES, vocabulary=VOC_100K, t_loop=MM_T_LOOP,
+                          multimap=True, blind=MM_BLIND)
+    wall_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    med = lambda xs: statistics.median(xs) if xs else float("nan")  # noqa: E731
+    for r in ranks:
+        check(r["n_shards"] == DIST_RANKS, f"phase 18b: {r['n_shards']} shards")
+    check(all(r["states"] == r0["states"] and r["ate"] == r0["ate"]
+              and r["merges"] == r0["merges"] for r in ranks),
+          "phase 18b: the ranks' replays differ")
+    print(f"phase 18b outcome (rank 0): initialized at frame {r0['states'].index('OK')}; "
+          f"stored {r0['stored']}; merges "
+          f"{[{k: v for k, v in m.items() if k not in ('R', 't')} for m in r0['merges']]}; "
+          f"GBA {r0['gba_finished']} finished, {r0['n_chunks']} chunks, {r0['n_dist_solves']} "
+          f"over the group; merge queries {r0['n_queries']}, sharded {r0['n_sharded_queries']}; "
+          f"ATE {r0['ate']:.6f} m (phase 15 {rep15.ate:.6f}); {wall_s:.1f} s wall")
+    check(len(r0["stored"]) >= 1 and len(rep15.stored) >= 1, "phase 18b: no map stored")
+    f0, f15 = r0["stored"][0]["frame"], rep15.stored[0]["frame"]
+    check(abs(f0 - f15) <= 2 and r0["n_maps"][f0] == 2,
+          f"phase 18b: map 0 stored at frame {f0}, phase 15 at {f15}")
+    check(len(r0["merges"]) == len(rep15.merges) >= 1,
+          f"phase 18b: {len(r0['merges'])} merges, phase 15 {len(rep15.merges)}")
+    m0, m15 = r0["merges"][0], rep15.merges[0]
+    check(abs(m0["n_kf_active"] - m15["n_kf_active"]) <= 2,
+          f"phase 18b: merged with {m0['n_kf_active']} keyframes, phase 15 {m15['n_kf_active']}")
+    check(r0["n_chunks"] > 0 and r0["n_dist_solves"] == r0["n_chunks"] and r0["gba_finished"] >= 1,
+          f"phase 18b: GBA chunks {r0['n_chunks']}, over the group {r0['n_dist_solves']}")
+    check(r0["n_queries"] > 0 and r0["n_sharded_queries"] == r0["n_queries"],
+          f"phase 18b: merge queries {r0['n_queries']}, sharded {r0['n_sharded_queries']}")
+    d_ate = abs(r0["ate"] - rep15.ate)
+    check(np.isfinite(r0["ate"]) and d_ate < DIST_ATE_TOL and r0["ate"] <= MM_ATE_GATE,
+          f"phase 18b: ATE {r0['ate']} m, phase 15 {rep15.ate} m, gate {MM_ATE_GATE} m")
+    checks = r0["replica_checks"]
+    check(digests_equal(checks) and sum(w == "gba start" for w, _, _ in checks) >= 1
+          and checks[-1][0] == "end" and all(r["replica_checks"] == checks for r in ranks),
+          f"phase 18b: replica digests {checks}")
+
+    kinds = r0["kinds"]
+    by_kind = {}
+    try_merge = {f_ for f_, _, _ in r0["multimap_ms"].get("try merge", [])}
+    for k, (kind, n_sync, (n_coll, c_ms), m) in enumerate(zip(kinds, r0["syncs"],
+                                                              r0["collectives"], r0["ms"])):
+        if k in try_merge and kind not in ("init", "lost"):
+            kind = f"{kind} + merge query"
+        by_kind.setdefault(kind, []).append((n_sync, n_coll, c_ms, m))
+    tracked = by_kind.get("tracked", [])
+    check(tracked and {(n, c) for n, c, _, _ in tracked} == {(Tracker.HOST_SYNCS_PER_FRAME, 0)},
+          "phase 18b: (host syncs, collectives) per tracked frame "
+          f"{sorted({(n, c) for n, c, _, _ in tracked})}")
+    chunk = [dv for _, _, dv in r0["multimap_ms"].get("gba/chunk", []) if dv is not None]
+    chunk15 = [dv for _, _, dv in rep15.multimap_ms.get("gba/chunk", []) if dv is not None]
+    print(f"phase 18b gates: map 0 stored at frame {f0} (phase 15 {f15}), merged with "
+          f"{m0['n_kf_active']} keyframes at frame {m0['frame']} (phase 15 {m15['n_kf_active']} at "
+          f"{m15['frame']}), |dATE| {d_ate:.6f} m < {DIST_ATE_TOL}; digests equal at "
+          f"{[w for w, _, _ in checks]}; backend {launch.backend_for(dev, DIST_RANKS)}, ranks on "
+          f"{[str(launch.rank_device(dev, r)) for r in range(DIST_RANKS)]}")
+    print("phase 18b host waits per frame kind (rank 0; syncs seen by the sync-debug mode, "
+          "collectives over the group, both summed): " + "; ".join(
+              f"{kind} {len(v)} frames, syncs median {med([n for n, _, _, _ in v])} (max "
+              f"{max(n for n, _, _, _ in v)}), collectives median {med([c for _, c, _, _ in v])} "
+              f"(max {max(c for _, c, _, _ in v)}; median {med([x for _, _, x, _ in v]):.2f} ms "
+              f"a frame), host waits median {med([n + c for n, c, _, _ in v])} (max "
+              f"{max(n + c for n, c, _, _ in v)}), ms median {med([m for _, _, _, m in v]):.2f}"
+              for kind, v in sorted(by_kind.items())))
+    print(f"phase 18b GBA chunk device ms: median {med(chunk):.2f} over {len(chunk)} chunks "
+          f"(phase 15, one device: {med(chunk15):.2f} over {len(chunk15)})")
+    for i, r in enumerate(ranks):
+        print(f"phase 18b rank {i}: B1 {sum(r['b1'])} launches, B2 {sum(r['b2'])}; collectives: "
+              f"{_collective_line(r['collective_stats'])} [{card}]")
+    launches = {"fast_nms": sum(sum(r["b2"]) for r in ranks),
+                "hamming_top2": sum(sum(r["b1"]) for r in ranks)}
+    return dict(ranks=ranks, launches=launches, wall_s=wall_s)
+
+
 def check(ok, what: str) -> None:
     """Fail the run (every phase's checks are hard failures)."""
     if not ok:
@@ -1956,7 +2116,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--save-inputs", metavar="FILE",
                     help="write phase 7's kernel inputs to FILE (torch.save)")
-    ap.add_argument("--only", choices=["15", "16", "17"],
+    ap.add_argument("--only", choices=["15", "16", "17", "18"],
                     help="build, then run this phase alone (its B1 rows in the record)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1991,10 +2151,18 @@ def run(opts) -> int:
     print(_build.resource_report(), end="")
     walls["build"] = time.perf_counter()
     card = smi.stdout.strip().splitlines()[0]
-    if opts.only in ("15", "16", "17"):
+    if opts.only in ("15", "16", "17", "18"):
         err, rows = 0.0, []
         if opts.only == "15":
-            err, rows, launches = phase15_rows(dev, card)
+            err, rows, launches = phase15_rows(phase15_multimap(dev), card)
+        elif opts.only == "18":  # phase 15 is 18b's one-device side
+            p15 = phase15_multimap(dev)
+            err, rows, launches = phase15_rows(p15, card)
+            walls["phase 15"] = time.perf_counter()
+            phase18a_dryrun(dev, card)
+            walls["phase 18a"] = time.perf_counter()
+            p18 = phase18b_config5(dev, card, p15)
+            launches = {k: launches[k] + p18["launches"][k] for k in launches}
         elif opts.only == "16":
             p16 = phase16_runner(dev, card)
             err, rows, launches = p16["err"], [p16["row"]], p16["launches"]
@@ -2590,7 +2758,8 @@ def run(opts) -> int:
         print(f"phase 14 B1 {site}: {p14['sites'][site]} launches in the phase-14 replay")
     walls["phase 14"] = time.perf_counter()
     # --- Phase 15: the Atlas: a map stored, a merge, save and load ----------
-    err15, rows15, launches15 = phase15_rows(dev, card)
+    p15 = phase15_multimap(dev)
+    err15, rows15, launches15 = phase15_rows(p15, card)
     err_b1 = max(err_b1, err15)
     b1_rows.extend(rows15)
     walls["phase 15"] = time.perf_counter()
@@ -2601,6 +2770,11 @@ def run(opts) -> int:
     walls["phase 16"] = time.perf_counter()
     p17 = phase17_stream_viewer(dev, card)
     walls["phase 17"] = time.perf_counter()
+    # --- Phase 18: config 5 on two ranks of the card -------------------------
+    phase18a_dryrun(dev, card)
+    walls["phase 18a"] = time.perf_counter()
+    p18 = phase18b_config5(dev, card, p15)
+    walls["phase 18b"] = time.perf_counter()
 
     if opts.save_inputs:
         per_replay = {**per_site, **p10["sites"]}
@@ -2613,7 +2787,8 @@ def run(opts) -> int:
         launches[k] += sum(run[k] for run in (launches5, launches6, launches8, p10["launches"],
                                               p11["launches"], p12["rgbd"], p12["raw"],
                                               p13["launches"], p14["launches"], launches15,
-                                              p16["launches"], p17["launches"]))
+                                              p16["launches"], p17["launches"],
+                                              p18["launches"]))
     lm = next(r for r in b1_rows if r["call"] == "local map")  # the kernel's headline call
     record = {"kernels": [
         {"name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",
@@ -2635,14 +2810,14 @@ def run(opts) -> int:
     return finish(walls, record)
 
 
-def phase15_rows(dev, card: str):
-    """Phase 15, then B1 at its two new calls (the merge's verification
-    match, the weld fuse) exact against plain and timed. Returns (the largest
-    B1 difference, the rows, the phase's launches)."""
+def phase15_rows(p15: dict, card: str):
+    """B1 at phase 15's two new calls (the merge's verification match, the
+    weld fuse; `p15` is `phase15_multimap`'s result) exact against plain and
+    timed. Returns (the largest B1 difference, the rows, the phase's
+    launches)."""
     from orbslam3_tpu_torch import kernel_bench as KB
     from orbslam3_tpu_torch.ops import _build, cuda_match
 
-    p15 = phase15_multimap(dev)
     err, rows = 0.0, []
     n_kf = sum(p15["rep"].keyframe)
     for site, a in p15["args"].items():

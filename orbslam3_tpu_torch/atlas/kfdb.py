@@ -14,7 +14,8 @@ the port's top-n is a stable descending sort (`_top_k_lowest_index`), not
 `torch.topk`, whose order among ties is unspecified. The reference's
 `fori_loop` dedup is a Python loop of tensor ops with no host read.
 
-The sharded query (`query_frame_sharded`) is ROADMAP A15.
+`query_frame_sharded` scores the same query over a `torch.distributed`
+group, each rank its block of the BoW matrix (`parallel/kfdb_sharded.py`).
 """
 
 from __future__ import annotations
@@ -111,3 +112,14 @@ class KeyFrameDB:
         vec = bow_ops.bow_vector(self.voc, words)
         exclude = torch.zeros(self.vecs.shape[0], dtype=torch.bool, device=self.vecs.device)
         return detect_candidates(vec, words, self.vecs, self.valid, exclude, covis, n_best)
+
+    def query_frame_sharded(self, desc: torch.Tensor, feat_valid: torch.Tensor, dist,
+                            n_best: int = 5):
+        """`query_frame` scored over a `DistributedContext`'s group
+        (`parallel/context.py::kfdb_query`): the (K, n_words) matrix cut in
+        blocks along K, each rank's top-k all-gathered. Used by the Atlas's
+        merge query of a distributed system; no covisibility grouping (each
+        candidate is Sim3-verified downstream)."""
+        words = bow_ops.transform(self.voc, desc, feat_valid)
+        vec = bow_ops.bow_vector(self.voc, words)
+        return dist.kfdb_query(vec, words, self.vecs, self.valid, n_best=n_best)

@@ -770,6 +770,9 @@ class ReplayResult(NamedTuple):
     #                    (the merged map's keyframes), n_kf (the target's after it))
     multimap_ms: dict = {}  # per span ("try merge", "merge: ..."): list of (frame, host ms,
     #                         device ms)
+    # Distributed (`distributed=True`; empty otherwise):
+    collectives: list = []  # per frame: (collectives over the group, their host ms); each
+    #                         is a host wait that `syncs` does not count
 
     def frame_kinds(self) -> list:
         """Each frame's kind: "init" (before the first OK), "lost" (not OK),
@@ -827,7 +830,8 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
            orb: feat.OrbParams = EUROC_MONO["orb"], vocabulary: str | None = None,
            t_loop: float | None = None, kidnap: tuple[int, int] | None = None,
            on_frame: Callable | None = None, n_track: int | None = None,
-           multimap: bool = False, blind: tuple[int, int] | None = None) -> ReplayResult:
+           multimap: bool = False, blind: tuple[int, int] | None = None,
+           distributed: bool = False) -> ReplayResult:
     """Drive the `System` of `sensor` with ORB parameters `orb` over the
     first `n_frames` of the synthetic EuRoC sequence on `device` and score
     it against the rendered camera centres. `sensor` is one of `SENSORS`:
@@ -865,10 +869,19 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
     `_do_merge`'s split ("merge: merge maps", "merge: weld fuse", "merge:
     weld BA", "merge: essential graph", "merge: GBA start"). `blind` =
     (at, n) covers the lens for n frames from frame `at` (`euroc_frames`);
-    the ATEs are then over the other frames."""
+    the ATEs are then over the other frames.
+
+    `distributed` calls `System.enable_distributed()` on the world group of
+    an initialized process group (BASELINE config 5, one SPMD replica per
+    rank: `parallel/launch.py::replay`); the map's digests are compared
+    across the ranks at every GBA start and after the last frame
+    (`system.dist.replica_checks`), and each frame's collectives over the
+    group are counted beside its syncs (`collectives`): the sync-debug
+    warnings that count `syncs` do not see a collective's host wait."""
     from orbslam3_tpu_torch.ate import associate, umeyama
     from orbslam3_tpu_torch.io.vocab_io import load_binary_vocabulary
     from orbslam3_tpu_torch.ops import cuda_fast, cuda_match
+    from orbslam3_tpu_torch.parallel import comm
     from orbslam3_tpu_torch.system import Sensor, System
 
     if sensor not in SENSORS:
@@ -927,11 +940,13 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
                 loops[-1]["ate_after"] = ate
 
         slam.loop_closer.on_correction = on_correction
+    if distributed:
+        slam.enable_distributed()
     gba = slam.loop_closer.gba_async if slam.loop_closer is not None else None
     states, keyframe, ms, syncs, b2, b1, chunks = [], [], [], [], [], [], []
     vi_frames = dict(init=None, kfs=None, viba1=None, viba2=None)
     pi_taken = []
-    n_maps, stored, merges = [], [], []
+    n_maps, stored, merges, collectives = [], [], [], []
     mm = slam.multimap
     timer = spans.Recorder(cuda)
     with timer if inertial or multimap else contextlib.nullcontext():
@@ -940,6 +955,7 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
             if vocabulary is not None:
                 frame_no[0] = k
             n2, n1 = cuda_fast.LAUNCHES, cuda_match.LAUNCHES
+            nc, cms = comm.totals()
             n_chunks = gba.n_chunks if gba is not None else 0
             store0, merges0 = slam.store, mm.n_merges if mm is not None else 0
             if cuda:
@@ -954,6 +970,9 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
                 torch.cuda.synchronize(dev)
             ms.append((time.perf_counter() - start) * 1e3)
             syncs.append(sum("synchroniz" in str(w.message) for w in caught) if cuda else None)
+            if distributed:
+                nc1, cms1 = comm.totals()
+                collectives.append((nc1 - nc, cms1 - cms))
             states.append(slam.tracking_state.name)
             keyframe.append(slam.tracker.last_kf_frame_id == frame.frame_id)
             b2.append(cuda_fast.LAUNCHES - n2)
@@ -981,6 +1000,8 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
             if on_frame is not None:
                 on_frame(k, slam)
     slam.shutdown()
+    if distributed:
+        slam.dist.check_replicas(slam.store, "end")
     ts, pos = slam.get_trajectory()
     gt_ts_s, gt_pos_s = gt_ts[seen], gt_pos[seen]
     ate = ate_rmse(ts, pos, gt_ts_s, gt_pos_s, with_scale=True, max_dt=0.01)
@@ -1005,4 +1026,138 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
                         viba1=vi_frames["viba1"], viba2=vi_frames["viba2"], pi_taken=pi_taken,
                         inertial_ms=timer.result() if inertial else {}, n_maps=n_maps,
                         stored=stored, merges=merges,
-                        multimap_ms=timer.result() if multimap else {})
+                        multimap_ms=timer.result() if multimap else {}, collectives=collectives)
+
+
+# The production GBA problem of `__graft_entry__.py::dryrun_multichip`:
+# C keyframes on a line, P points, obs_per_cam observations a keyframe.
+DRYRUN_SHAPE = dict(C=128, P=16384, obs_per_cam=512, iters=3, pcg_iters=20)
+
+
+def dryrun_problem(device, C: int = 128, P: int = 16384, obs_per_cam: int = 512):
+    """(BAProblem, camera params) of the reference's `dryrun_multichip` at
+    its shapes, drawn from `default_rng(0)` in its order: identity rotations,
+    centres along x, two fixed keyframes, each keyframe observing
+    `obs_per_cam` distinct random points (0.5 px noise), the poses moved by
+    1 cm and the points by 2 cm."""
+    from orbslam3_tpu_torch.optim import ba as ba_mod
+
+    rng = np.random.default_rng(0)
+    params = cam.make_pinhole(458.654, 457.296, 376.0, 240.0)
+    pts = np.stack([rng.uniform(-4, 4, P), rng.uniform(-3, 3, P), rng.uniform(4, 12, P)],
+                   -1).astype(np.float32)
+    cam_R = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1))
+    cam_t = np.zeros((C, 3), np.float32)
+    cam_t[:, 0] = np.linspace(0, 1.5, C)
+    obs_cam = np.repeat(np.arange(C, dtype=np.int32), obs_per_cam)
+    obs_pt = np.concatenate([rng.choice(P, obs_per_cam, replace=False)
+                             for _ in range(C)]).astype(np.int32)
+    Xc = pts[obs_pt] + cam_t[obs_cam]
+    uv = cam.pinhole_project(params, torch.from_numpy(Xc)).numpy()
+    uv = (uv + rng.normal(0, 0.5, uv.shape)).astype(np.float32)
+    O = len(obs_cam)
+    T = functools.partial(convert.tensor, device=device)
+    prob = ba_mod.BAProblem(
+        cam_R=T(cam_R), cam_t=T(cam_t + rng.normal(0, 0.01, cam_t.shape).astype(np.float32)),
+        cam_fixed=T(np.arange(C) < 2),
+        points=T(pts + rng.normal(0, 0.02, pts.shape).astype(np.float32)),
+        point_valid=T(np.ones(P, bool)), obs_cam=T(obs_cam), obs_point=T(obs_pt), obs_uv=T(uv),
+        obs_ur=T(np.full(O, -1.0, np.float32)), obs_sigma2=T(np.ones(O, np.float32)),
+        obs_valid=T(np.ones(O, bool)))
+    return prob, params.to(device)
+
+
+def _timed_solve(device, fn):
+    """(result, ms, peak bytes above what was allocated before; None off CUDA)."""
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    res = fn()
+    if cuda:
+        torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(device) - base if cuda else None
+    return res, ms, peak
+
+
+def dryrun_rank(rank: int, n: int, device, shape: dict) -> dict:
+    """One rank of `dryrun_multichip`: both layouts over the world group,
+    each with its result, ms, collectives (timed with the device drained) and
+    peak memory."""
+    from orbslam3_tpu_torch.parallel import ba_sharded, comm
+
+    prob, params = dryrun_problem(device, shape["C"], shape["P"], shape["obs_per_cam"])
+    kw = dict(iters=shape["iters"], pcg_iters=shape["pcg_iters"])
+    out = {}
+    for layout, solve in (("obs", ba_sharded.solve_ba_sharded),
+                          ("point", ba_sharded.solve_ba_point_sharded)):
+        comm.reset_stats()
+        with comm.sync_timing():
+            res, ms, peak = _timed_solve(device, lambda: solve(cam.CameraModel.PINHOLE, params,
+                                                               prob, **kw))
+        out[layout] = dict(res=res._asdict(), ms=ms, peak=peak, collectives=comm.stats_copy())
+    return out
+
+
+def dryrun_multichip(n: int, device=None, timeout: float = 300.0, **shape) -> dict:
+    """The sharded bundle adjustment at the production GBA shape
+    (`DRYRUN_SHAPE`: C = 128 keyframes, P = 16384 points, 512 observations a
+    keyframe, 3 LM iterations, 20 CG steps; keywords override it) on `n`
+    ranks (`parallel/launch.py`, on the card unless `device` says otherwise)
+    in both layouts: observations sharded (the PCG path, one all-reduce per
+    CG product) and the point axis block-partitioned (the dense Schur path,
+    one all-reduce per LM iteration). Each is held against the same solve
+    on one device here: poses within 2e-3, the points that 4 or more
+    keyframes observe within 5e-3, fewer than 2% of `obs_inlier` flipped, the
+    cost finite and within 5% (or 1.0); every rank's result equal. A point
+    seen from two neighbouring keyframes (1.2 cm apart, 4-12 m away) has
+    almost no depth: float32 sums in another order move it by up to 1e-2
+    after 3 iterations (in float64 the layouts agree with the single solve
+    to 1e-10), so the largest difference over every point is returned, not
+    gated. Returns the numbers (ms, ms per LM iteration, collectives per
+    solve with bytes and ms, peak memory); raises AssertionError where a gate
+    fails."""
+    from orbslam3_tpu_torch.device import require_cuda
+    from orbslam3_tpu_torch.optim import ba as ba_mod
+    from orbslam3_tpu_torch.parallel import launch
+
+    dev = require_cuda() if device is None else torch.device(device)
+    shape = {**DRYRUN_SHAPE, **shape}
+    ranks = launch.run(dryrun_rank, n, (shape,), device=dev, timeout=timeout)
+    prob, params = dryrun_problem(dev, shape["C"], shape["P"], shape["obs_per_cam"])
+    well = np.bincount(prob.obs_point.cpu().numpy(), minlength=shape["P"]) >= 4
+    out = dict(shape=shape, n=n)
+    for layout, dense in (("obs", False), ("point", True)):
+        ref, ms, peak = _timed_solve(dev, lambda: ba_mod.solve_ba(
+            cam.CameraModel.PINHOLE, params, prob, iters=shape["iters"],
+            pcg_iters=shape["pcg_iters"], dense_schur=dense))
+        ref = convert.to_numpy(ref)
+        r0 = ranks[0][layout]
+        got = r0["res"]
+        d_pose = max(float(np.abs(got[k] - getattr(ref, k)).max()) for k in ("cam_R", "cam_t"))
+        d_all = np.abs(got["points"] - ref.points).max(axis=1)
+        d_pts = float(d_all[well].max())
+        flips = float(np.mean(got["obs_inlier"] != ref.obs_inlier))
+        d_cost = abs(float(got["cost"]) - float(ref.cost))
+        same_ranks = all(np.array_equal(r[layout]["res"][k], got[k])
+                         for r in ranks for k in ("cam_R", "cam_t", "points", "cost"))
+        out[layout] = dict(
+            ms=[r[layout]["ms"] for r in ranks], ms_per_iter=[r[layout]["ms"] / shape["iters"]
+                                                              for r in ranks],
+            single_ms=ms, single_ms_per_iter=ms / shape["iters"], cost=float(got["cost"]),
+            single_cost=float(ref.cost), d_pose=d_pose, d_points=d_pts,
+            d_points_all=float(d_all.max()), inlier_flips=flips,
+            d_cost=d_cost, same_ranks=same_ranks, collectives=r0["collectives"],
+            peak=[r[layout]["peak"] for r in ranks], single_peak=peak)
+        for ok, what in ((np.isfinite(float(got["cost"])), f"cost {got['cost']}"),
+                         (d_pose <= 2e-3, f"poses {d_pose}"), (d_pts <= 5e-3, f"points {d_pts}"),
+                         (flips < 0.02, f"inliers flipped {flips}"),
+                         (d_cost <= max(0.05 * abs(float(ref.cost)), 1.0),
+                          f"cost {float(got['cost'])} against {float(ref.cost)}"),
+                         (same_ranks, "the ranks' results differ")):
+            if not ok:
+                raise AssertionError(f"dryrun_multichip {layout}: {what}")
+    return out

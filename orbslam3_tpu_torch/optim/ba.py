@@ -3,7 +3,19 @@ device: the dense-Schur path (`_solve_ba_dense`) and the matrix-free PCG path
 (`_solve_ba_pcg`, with `lm.pcg`), with their residuals (`_linearize`: mono
 and stereo-`ur` rows, and with `cam2` a two-camera rig's right-camera rows),
 robust cost and closed-form 3x3 Cholesky. `auto_dense_schur` chooses between
-them by the reference's memory budget; the sharded layouts are ROADMAP A15.
+them by the reference's memory budget.
+
+Both paths also run sharded over a `torch.distributed` group (`group`, the
+reference's `axis_name`; `parallel/ba_sharded.py` lays the problem out):
+with the observations sharded and the state replicated, every sum over
+observations is a local sum and one all-reduce (the PCG path: one per CG
+product; the dense path: the point blocks, the cameras' blocks and the cost
+in one, the coupling tensor, the reduced right-hand side, the
+back-substitution); with the points sharded as well (`point_axis_local`,
+each rank owns its points and all their observations) the point sums need
+none, and the dense path's only collective is one all-reduce of the packed
+(S, b_red, Hcc, cost) per linearization. The accept test reads the
+all-reduced cost, so every rank takes the same decision.
 
 The problem is a fixed-shape batch: cameras (C), points (P), observations
 (O) with validity masks. On the dense path, per LM iteration the reduced
@@ -34,6 +46,7 @@ import torch
 from orbslam3_tpu_torch.ops import cameras as cam
 from orbslam3_tpu_torch.ops import lie
 from orbslam3_tpu_torch.optim import lm
+from orbslam3_tpu_torch.parallel import comm
 
 
 class BAProblem(NamedTuple):
@@ -234,7 +247,7 @@ class _Lin(NamedTuple):
 
 def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
                     n_opt_prefix=None, obs_per_cam=None, early_stop_tol=None,
-                    cam2=None) -> BAResult:
+                    cam2=None, group=None, point_axis_local=False) -> BAResult:
     """Explicit-reduced-camera-system LM with deferred accept: each
     iteration linearizes the candidate once, and its cost decides whether the
     previous step is kept. `n_opt_prefix`: the optimizable cameras are the
@@ -243,7 +256,8 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
     in a fixed order as the point sums are, `point_sum`).
     `early_stop_tol`: stop after an accepted step that lowers the cost by a
     relative amount below it. `cam2`: the rig's right-camera rows
-    (`_linearize`)."""
+    (`_linearize`). `group`, `point_axis_local`: the sharded layouts (module
+    docstring)."""
     C = prob.cam_R.shape[0]
     P = prob.points.shape[0]
     O = prob.obs_cam.shape[0]
@@ -256,6 +270,9 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
     op = prob.obs_point.to(torch.int64)
     n_struct = torch.sum((prob.obs_valid & prob.point_valid[op]).to(dtype))
     active = torch.ones_like(prob.obs_valid)
+    obs_shared = group is not None and not point_axis_local
+    red = comm.reducer(group if obs_shared else None, "ba/dense obs-sharded")
+    red_pack = comm.reducer(group if not obs_shared else None, "ba/dense packed system")
 
     # A (point, camera) pair holds at most one observation, so the coupling
     # blocks are a placement: index map (P*n_opt -> obs row) built once;
@@ -288,6 +305,12 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
         pp = (Jp_w.transpose(1, 2) @ Jp_w).reshape(O, 9)
         pe = -torch.einsum("oij,oi->oj", Jp_w, e_w)
         ppe = point_sum(torch.cat([pp, pe], dim=-1), op, oc, P, C)
+        if obs_shared:  # the point blocks must be global before Hpp^-1: one all-reduce
+            pack = red(torch.cat([ppe.reshape(-1), Hcc.reshape(-1), bc.reshape(-1),
+                                  cost.reshape(1)]))
+            n_p, n_h = P * 12, C * 36
+            ppe, Hcc = pack[:n_p].reshape(P, 12), pack[n_p:n_p + n_h].reshape(C, 6, 6)
+            bc, cost = pack[n_p + n_h:-1].reshape(C, 6), pack[-1]
         Hpp = ppe[:, :9].reshape(P, 3, 3)
         bp = ppe[:, 9:]
         # Lambda-independent point damping, so a rejected step re-damps S only.
@@ -297,15 +320,23 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
         # G_o = L_p^T Jp_o^T Jc_o placed into B (P, n, 3, 6): S_cross = B^T B.
         G = (Jp_w @ L[op]).transpose(1, 2) @ Jc_w  # (O,3,6)
         G = torch.cat([G.reshape(O, 18), torch.zeros((1, 18), dtype=dtype, device=dev)])
-        B = G[inv_idx].reshape(P, n_opt, 3, 6)
+        B = red(G[inv_idx].reshape(P, n_opt, 3, 6))  # obs-sharded: another shard's pairs
         Bm = B.permute(0, 2, 1, 3).reshape(3 * P, 6 * n_opt)
         S_cross = (Bm.T @ Bm).reshape(n_opt, 6, n_opt, 6)
         y0 = torch.einsum("pij,pj->pi", Hpp_inv, bp)
         v = torch.einsum("oij,oj->oi", Jp_w, y0[op])  # b_red = bc - W^T y0, per obs
-        wy = cam_sum(torch.einsum("oij,oi->oj", Jc_w, v))
+        wy = red(cam_sum(torch.einsum("oij,oi->oj", Jc_w, v)))
         S_und = _block_diag(Hcc[:n_opt]) - S_cross
-        return _Lin(S_und, (bc - wy)[:n_opt], Hcc[:n_opt], bp, Hpp_inv, Jc_w, Jp_w,
-                    inlier, cost)
+        b_red, Hcc_w = (bc - wy)[:n_opt], Hcc[:n_opt]
+        if group is not None and point_axis_local:
+            # Point-sharded: the one collective of the linearization.
+            n_s, n_b = S_und.numel(), b_red.numel()
+            pack = red_pack(torch.cat([S_und.reshape(-1), b_red.reshape(-1),
+                                       Hcc_w.reshape(-1), cost.reshape(1)]))
+            S_und = pack[:n_s].reshape(S_und.shape)
+            b_red = pack[n_s:n_s + n_b].reshape(n_opt, 6)
+            Hcc_w, cost = pack[n_s + n_b:-1].reshape(n_opt, 6, 6), pack[-1]
+        return _Lin(S_und, b_red, Hcc_w, bp, Hpp_inv, Jc_w, Jp_w, inlier, cost)
 
     keep = (~fixed_w).to(dtype)
     fixed_eye = _block_diag(torch.where(fixed_w, 1.0, 0.0).to(dtype)[:, None, None] * eye6)
@@ -330,7 +361,7 @@ def _solve_ba_dense(model, params, prob: BAProblem, bf, iters, point_damping,
         dc = torch.cat([dc_w, torch.zeros((C - n_opt, 6), dtype=dtype, device=dev)])
         # Back-substitute points at observation level.
         u = torch.einsum("oij,oj->oi", lin.Jc_w, dc[oc])
-        tp = point_sum(torch.einsum("oij,oi->oj", lin.Jp_w, u), op, oc, P, C)
+        tp = red(point_sum(torch.einsum("oij,oi->oj", lin.Jp_w, u), op, oc, P, C))
         dp = torch.einsum("pij,pj->pi", lin.Hpp_inv, lin.bp - tp)
         dp = torch.where(prob.point_valid[:, None], dp, 0.0)
         dR, dt = lie.exp_se3(dc)
@@ -378,7 +409,7 @@ def auto_dense_schur(C: int, P: int, hbm_budget_bytes: int = 4 << 30) -> bool:
 
 
 def _solve_ba_pcg(model, params, prob: BAProblem, bf, iters, pcg_iters, point_damping,
-                  obs_per_cam=None, cam2=None) -> BAResult:
+                  obs_per_cam=None, cam2=None, group=None, point_axis_local=False) -> BAResult:
     """The reference's matrix-free LM (`solve_ba` without `dense_schur`):
     each iteration linearizes, damps the point blocks (lambda |Hpp| plus
     `point_damping`) and the camera blocks (lambda |Hcc| plus 1e-8), solves
@@ -386,7 +417,9 @@ def _solve_ba_pcg(model, params, prob: BAProblem, bf, iters, pcg_iters, point_da
     block-Jacobi preconditioner, back-substitutes the points, and `lm_loop`
     accepts the step if it lowers the robust cost. Per-camera sums go through
     `CameraSums` (`obs_per_cam`: camera-major rows, one reduction), per-point
-    sums through `point_sum`; no host read."""
+    sums through `point_sum`; no host read. With `group` every per-camera
+    sum, every per-point sum unless `point_axis_local`, and the cost are
+    all-reduced (the reference's `seg_cam` / `seg_point` under `axis_name`)."""
     C = prob.cam_R.shape[0]
     P = prob.points.shape[0]
     dev, dtype = prob.cam_R.device, prob.cam_R.dtype
@@ -397,21 +430,27 @@ def _solve_ba_pcg(model, params, prob: BAProblem, bf, iters, pcg_iters, point_da
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     fixed = prob.cam_fixed
+    red_cam = comm.reducer(group, "ba/pcg cameras")
+    red_pt = comm.reducer(None if point_axis_local else group, "ba/pcg points")
+    red_cost = comm.reducer(group, "ba/pcg cost")
 
     def seg_point(vals):
-        return point_sum(vals, op, oc, P, C)
+        return red_pt(point_sum(vals, op, oc, P, C))
+
+    def seg_cam(vals):
+        return red_cam(cam_sum(vals))
 
     def gn_step(state, lamb):
         cam_R, cam_t, points = state
         e_w, Jc_w, Jp_w, _, _, _ = _linearize(model, params, bf, cam_R, cam_t, points, prob,
                                               active, cam2=cam2)
-        pp = point_sum(torch.cat([(Jp_w.transpose(1, 2) @ Jp_w).reshape(-1, 9),
-                                  -torch.einsum("oij,oi->oj", Jp_w, e_w)], dim=-1), op, oc, P, C)
+        pp = seg_point(torch.cat([(Jp_w.transpose(1, 2) @ Jp_w).reshape(-1, 9),
+                                  -torch.einsum("oij,oi->oj", Jp_w, e_w)], dim=-1))
         Hpp, bp = pp[:, :9].reshape(P, 3, 3), pp[:, 9:]
         Hpp_inv = lm.inv3x3(Hpp + lamb * torch.abs(Hpp) * eye3 + point_damping * eye3)
         y0 = torch.einsum("pij,pj->pi", Hpp_inv, bp)
         v0 = torch.einsum("oij,oj->oi", Jp_w, y0[op])
-        cc = cam_sum(torch.cat([(Jc_w.transpose(1, 2) @ Jc_w).reshape(-1, 36),
+        cc = seg_cam(torch.cat([(Jc_w.transpose(1, 2) @ Jc_w).reshape(-1, 36),
                                 -torch.einsum("oij,oi->oj", Jc_w, e_w),
                                 torch.einsum("oij,oi->oj", Jc_w, v0)], dim=-1))
         Hcc = cc[:, :36].reshape(C, 6, 6)
@@ -423,7 +462,7 @@ def _solve_ba_pcg(model, params, prob: BAProblem, bf, iters, pcg_iters, point_da
         def schur_cross(x):  # W Hpp^-1 W^T x, through the observations
             u = torch.einsum("oij,oj->oi", Jc_w, x[oc])
             y = torch.einsum("pij,pj->pi", Hpp_inv, seg_point(torch.einsum("oij,oi->oj", Jp_w, u)))
-            return cam_sum(torch.einsum("oij,oi->oj", Jc_w, torch.einsum("oij,oj->oi", Jp_w, y[op])))
+            return seg_cam(torch.einsum("oij,oi->oj", Jc_w, torch.einsum("oij,oj->oi", Jp_w, y[op])))
 
         dc = lm.pcg(lambda x: torch.einsum("cij,cj->ci", Hcc, x) - schur_cross(x), b_red,
                     lambda r: torch.einsum("cij,cj->ci", Hcc_inv, r), iters=pcg_iters).x
@@ -443,7 +482,7 @@ def _solve_ba_pcg(model, params, prob: BAProblem, bf, iters, pcg_iters, point_da
 
     def cost_fn(state):
         _, _, _, chi2, ok, is_st = _linearize(model, params, bf, *state, prob, active, cam2=cam2)
-        return _robust_cost(chi2, ok, is_st, n_struct=n_struct)
+        return red_cost(_robust_cost(chi2, ok, is_st, n_struct=n_struct))
 
     (cam_R, cam_t, points), cost = lm.lm_loop((prob.cam_R, prob.cam_t, prob.points), cost_fn,
                                               gn_step, iters)
@@ -457,15 +496,25 @@ def solve_ba(model: cam.CameraModel, params: torch.Tensor, prob: BAProblem, bf: 
              iters: int = 10, pcg_iters: int = 50, point_damping: float = 1e-6,
              dense_schur: bool = False, n_opt_prefix: Optional[int] = None,
              obs_per_cam: Optional[int] = None, early_stop_tol: Optional[float] = None,
-             cam2=None) -> BAResult:
+             cam2=None, group=None, point_axis_local: bool = False) -> BAResult:
     """LM bundle adjustment: the dense-Schur path with `dense_schur`, else the
     matrix-free PCG path (`pcg_iters` CG steps per LM iteration; it takes no
     `n_opt_prefix` or `early_stop_tol`, as in the reference). `cam2 =
     (params2, R_rl, t_rl)`: a two-camera rig's extrinsics for the rows
-    flagged in `prob.obs_right`."""
+    flagged in `prob.obs_right`.
+
+    `group`: a `torch.distributed` group over which this rank holds a shard
+    of the observations (cameras and points replicated; the reference's
+    `axis_name`). `point_axis_local`: the rank owns `prob.points` and every
+    observation of them (`obs_point` local indices), so the point sums stay
+    local (`parallel/ba_sharded.py::solve_ba_point_sharded`). The result's
+    cameras (and with replicated points, the points) are the same on every
+    rank; `obs_inlier` is this rank's rows."""
     if not dense_schur:
         return _solve_ba_pcg(model, params, prob, bf, iters, pcg_iters, point_damping,
-                             obs_per_cam=obs_per_cam, cam2=cam2)
+                             obs_per_cam=obs_per_cam, cam2=cam2, group=group,
+                             point_axis_local=point_axis_local)
     return _solve_ba_dense(model, params, prob, bf, iters, point_damping,
                            n_opt_prefix=n_opt_prefix, obs_per_cam=obs_per_cam,
-                           early_stop_tol=early_stop_tol, cam2=cam2)
+                           early_stop_tol=early_stop_tol, cam2=cam2, group=group,
+                           point_axis_local=point_axis_local)

@@ -4,7 +4,9 @@
 (`EdgeGyroRW`/`EdgeAccRW`), the inertial-only MAP of the IMU
 initialization (`Optimizer::InertialOptimization`, `Optimizer.cc:5482`) and
 the joint visual-inertial BA (`LocalInertialBA` / `FullInertialBA`,
-`Optimizer.cc:4753, 473`), its dense branch.
+`Optimizer.cc:4753, 473`): its dense and matrix-free (PCG) branches, on
+one device or with the observations sharded over a `torch.distributed`
+group.
 
 State per keyframe: the 15-dof body state (R_wb, p_wb, v, bg, ba), updated
 in the body frame (`ImuCamPose::Update`, `G2oTypes.cc:192`): R <- R Exp(dtheta),
@@ -37,6 +39,7 @@ from orbslam3_tpu_torch.ops import imu as imu_ops
 from orbslam3_tpu_torch.ops import lie
 from orbslam3_tpu_torch.optim import lm
 from orbslam3_tpu_torch.optim.ba import CameraSums, point_slots, point_sum
+from orbslam3_tpu_torch.parallel import comm
 
 STATE_DIM = 15  # [theta(3), p(3), v(3), bg(3), ba(3)]
 
@@ -411,18 +414,26 @@ def coupling_bytes(P: int, K: int) -> int:
 
 def solve_vi_ba(model: cam.CameraModel, params: torch.Tensor, prob: VIProblem, iters: int = 8,
                 pcg_iters: int = 50, huber_mono: float = lm.CHI2_MONO, prior_gyro: float = 1e2,
-                prior_acc: float = 1e6, dense_solve: bool = True,
-                axis_name: Optional[str] = None, obs_per_cam: Optional[int] = None) -> VIResult:
+                prior_acc: float = 1e6, dense_solve: bool = True, group=None,
+                obs_per_cam: Optional[int] = None) -> VIResult:
     """Joint visual-inertial BA (`LocalInertialBA` `Optimizer.cc:4753` /
     `FullInertialBA` `:473`): 15-dof keyframe states, Schur-eliminated
     points, the IMU chain and the bias random walk in the reduced system,
     zero-bias priors (`prior_gyro`, `prior_acc`) on the first free
-    keyframe (`EdgePriorGyro/Acc`). The reduced (15K)^2 system is assembled
-    densely: block-diagonal keyframe blocks, the IMU off-diagonal blocks,
-    minus the visual Schur term through the (P, K, 3, 6) point-keyframe
-    coupling; Jacobi-rescaled (whitened IMU rows are ~1e8 against visual
-    ~1) and solved once per iteration. The matrix-free PCG branch and the
-    sharded form are ROADMAP A15.
+    keyframe (`EdgePriorGyro/Acc`). With `dense_solve` (the default; every
+    caller's) the reduced (15K)^2 system is assembled densely: block-diagonal
+    keyframe blocks, the IMU off-diagonal blocks, minus the visual Schur
+    term through the (P, K, 3, 6) point-keyframe coupling; Jacobi-rescaled
+    (whitened IMU rows are ~1e8 against visual ~1) and solved once per
+    iteration. Without it, `pcg_iters` steps of `lm.pcg` on the same system
+    applied matrix-free (the keyframe blocks, the IMU blocks per edge, the
+    Schur term through the observations), preconditioned by the inverse of
+    each keyframe's 15x15 block.
+
+    `group`: this rank holds a shard of the observations over a
+    `torch.distributed` group (keyframes and points replicated; the
+    reference's `axis_name`): every per-point and per-keyframe sum over
+    observations, the coupling tensor and the visual cost are all-reduced.
 
     Sums run in a fixed order, so that a solve on the card repeats exactly
     (CUDA's `index_add_` adds in no fixed order): a point's sums go through
@@ -430,11 +441,6 @@ def solve_vi_ba(model: cam.CameraModel, params: torch.Tensor, prob: VIProblem, i
     keyframe's through `ba.CameraSums` (with `obs_per_cam`, observations laid
     out keyframe by keyframe, that many each, as the mapper lays them out, a
     reduction over its block)."""
-    if not dense_solve:
-        raise NotImplementedError("the PCG path of solve_vi_ba is ROADMAP A15")
-    if axis_name is not None:
-        raise NotImplementedError("the sharded solve_vi_ba is ROADMAP A15")
-    del pcg_iters
     K = prob.state.R.shape[0]
     P = prob.points.shape[0]
     ref = prob.points
@@ -451,10 +457,41 @@ def solve_vi_ba(model: cam.CameraModel, params: torch.Tensor, prob: VIProblem, i
                   == torch.argmax((~kf_fixed).to(torch.int32))).to(ref.dtype)  # one-hot (K,)
     ok_base = prob.obs_valid & prob.point_valid[obs_point]
 
-    def pt_sum(vals):
-        return point_sum(vals, obs_point, obs_cam, P, K)
+    red = comm.reducer(group, "vi-ba")
 
-    cam_sum = CameraSums(obs_cam, K, obs_per_cam, ref.dtype)
+    def pt_sum(vals):
+        return red(point_sum(vals, obs_point, obs_cam, P, K))
+
+    kf_sums = CameraSums(obs_cam, K, obs_per_cam, ref.dtype)
+
+    def cam_sum(vals):
+        return red(kf_sums(vals))
+
+    def _dense_step(Hkk, Hij, b_red, Jp_w, Jx_w, Hpp_inv):
+        """The dense reduced system: blockdiag(Hkk) + IMU off-diagonals -
+        the visual Schur term through the per-(point, keyframe) 3x6
+        coupling; its Jacobi-rescaled solve."""
+        dim = K * STATE_DIM
+        JpTJx = torch.einsum("oia,oib->oab", Jp_w, Jx_w)  # (O,3,6)
+        Bpk = red(point_slots(JpTJx, obs_point, obs_cam, P, K))  # (P,K,3,6)
+        HB = torch.einsum("pij,pkjb->pkib", Hpp_inv, Bpk)  # (P,K,3,6)
+        Bm = Bpk.permute(0, 2, 1, 3).reshape(P * 3, K * 6)
+        HBm = HB.permute(0, 2, 1, 3).reshape(P * 3, K * 6)
+        S_schur = (Bm.T @ HBm).reshape(K, 6, K, 6)
+        ar = torch.arange(K, device=ref.device)
+        S4 = torch.zeros((K, K, STATE_DIM, STATE_DIM), dtype=ref.dtype, device=ref.device)
+        S4[ar, ar] = Hkk
+        S4 = S4.index_put((ei, ej), Hij, accumulate=True)
+        S4 = S4.index_put((ej, ei), Hij.transpose(-1, -2), accumulate=True)
+        S = S4.permute(0, 2, 1, 3).clone()  # (K,15,K,15)
+        S[:, :6, :, :6] -= S_schur
+        S = S.reshape(dim, dim)
+        S = 0.5 * (S + S.T)
+        # Jacobi rescaling: fatal for a float32 solve without it.
+        d = torch.sqrt(torch.clamp(torch.diagonal(S), min=1e-12))
+        S_s = S / d[:, None] / d[None, :] + 1e-7 * _eye(dim, ref)
+        y = torch.linalg.solve_ex(S_s, b_red.reshape(-1) / d).result
+        return (y / d).reshape(K, STATE_DIM)
 
     def gn_step(state_tuple, lamb):
         state, points = state_tuple
@@ -535,29 +572,22 @@ def solve_vi_ba(model: cam.CameraModel, params: torch.Tensor, prob: VIProblem, i
         b_red = bk - torch.nn.functional.pad(cam_sum(torch.einsum("oij,oi->oj", Jx_w, v0)),
                                              (0, 9))
 
-        # Dense reduced system: blockdiag(Hkk) + IMU off-diagonals - the
-        # visual Schur term through the per-(point, keyframe) 3x6 coupling.
-        dim = K * STATE_DIM
-        JpTJx = torch.einsum("oia,oib->oab", Jp_w, Jx_w)  # (O,3,6)
-        Bpk = point_slots(JpTJx, obs_point, obs_cam, P, K)  # (P,K,3,6)
-        HB = torch.einsum("pij,pkjb->pkib", Hpp_inv, Bpk)  # (P,K,3,6)
-        Bm = Bpk.permute(0, 2, 1, 3).reshape(P * 3, K * 6)
-        HBm = HB.permute(0, 2, 1, 3).reshape(P * 3, K * 6)
-        S_schur = (Bm.T @ HBm).reshape(K, 6, K, 6)
-        ar = torch.arange(K, device=ref.device)
-        S4 = torch.zeros((K, K, STATE_DIM, STATE_DIM), dtype=ref.dtype, device=ref.device)
-        S4[ar, ar] = Hkk
-        S4 = S4.index_put((ei, ej), Hij, accumulate=True)
-        S4 = S4.index_put((ej, ei), Hij.transpose(-1, -2), accumulate=True)
-        S = S4.permute(0, 2, 1, 3).clone()  # (K,15,K,15)
-        S[:, :6, :, :6] -= S_schur
-        S = S.reshape(dim, dim)
-        S = 0.5 * (S + S.T)
-        # Jacobi rescaling: fatal for a float32 solve without it.
-        d = torch.sqrt(torch.clamp(torch.diagonal(S), min=1e-12))
-        S_s = S / d[:, None] / d[None, :] + 1e-7 * _eye(dim, ref)
-        y = torch.linalg.solve_ex(S_s, b_red.reshape(-1) / d).result
-        dx = (y / d).reshape(K, STATE_DIM) * fd
+        if dense_solve:
+            dx = _dense_step(Hkk, Hij, b_red, Jp_w, Jx_w, Hpp_inv) * fd
+        else:
+            Hkk_inv = torch.linalg.inv_ex(Hkk).inverse  # the block-Jacobi preconditioner
+
+            def matvec(x):  # (K,15)
+                Hx = _mv(Hkk, x)
+                Hx = Hx.index_add(0, ei, _mv(Hij, x[ej]))  # one edge per i, per j
+                Hx = Hx.index_add(0, ej, _mv(Hij.transpose(-1, -2), x[ei]))
+                # The visual Schur term (pose dims only), through the observations.
+                y = _mv(Hpp_inv, pt_sum(torch.einsum("oij,oi->oj", Jp_w,
+                                                     _mv(Jx_w, x[obs_cam, :6]))))
+                schur = cam_sum(torch.einsum("oij,oi->oj", Jx_w, _mv(Jp_w, y[obs_point])))
+                return Hx - torch.nn.functional.pad(schur, (0, 9))
+
+            dx = lm.pcg(matvec, b_red, lambda r: _mv(Hkk_inv, r), iters=pcg_iters).x * fd
 
         # Back-substitute the points.
         u = _mv(Jx_w, dx[obs_cam, :6])
@@ -576,7 +606,7 @@ def solve_vi_ba(model: cam.CameraModel, params: torch.Tensor, prob: VIProblem, i
         chi2, ok = chi2_of(state, points)
         rho = torch.where(chi2 <= huber_mono, chi2,
                           2.0 * torch.sqrt(huber_mono * torch.clamp(chi2, min=1e-12)) - huber_mono)
-        c_vis = torch.sum(torch.where(ok, rho, 0.0))
+        c_vis = red(torch.sum(torch.where(ok, rho, 0.0)))
         r9, rrw = _edge_residual(state, prob.edges, g)
         c = (torch.einsum("ei,eij,ej->e", r9, prob.edges.info, r9)
              + torch.einsum("ei,eij,ej->e", rrw, prob.edges.info_rw, rrw))

@@ -9,10 +9,13 @@ linearized at zero perturbation by autodiff over all edges at once
 `jax.vmap(jax.jacfwd)`: under `vmap` every per-edge scalar is a 0-d tensor,
 whose forward-mode tangents PyTorch turns float64 (`optim/sim3.py`);
 reverse mode gives the same 7x7 Jacobians, 7 outputs by 7 inputs). The normal equations are dense, (7K, 7K); their
-7x7 blocks are summed by `index_add_` into the block layout (K, K, 7, 7),
-whose order of summation changes only rounding, and solved by one
-`torch.linalg.solve` in float32 (TF32 off, see the package docstring). The
-caller builds the edges (`pipeline/loop_closing.py`).
+7x7 blocks are summed into the block layout (K, K, 7, 7) in a fixed order
+by `index_put_(accumulate=True)` (CUDA's `index_add_` adds rows that share a
+target in no fixed order; `index_put_` sorts them first there, and sums them
+in row order on the CPU; two replicas of a distributed map must correct a
+loop bit for bit alike), and solved by one `torch.linalg.solve` in float32
+(TF32 off, see the package docstring). The caller builds the edges
+(`pipeline/loop_closing.py`).
 """
 
 from __future__ import annotations
@@ -87,11 +90,13 @@ def solve_pose_graph(g: PoseGraph, iters: int = 20, lam: float = 1e-6, dof4: boo
                             torch.einsum("eai,eaj,e->eij", Ji, Jj, w),
                             torch.einsum("eai,eaj,e->eji", Ji, Jj, w)])
         at = torch.cat([ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei])
-        H = torch.zeros((K * K, 7, 7), dtype=dt, device=dev).index_add_(0, at, blocks)
+        H = torch.zeros((K * K, 7, 7), dtype=dt, device=dev).index_put_((at,), blocks,
+                                                                         accumulate=True)
         H = H.reshape(K, K, 7, 7).permute(0, 2, 1, 3).reshape(dim, dim)
-        b = torch.zeros((K, 7), dtype=dt, device=dev)
-        b.index_add_(0, ei, torch.einsum("eai,ea->ei", Ji, rw))
-        b.index_add_(0, ej, torch.einsum("eai,ea->ei", Jj, rw))
+        b = torch.zeros((K, 7), dtype=dt, device=dev).index_put_(
+            (torch.cat([ei, ej]),), torch.cat([torch.einsum("eai,ea->ei", Ji, rw),
+                                               torch.einsum("eai,ea->ei", Jj, rw)]),
+            accumulate=True)
         H = torch.where(fixed_rows[:, None] | fixed_rows[None, :], 0.0, H) + diag
         rhs = torch.where(fixed_rows, 0.0, -b.reshape(-1))
         delta = torch.linalg.solve_ex(H, rhs)[0].reshape(K, 7)

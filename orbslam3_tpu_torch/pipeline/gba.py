@@ -1,7 +1,6 @@
 """Global bundle adjustment over a whole map on torch tensors — the port of
 `orbslam3_tpu/pipeline/gba.py` (`RunGlobalBundleAdjustment`,
-`LoopClosing.cc:2513`) on one device; the distributed branches are ROADMAP
-A15.
+`LoopClosing.cc:2513`), on one device or over a `torch.distributed` group.
 
 Every feature slot with a map point is one observation row, so at config
 1's Kmax 256 the problem has 256 cameras and 256 x Nf rows, and
@@ -17,6 +16,16 @@ host read (nothing is read from them until `_finish`), `abort` drops the
 solve, and `_finish` reads the result back once and folds it into the
 current map, carrying the keyframes and points made meanwhile through
 their anchors (`LoopClosing.cc:2559-2680`).
+
+With a `DistributedContext` (`dist`, `parallel/context.py`) of more than one
+rank, the solve is the point-partitioned dense-Schur solve over its group
+(BASELINE config 5): `start` lays the problem out once (each rank keeps its
+block of the points), each `tick` runs one chunk over the group and feeds
+its cameras and point block into the next, and the end gathers the points
+(`_fold_dist_result`) before the same `_finish`. Every rank must tick
+together: the replicas' map digests are compared at each start, which
+raises rather than solve over replicas that differ
+(`DistributedContext.check_replicas`).
 """
 
 from __future__ import annotations
@@ -77,17 +86,20 @@ class AsyncGBA:
     `mbStopGBA`, `:1099-1118`)."""
 
     def __init__(self, model, params, sigma2_table, bf: float = 0.0, iters: int = 10,
-                 chunk: int = 2):
+                 chunk: int = 2, dist=None):
         self.model = model
         self.params = params
         self.sigma2_table = sigma2_table
         self.bf = bf
         self.iters = iters
         self.chunk = chunk
+        self.dist = dist  # DistributedContext: each chunk over its group
         self._state = None  # the in-flight optimized snapshot (device)
+        self._prob_l = None  # distributed: this rank's block of the laid-out problem
         self.n_finished = 0
         self.n_aborted = 0
         self.n_chunks = 0  # chunks launched
+        self.n_dist_solves = 0  # chunks run over the group
 
     @property
     def running(self) -> bool:
@@ -98,6 +110,9 @@ class AsyncGBA:
         `LoopClosing.cc:1099`)."""
         if self.running:
             self.abort()
+        dist = self.dist is not None and self.dist.n_shards > 1
+        if dist:  # raises before anything starts when the replicas differ
+            self.dist.check_replicas(store, "gba start")
         s = store.state
         self._state = s
         self._fixed = _fixed(store)
@@ -108,6 +123,10 @@ class AsyncGBA:
         self._first0 = s.mp_first_kf.cpu().numpy().copy()
         self._ts0 = store.kf_ts.copy()
         self._R0, self._t0 = s.kf_R, s.kf_t
+        self._prob_l = None
+        if dist:
+            prob = build_gba_problem(s, self._fixed, self.sigma2_table)
+            self._prob_l, _ = self.dist.prep_ba(prob)
 
     def abort(self):
         """Drop the in-flight solve and its snapshot; the map keeps its
@@ -115,6 +134,7 @@ class AsyncGBA:
         if self.running:
             self._state = None
             self._R0 = self._t0 = None
+            self._prob_l = None
             self.n_aborted += 1
 
     def tick(self, store: st.MapStore) -> bool:
@@ -126,14 +146,35 @@ class AsyncGBA:
             return False
         n = min(self.chunk, self.iters - self._it)
         with spans.span("gba/chunk"):
-            self._state, _ = gba_step(self.model, self.params, self._state, self._fixed,
-                                      self.sigma2_table, self.bf, n)
+            if self._prob_l is not None:
+                res = self.dist.run_ba(self.model, self.params, self._prob_l, bf=self.bf,
+                                       iters=n)
+                self._prob_l = self._prob_l._replace(cam_R=res.cam_R, cam_t=res.cam_t,
+                                                     points=res.points)
+                self.n_dist_solves += 1
+            else:
+                self._state, _ = gba_step(self.model, self.params, self._state, self._fixed,
+                                          self.sigma2_table, self.bf, n)
         self._it += n
         self.n_chunks += 1
         if self._it < self.iters:
             return False
+        if self._prob_l is not None:
+            self._fold_dist_result()
         self._finish(store)
         return True
+
+    def _fold_dist_result(self):
+        """The distributed solve's cameras and gathered points written into
+        the snapshot (fixed cameras and invalid points as they were), so
+        that `_finish` sees one layout on both paths."""
+        s, p = self._state, self._prob_l
+        pts = self.dist.fetch(p.points)[:s.Pmax]
+        self._state = s._replace(
+            kf_R=torch.where(self._fixed[:, None, None], s.kf_R, p.cam_R),
+            kf_t=torch.where(self._fixed[:, None], s.kf_t, p.cam_t),
+            mp_pos=torch.where(s.mp_valid[:, None], pts, s.mp_pos))
+        self._prob_l = None
 
     def join(self, store: st.MapStore):
         """Run to completion (`System::Shutdown`, `System.cc:474-500`)."""
@@ -188,11 +229,25 @@ class AsyncGBA:
 
 
 def global_ba(store: st.MapStore, model, params, sigma2_table, bf: float = 0.0, iters: int = 10,
-              fix_first: bool = True) -> float:
+              fix_first: bool = True, dist=None) -> float:
     """Whole-map BA in one go (10 iterations, `LoopClosing.cc:2520`);
-    mutates the store, returns the final robust cost (a host read)."""
-    new_state, cost = gba_step(model, params, store.state, _fixed(store, fix_first),
-                               sigma2_table, bf, iters)
+    mutates the store, returns the final robust cost (a host read). With a
+    `DistributedContext` of more than one rank, the point-partitioned solve
+    over its group (equal to the single-device one up to summation order)."""
+    fixed = _fixed(store, fix_first)
+    s = store.state
+    if dist is not None and dist.n_shards > 1:
+        dist.check_replicas(store, "gba start")
+        prob_l, _ = dist.prep_ba(build_gba_problem(s, fixed, sigma2_table))
+        res = dist.run_ba(model, params, prob_l, bf=bf, iters=iters)
+        pts = dist.fetch(res.points)[:s.Pmax]
+        store.state = s._replace(
+            kf_R=torch.where(fixed[:, None, None], s.kf_R, res.cam_R),
+            kf_t=torch.where(fixed[:, None], s.kf_t, res.cam_t),
+            mp_pos=torch.where(s.mp_valid[:, None], pts, s.mp_pos))
+        store.bump()
+        return float(res.cost)
+    new_state, cost = gba_step(model, params, s, fixed, sigma2_table, bf, iters)
     store.state = new_state
     store.bump()
     return float(cost)

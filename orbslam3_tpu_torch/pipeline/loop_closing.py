@@ -1,6 +1,7 @@
 """Loop closing on torch tensors — the port of
 `orbslam3_tpu/pipeline/loop_closing.py` (`LoopClosing.cc`, the same-map
-loop, visual or inertial; the distributed branch is ROADMAP A15). An
+loop, visual or inertial; with `dist`, a `DistributedContext`, the
+synchronous global BA runs over its group). An
 inertial closer (`inertial=True`, the IMU_MONOCULAR `System`'s) fixes the
 scale of every Sim3 step and corrects with the 4-DoF essential graph:
 
@@ -75,6 +76,7 @@ class LoopCloser:
         self.loop_edges = []  # (kf_i, kf_j, ts_i, ts_j, R21, t21, s21)
         self.n_loops_closed = 0
         self.gba_async = None  # AsyncGBA, or None: the global BA runs at once
+        self.dist = None  # DistributedContext (System.enable_distributed)
         # Called as on_correction(phase, kf_id, loop_kf), phase "before" or
         # "after" the essential-graph correction (replays report ATE deltas).
         self.on_correction = None
@@ -436,8 +438,9 @@ class LoopCloser:
 
     def _global_ba(self, kf_id: int):
         """`RunGlobalBundleAdjustment` (`LoopClosing.cc:2513`) at once: 10
-        iterations, keyframe 0 and the unused slots fixed."""
+        iterations, keyframe 0 and the unused slots fixed; point-partitioned
+        over `dist`'s group when one is attached (config 5)."""
         from orbslam3_tpu_torch.pipeline import gba as gba_mod
 
         gba_mod.global_ba(self.store, self.model, self.params, self.sigma2_table, bf=self.bf,
-                          iters=10)
+                          iters=10, dist=self.dist)

@@ -24,9 +24,10 @@ merged back when place recognition finds it again.
 The host reads the device at each step of a keyframe that reaches a query
 or a verification, as the reference does; they happen on keyframe frames
 only. Each step is a `spans.span` ("try merge", "merge: ..."), which
-`entry.replay` records. The sharded query and the sharded post-merge GBA
-of a distributed Atlas are ROADMAP A15; an asynchronous mapper to flush
-before a merge is A14.
+`entry.replay` records. With `System.enable_distributed` (config 5) the
+query scores each stored map's database over the group
+(`KeyFrameDB.query_frame_sharded`) and the post-merge global BA runs over
+it (`pipeline/gba.py`, its `dist`).
 """
 
 from __future__ import annotations
@@ -86,6 +87,8 @@ class MultiMapManager:
         self.min_sim3_inliers = min_sim3_inliers
         self.post_merge_gba = post_merge_gba
         self.n_merges = 0
+        self.n_queries = 0  # stored maps queried by `_try_merge`
+        self.n_sharded_queries = 0  # of them, over a distributed group
         self.lost_streak = 0
         self.last_verify: dict = {}  # the last verification: counts, matches, Sim3
 
@@ -146,12 +149,18 @@ class MultiMapManager:
         act = self.system.store
         s = act.state
         desc, fvalid = s.kf_desc[kf_id], s.kf_feat_valid[kf_id]
+        dist = self.system.dist
         for target in list(self.atlas.maps):
             if target is act or target.n_kf < 3 or target not in self.kfdbs:
                 continue
-            # A distributed Atlas (A15) scores the stored map shard-wise here.
-            covis = target.tensor(target.covisibility_np())
-            cand_ids, _ = self.kfdbs[target].query_frame(desc, fvalid, covis, n_best=3)
+            self.n_queries += 1
+            if dist is not None and dist.n_shards > 1:
+                # Config 5: the stored map's BoW matrix scored shard-wise.
+                cand_ids, _ = self.kfdbs[target].query_frame_sharded(desc, fvalid, dist, n_best=3)
+                self.n_sharded_queries += 1
+            else:
+                covis = target.tensor(target.covisibility_np())
+                cand_ids, _ = self.kfdbs[target].query_frame(desc, fvalid, covis, n_best=3)
             for c in _np(cand_ids):
                 if c >= 0 and self._verify_merge(act, target, kf_id, int(c)):
                     return
@@ -314,7 +323,7 @@ class MultiMapManager:
                     lc.gba_async.start(target)
                 else:
                     gba_mod.global_ba(target, tr.model, tr.params, tr.sigma2_table, bf=tr.bf,
-                                      iters=10)
+                                      iters=10, dist=sysm.dist)
 
     def _weld_fuse(self, target: st.MapStore, kf_ids, pre_merge_points: np.ndarray):
         """The weld's SearchAndFuse (`LoopClosing.cc:1756-1802`): the target's

@@ -45,8 +45,11 @@ mapping pass over the frames after it (`pipeline/async_mapping.py`), and
 `shutdown()` drains both and a background GBA. The settings files, the
 dataset loaders, the sequence runner and the stream server are
 `config.py`, `io/datasets.py`, `run_sequence.py` and `serve_stream.py`.
-Not ported yet: the sharded solvers, the distributed Atlas and the VI-BA's
-matrix-free path (A15).
+`enable_distributed(group)` makes the system one SPMD replica of a
+`torch.distributed` group (BASELINE config 5): every rank replays the same
+frames, the global BA (background chunks, the loop closer's synchronous
+one, the post-merge one) runs point-partitioned over the group and the
+Atlas's merge queries are scored shard-wise (`parallel/`).
 """
 
 from __future__ import annotations
@@ -122,6 +125,7 @@ class System:
         self._lost_streak = 0
         self.async_mapper = None  # AsyncMapper (enable_async_mapping)
         self.viewer = None  # LiveViewer (enable_viewer)
+        self.dist = None  # DistributedContext (enable_distributed)
 
     def _on_new_keyframe(self, slot: int, initial: bool = False, preint=None) -> bool:
         """The keyframe's mapping pass (with its preintegration from the
@@ -186,9 +190,33 @@ class System:
             min_bow_matches=min_bow_matches, min_sim3_inliers=min_sim3_inliers,
             consecutive=consecutive, inertial=self.sensor in _INERTIAL,
             img_wh=t.img_wh_t, scale_table=t.scale_table, mapper=self.mapper, bf=t.bf)
+        self.loop_closer.dist = self.dist
         if run_gba and async_gba:
-            self.loop_closer.gba_async = AsyncGBA(t.model, t.params, t.sigma2_table, bf=t.bf)
+            self.loop_closer.gba_async = AsyncGBA(t.model, t.params, t.sigma2_table, bf=t.bf,
+                                                  dist=self.dist)
         self._kf_downstream.append(self.loop_closer.process_keyframe)
+
+    def enable_distributed(self, group=None):
+        """Dispatch the whole-map work over a `torch.distributed` group (the
+        world group by default; BASELINE config 5, "map merging + global BA
+        across 2 hosts"): the global BA (the background chunks, the loop
+        closer's synchronous one, the post-merge one) runs the
+        point-partitioned dense-Schur solve of `parallel/ba_sharded.py` (one
+        all-reduce of the reduced camera system per LM iteration), and the
+        Atlas's merge queries the sharded keyframe-database query of
+        `parallel/kfdb_sharded.py`. Every rank must replay the same frames
+        (SPMD replicas) and reach each collective together. Any order
+        relative to `enable_place_recognition` / `enable_multimap`. Returns
+        the `DistributedContext`."""
+        from orbslam3_tpu_torch.parallel.context import DistributedContext
+
+        self.dist = DistributedContext(group)
+        lc = self.loop_closer
+        if lc is not None:
+            lc.dist = self.dist
+            if lc.gba_async is not None:
+                lc.gba_async.dist = self.dist
+        return self.dist
 
     def enable_multimap(self, vocabulary, **kw):
         """The Atlas's multi-map (`Tracking::CreateMapInAtlas`,

@@ -731,3 +731,126 @@ def test_pose_solves_replayed_from_cuda_graphs_equal_eager(dev):
                                       bf=33.0, rounds=4, iters_per_round=5))
         captures.append(graphed.CAPTURES)
     assert captures[0] == captures[1] and len(graphed._GRAPHS) >= 4
+
+
+def _two_ranks_on_card(todo):
+    """`tests/dist_cases.py`'s functions on two ranks of the card (both on
+    cuda:0 over gloo; NCCL takes one rank a card)."""
+    import dist_cases
+
+    from orbslam3_tpu_torch.parallel import launch
+
+    return launch.run(dist_cases.cases, 2, (todo,), device="cuda", timeout=300)
+
+
+def test_point_sharded_ba_on_two_ranks_of_the_card_equals_one(dev):
+    """The point-partitioned dense-Schur BA (`parallel/ba_sharded.py`) over
+    two ranks of the card against the same solve on the card alone, on
+    `loop_scene.make_ba_map`'s 12-keyframe map with stereo rows: poses
+    within 2e-3, points within 5e-3, fewer than 2% of the inliers flipped,
+    the cost within 5% (the tolerances of the JAX package's sharded tests);
+    both ranks equal."""
+    import loop_scene as LS
+
+    from orbslam3_tpu_torch.atlas import store as st
+    from orbslam3_tpu_torch.optim import ba as ba_mod
+    from orbslam3_tpu_torch.pipeline import gba
+
+    arrays, info = LS.make_ba_map(bf=30.0)
+    rng = np.random.default_rng(5)
+    K = info["n_kf"]
+    arrays["kf_t"][1:K] += rng.normal(0, 0.02, (K - 1, 3)).astype(np.float32)
+    arrays["mp_pos"][1:info["n_mp"]] += rng.normal(0, 0.05, (info["n_mp"] - 1, 3)).astype(
+        np.float32)
+    state = st.MapState(**{k: torch.from_numpy(np.array(v)).to(dev) for k, v in arrays.items()})
+    fixed = ~state.kf_valid
+    fixed[0] = True
+    sigma2 = torch.from_numpy(feat.sigma2(feat.OrbParams(n_levels=4))).to(dev)
+    prob = gba.build_gba_problem(state, fixed, sigma2)
+    kw = dict(iters=10)
+    ref = ba_mod.solve_ba(CameraModel.PINHOLE, torch.from_numpy(LS.PARAMS.copy()).to(dev), prob,
+                          bf=30.0, dense_schur=True, **kw)
+    d = {k: None if v is None else v.cpu().numpy() for k, v in prob._asdict().items()}
+    res = _two_ranks_on_card([("ba", "card_point_sharded", (d, LS.PARAMS.copy(), 30.0, kw))])
+    got = res[0]["ba"]
+    assert float(np.abs(got["cam_t"] - arrays["kf_t"]).max()) > 1e-3  # the solve moved
+    for k, tol in (("cam_R", 2e-3), ("cam_t", 2e-3), ("points", 5e-3)):
+        np.testing.assert_allclose(got[k], getattr(ref, k).cpu().numpy(), rtol=0, atol=tol,
+                                   err_msg=k)
+        np.testing.assert_array_equal(res[1]["ba"][k], got[k])
+    assert np.mean(got["obs_inlier"] != ref.obs_inlier.cpu().numpy()) < 0.02
+    assert abs(float(got["cost"]) - float(ref.cost)) <= max(0.05 * float(ref.cost), 1.0)
+
+
+def test_sharded_kfdb_query_on_two_ranks_of_the_card_equals_query_frame(dev):
+    """The sharded keyframe-database query over two ranks of the card
+    against `KeyFrameDB.query_frame` on the card alone: without covisibility
+    (all weights 0) every keyframe is its own group, so both rank the
+    keyframes that pass the 0.8 x max-common filter by L1 score, ties to the
+    lowest index. The ids exact; the scores within 1e-6 (a rank sums each
+    row's 9,975 terms over its 12-row block, which CUDA may reduce in
+    another order than the 24-row matrix: 1 ulp on the card). 24 keyframes
+    around 4 places on the 9,975-word tree, a query from place 2."""
+    import os
+
+    from orbslam3_tpu_torch.atlas.kfdb import KeyFrameDB
+    from orbslam3_tpu_torch.io.vocab_io import load_binary_vocabulary
+    from orbslam3_tpu_torch.ops import bow
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    voc = load_binary_vocabulary(os.path.join(root, "assets", "ORBvoc_synth.bin"), dev)
+    rng = np.random.default_rng(3)
+    nf, K = 300, 24
+    protos = rng.integers(0, 256, (4, nf, 32), dtype=np.uint8)
+    db = KeyFrameDB(voc, Kmax=K)
+    ones = torch.ones(nf, dtype=torch.bool, device=dev)
+    for k in range(K):
+        d = protos[k % 4].copy()
+        d[rng.random(d.shape) < 0.03] ^= np.uint8(1 << 5)
+        db.add(k, torch.from_numpy(d).to(dev), ones)
+    db.erase(7)
+    q = protos[2].copy()
+    q[rng.random(q.shape) < 0.03] ^= np.uint8(1 << 2)
+    q_t = torch.from_numpy(q).to(dev)
+    ids, scores = db.query_frame(q_t, ones, torch.zeros((K, K), dtype=torch.int32, device=dev),
+                                 n_best=5)
+    words = bow.transform(voc, q_t, ones)
+    vec = bow.bow_vector(voc, words)
+    res = _two_ranks_on_card([("q", "card_query", tuple(x.cpu().numpy() for x in (
+        vec, words, db.vecs, db.valid)) + (5,))])
+    ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
+    assert (ids >= 0).sum() >= 3 and 7 not in ids
+    for r in res:
+        np.testing.assert_array_equal(r["q"]["ids"], ids)
+        have = ids >= 0
+        np.testing.assert_allclose(r["q"]["scores"][have], scores[have], rtol=0, atol=1e-6)
+
+
+def test_pose_graph_on_card_repeats(dev):
+    """The essential graph's normal equations summed in a fixed order on the
+    card (`optim/pose_graph.py::_add_rows`): two solves of a 64-keyframe
+    chain with 2-hop and loop edges equal bit for bit (two replicas of a
+    distributed map correct a loop alike)."""
+    from orbslam3_tpu_torch.ops import lie
+    from orbslam3_tpu_torch.optim import pose_graph as pg
+
+    K = 64
+    rng = np.random.default_rng(4)
+    R = lie.exp_so3(torch.from_numpy(rng.normal(0, 0.3, (K, 3)).astype(np.float32)))
+    t = torch.from_numpy(rng.normal(0, 1.0, (K, 3)).astype(np.float32))
+    ei = np.r_[np.arange(K - 1), np.arange(K - 2), 0, 5, 9]
+    ej = np.r_[np.arange(1, K), np.arange(2, K), K - 1, K - 3, K - 7]
+    E = len(ei)
+    Rm = lie.exp_so3(torch.from_numpy(rng.normal(0, 0.05, (E, 3)).astype(np.float32)))
+    Rm = R[torch.from_numpy(ej)] @ Rm @ R[torch.from_numpy(ei)].transpose(1, 2)
+    tm = torch.from_numpy(rng.normal(0, 0.1, (E, 3)).astype(np.float32))
+    arrays = dict(R=R, t=t, s=torch.ones(K), fixed=torch.arange(K) == 0,
+                  edge_i=torch.from_numpy(ei.astype(np.int32)),
+                  edge_j=torch.from_numpy(ej.astype(np.int32)), edge_R=Rm, edge_t=tm,
+                  edge_s=torch.ones(E), edge_valid=torch.ones(E, dtype=torch.bool),
+                  edge_weight=torch.ones(E))
+    g = pg.PoseGraph(**{k: v.to(dev) for k, v in arrays.items()})
+    a = [x.cpu() for x in pg.solve_pose_graph(g, iters=12)]
+    b = [x.cpu() for x in pg.solve_pose_graph(g, iters=12)]
+    for x, y in zip(a, b):
+        assert torch.isfinite(x).all() and torch.equal(x, y)

@@ -421,8 +421,11 @@ def test_port_imports_no_jax(tmp_path):
     rendering a blind frame) and the system surface's (asynchronous mapping,
     the settings reader, the PNG codec, the dataset loaders and writer, the
     stream protocol and server, the viewer, the runner; writing a sequence,
-    reading it back, loading its settings, serving the viewer page) leaves
-    JAX and the JAX package out of the process, and OpenCV and PyYAML too."""
+    reading it back, loading its settings, serving the viewer page) and the
+    distributed layer's (the sharded BA and query, the context, the
+    collectives, the launcher, and `tests/dist_cases.py`, whose functions the
+    launcher's ranks import) leaves JAX and the JAX package out of the
+    process, and OpenCV and PyYAML too."""
     code = ("import sys, orbslam3_tpu_torch.system, orbslam3_tpu_torch.entry as E, "
             "orbslam3_tpu_torch.kernel_bench, orbslam3_tpu_torch.pipeline.loop_closing, "
             "orbslam3_tpu_torch.pipeline.gba, orbslam3_tpu_torch.io.vocab_io, "
@@ -438,7 +441,10 @@ def test_port_imports_no_jax(tmp_path):
             "orbslam3_tpu_torch.io.png, orbslam3_tpu_torch.io.datasets, "
             "orbslam3_tpu_torch.io.stream, orbslam3_tpu_torch.viz.drawer, "
             "orbslam3_tpu_torch.viz.server, orbslam3_tpu_torch.run_sequence, "
-            "orbslam3_tpu_torch.serve_stream, urllib.request; "
+            "orbslam3_tpu_torch.serve_stream, orbslam3_tpu_torch.parallel.ba_sharded, "
+            "orbslam3_tpu_torch.parallel.kfdb_sharded, orbslam3_tpu_torch.parallel.context, "
+            "orbslam3_tpu_torch.parallel.comm, orbslam3_tpu_torch.parallel.launch, "
+            "urllib.request; sys.path.insert(0, 'tests'); import dist_cases; "
             "E.synth_euroc(); E.euroc_frames(1, fisheye=True); E.euroc_frames(2, blind=(1, 1)); "
             "from orbslam3_tpu_torch import config, viz; from orbslam3_tpu_torch.io import datasets; "
             f"d = {str(tmp_path)!r}; E.write_euroc_sequence(d, 1, imu=True); "
