@@ -158,8 +158,9 @@ more keyframes within 5e-3, under 2% of the inliers flipped, the cost within
 5%), the ranks equal, a point-sharded rank's peak memory below one device's;
 it prints ms per LM iteration, the collectives per solve with their bytes
 and ms, and the peaks. 18b replays phase 15's multi-map lap as two SPMD
-replicas with `System.enable_distributed()` (each rank renders the lap from
-its seed) against phase 15's one-device result: map 0 stored within 2
+replicas with `System.enable_distributed()` (each rank reads the frames
+phase 15 rendered, written once to a temporary file by `entry.save_frames`)
+against phase 15's one-device result: map 0 stored within 2
 frames, as many merges and the first within 2 keyframes, every GBA chunk
 over the group, every merge query sharded, |ATE - phase 15's| < 5e-3 m and
 the ATE under phase 15's gate, both ranks' map digests equal at every GBA
@@ -169,6 +170,36 @@ merge-query frames among them) the syncs the sync-debug mode sees, the
 collectives (each a host wait it does not see) with their ms, and both
 summed, then the GBA chunk ms against phase 15's, each rank's B1 and B2
 launches and collectives.
+
+Phase 19 runs the runner's other sensor modes from files on disk. 19a
+writes, with the port's own writers (`entry.write_euroc_sequence`), EuRoC
+stereo (config 2, 60 frames), the TUM-VI stereo-inertial fisheye pair
+(config 4, 70 frames, past its IMU initialization near frame 45), TUM RGB-D (30
+frames, the ray-cast depth as 16-bit PNGs at DepthMapFactor 5000) and KITTI
+mono (config 1's frames, 30), and runs each through `run_sequence.main(...,
+"--sync-mapping", "--no-loop", "--kmax", "256", "--pmax", "16384")` in this
+process and through a direct drive of `entry.make_system(cuda, sensor)` on
+the same decoded files (`entry.drive_files`): every frame's state, keyframe
+count, IMU stages and pose equal bit for bit, the trajectory files equal
+byte for byte, every frame OK after the map's initialization, the host syncs
+of the tracked frames at the documented counts (2 mono; 3 stereo, RGB-D or
+the rig; 5 on the rig after the IMU initialization), B2 once a frame (twice
+for a pair), and at one frame of each the local-map match run again through
+the kernels and through the plain versions, equal. 19b writes config 3's
+first N19B frames with their IMU stream (the digest the CPU's) and runs them
+through `run_sequence.main(..., "--mode", "mono-vi", "--sync-mapping",
+"--no-loop")` past VIBA2 and the first scale refinement, against the JAX
+runner on the same files (`tests/jax_runner_lap.py --mode mono-vi ...
+--c13`): the IMU initialized within 2 keyframes of JAX's, VIBA1 and VIBA2
+run, the first refinement applied within 2 keyframes of JAX's, every frame
+OK after the map's initialization, the pose-inertial result on >= 80% of the
+frames after the IMU initialization, SE3 and Sim3 ATE under max(2 x JAX's,
+0.01 m), the Sim3 scale within max(2 x |1 - JAX's|, 0.02) of 1, the first
+refinement's inputs copied to the CPU and solved again there within 1e-4 in
+scale and gravity rotation, 2 syncs a tracked frame before the IMU
+initialization and 4 after; it prints the syncs and ms per frame kind and
+the ms of the frames of the IMU initialization, VIBA1, VIBA2 and each
+refinement, with the card's name and power limit.
 
 Every run prints how many CUDA graphs the pose solves captured and
 replayed (`optim.graphed`), and the wall time of each phase and of the
@@ -186,8 +217,8 @@ the same inputs.
     python3 chip_smoke.py --only 15
 
 builds the kernels and runs phase 15 alone (its record holds B1's rows of
-that phase only); `--only 16` and `--only 17` do the same for those, and
-`--only 18` runs phase 15 (18b's one-device side), then phase 18.
+that phase only); `--only 16`, `--only 17` and `--only 19` do the same for
+those, and `--only 18` runs phase 15 (18b's one-device side), then phase 18.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -336,11 +367,13 @@ MM_RELOC_FRAMES = (40, 50)  # map 0's images fed to the loaded atlas
 
 @contextlib.contextmanager
 def _b1_calls(calls: list, keep_args):
-    """Within the block, append (call site, arguments or None, key count)
-    for every B1 wrapper call. `keep_args`: True keeps every call's
-    arguments, a set of sites the first call's of each. A call made while
+    """Within the block, append (call site, arguments or None, key count, the
+    frame of the active span recorder or None) for every B1 wrapper call.
+    `keep_args`: True keeps every call's arguments, a set of sites the first
+    call's of each. A call made while
     `COMPARING` is set is named "comparison" (kernels against plain, not the
     main path). The wrapper itself runs unchanged, launch count included."""
+    from orbslam3_tpu_torch import spans
     from orbslam3_tpu_torch.ops import _build, cuda_match
 
     wrapped = cuda_match.hamming_top2
@@ -362,7 +395,7 @@ def _b1_calls(calls: list, keep_args):
                                      and not any(c[0] == site for c in calls))
         full = args + (None,) * (4 - len(args))  # (desc_a, desc_b, valid_b, window)
         calls.append((site, tuple(_clone(a) for a in full) if keep else None,
-                      args[1].shape[0]))
+                      args[1].shape[0], None if spans._active is None else spans._active.frame))
         return wrapped(*args)
 
     cuda_match.hamming_top2 = recording
@@ -1617,6 +1650,52 @@ def _trajectory_files(out: str, kf_out: str, summ: dict, what: str) -> None:
           f"keyframe poses read back")
 
 
+@contextlib.contextmanager
+def _rerun_local_map(frame: int):
+    """Within the block, the first local-map match of runner frame `frame`
+    (the runner's span recorder names the frame) runs again through the
+    kernels and through the plain versions; yields a dict that receives B1's
+    arguments there, whether all three results are equal, the re-runs' ms
+    and the associations found."""
+    from orbslam3_tpu_torch import spans
+    from orbslam3_tpu_torch.ops import _build, cuda_match
+    from orbslam3_tpu_torch.pipeline import tracking as trk
+
+    rerun = {}
+    orig_lm = trk._track_local_map_match
+
+    def local_map(*a, **kw):
+        out = orig_lm(*a, **kw)
+        rec = spans._active
+        if rec is not None and rec.frame == frame and not rerun:
+            captured = []
+            inner = cuda_match.hamming_top2
+
+            def capture(*args):
+                captured.append(tuple(_clone(x) for x in args + (None,) * (4 - len(args))))
+                return inner(*args)
+
+            with _comparing() as took:
+                cuda_match.hamming_top2 = capture
+                try:
+                    k_ = orig_lm(*a, **kw)
+                finally:
+                    cuda_match.hamming_top2 = inner
+                with _build.force_plain():
+                    p_ = orig_lm(*a, **kw)
+                same = all(torch.equal(x, y) for x, y in zip(k_, p_)) and all(
+                    torch.equal(x, y) for x, y in zip(k_, out))
+                n_assoc = int((k_[0] >= 0).sum())  # read while the syncs are not counted
+            rerun.update(args=captured[0], same=same, took=took, n_assoc=n_assoc)
+        return out
+
+    trk._track_local_map_match = local_map
+    try:
+        yield rerun
+    finally:
+        trk._track_local_map_match = orig_lm
+
+
 def phase16_runner(dev, card: str) -> dict:
     """Phase 16: `python -m orbslam3_tpu_torch.run_sequence` at its defaults
     (asynchronous mapping, Kmax 512, Pmax 65536, the 97k-word vocabulary,
@@ -1637,10 +1716,9 @@ def phase16_runner(dev, card: str) -> dict:
 def _phase16_in(seq: str, root: str, card: str) -> dict:
     from orbslam3_tpu_torch import entry as E
     from orbslam3_tpu_torch import kernel_bench as KB
-    from orbslam3_tpu_torch import run_sequence, spans
+    from orbslam3_tpu_torch import run_sequence
     from orbslam3_tpu_torch.io import datasets
     from orbslam3_tpu_torch.ops import _build, cuda_fast, cuda_match
-    from orbslam3_tpu_torch.pipeline import tracking as trk
 
     t0 = time.perf_counter()
     E.write_euroc_sequence(seq, SEQ16_FRAMES, 0, t_loop=SEQ16_T_LOOP, imu=True)
@@ -1653,44 +1731,13 @@ def _phase16_in(seq: str, root: str, card: str) -> dict:
           f"{SEQ16_DIGEST}")
     settings = os.path.join(seq, "settings.yaml")
 
-    rerun = {}
-    orig_lm = trk._track_local_map_match
-
-    def local_map(*a, **kw):
-        out = orig_lm(*a, **kw)
-        rec = spans._active
-        if rec is not None and rec.frame == RERUN16_FRAME and not rerun:
-            captured = []
-            inner = cuda_match.hamming_top2
-
-            def capture(*args):
-                captured.append(tuple(_clone(x) for x in args + (None,) * (4 - len(args))))
-                return inner(*args)
-
-            with _comparing() as took:
-                cuda_match.hamming_top2 = capture
-                try:
-                    k_ = orig_lm(*a, **kw)
-                finally:
-                    cuda_match.hamming_top2 = inner
-                with _build.force_plain():
-                    p_ = orig_lm(*a, **kw)
-                same = all(torch.equal(x, y) for x, y in zip(k_, p_)) and all(
-                    torch.equal(x, y) for x, y in zip(k_, out))
-            rerun.update(args=captured[0], same=same, took=took, n_assoc=int((k_[0] >= 0).sum()))
-        return out
-
     out_a, kf_a = os.path.join(seq, "async.txt"), os.path.join(seq, "async_kf.txt")
     cuda_fast.LAUNCHES = 0
     cuda_match.LAUNCHES = 0
-    trk._track_local_map_match = local_map
-    try:
-        with _b1_calls([], keep_args=set()) as calls, \
-                contextlib.redirect_stdout(_NoSummary(sys.stdout)):
-            res = run_sequence.main([settings, seq, "--dataset", "euroc", "--mode", "mono",
-                                     "--out", out_a, "--kf-out", kf_a, "--timing"])
-    finally:
-        trk._track_local_map_match = orig_lm
+    with _rerun_local_map(RERUN16_FRAME) as rerun, _b1_calls([], keep_args=set()) as calls, \
+            contextlib.redirect_stdout(_NoSummary(sys.stdout)):
+        res = run_sequence.main([settings, seq, "--dataset", "euroc", "--mode", "mono",
+                                 "--out", out_a, "--kf-out", kf_a, "--timing"])
     sites = {}
     for c in calls:
         sites[c[0]] = sites.get(c[0], 0) + 1
@@ -1975,6 +2022,376 @@ def _phase17_in(seq: str, card: str) -> dict:
 # card; with two cards or more, NCCL). Each collective raises after
 # DIST_TIMEOUT s, so a rank that diverges fails the phase instead of the
 # script's time limit.
+# Phase 19a: the runner's other sensor modes from files on disk (`--sync-mapping
+# --no-loop`, Kmax 256, Pmax 16384), each against a direct drive of the
+# `System` on the same decoded files: (what, layout, --dataset, --mode, the
+# entry sensor of the direct drive, frames, write_euroc_sequence's keywords,
+# the frame whose local-map match runs again, kernels vs plain).
+RUNNER_MODES_19A = (
+    ("EuRoC stereo (config 2)", "euroc", "euroc", "stereo", "stereo", 60,
+     dict(stereo=True), 40),
+    ("TUM-VI stereo-inertial fisheye (config 4)", "euroc", "tumvi", "stereo-vi",
+     "stereo_vi_fisheye", 70, dict(fisheye=True, imu=True), 60),
+    ("TUM RGB-D", "tumrgbd", "tumrgbd", "rgbd", "rgbd", 30, dict(depth=True), 20),
+    ("KITTI mono (config 1)", "kitti", "kitti", "mono", "mono", 30, {}, 20),
+)
+RUNNER_KMAX, RUNNER_PMAX = 256, 16384  # configs 1-4's, as in phases 6-14
+# Phase 19b: config 3 through the runner past VIBA2 and the first scale
+# refinement. The JAX runner on the same files on a CPU (`python
+# tests/jax_runner_lap.py --seq DIR --frames 530 --mode mono-vi --no-loop
+# --sync-mapping --kmax 256 --pmax 16384 --c13`, 8 cores, 2171 s): the map
+# initialized at frame 3, the IMU at frame 45 with 10 keyframes, VIBA1 at frame
+# 106, VIBA2 at 306, the first scale refinement at frame 506 with 57 keyframes
+# (scale 1.000182), every frame OK after the map's initialization, 59
+# keyframes; SE3 ATE 0.019455 m, Sim3 ATE 0.013391 m, Sim3 scale 1.008023. N19B
+# is that refinement's frame + 24.
+N19B = 530
+SEQ19B_DIGEST = "c3b2714cb765c8de02b8d9becf0f2f135142903e1f05ef9fe5075db6db6c6895"
+JAX_VI_RUNNER = dict(imu_init_frame=45, imu_init_kfs=10, viba1_frame=106, viba2_frame=306,
+                     refine_frame=506, refine_kfs=57, ate_se3=0.019455, ate_sim3=0.013391,
+                     scale=1.008023)
+
+
+def _load_files(seq_dir: str, dataset: str, mode: str):
+    """(the `datasets` loader's sequence, its IMU samples or None) of a
+    directory, for a direct drive."""
+    from orbslam3_tpu_torch.io import datasets
+
+    if dataset == "kitti":
+        seq = datasets.load_kitti(seq_dir)
+    elif dataset == "tumrgbd":
+        seq = datasets.load_tum_rgbd(seq_dir, os.path.join(seq_dir, "associations.txt"))
+    else:
+        seq = datasets.load_euroc_images(seq_dir)
+        if mode in ("stereo", "stereo-vi"):
+            seq.paths_right = datasets.load_euroc_images(seq_dir, cam="cam1").paths
+    imu = datasets.load_euroc_imu(seq_dir) if mode.endswith("-vi") else None
+    return seq, imu
+
+
+def _syncs_by_kind(summ: dict, init_frame, what: str) -> dict:
+    """{frame kind: [(syncs, ms, frame)]} of a runner run: its tracked frames
+    split at the IMU initialization (when there is one), and a tracked frame
+    that captured a pose solve's CUDA graph (`summ["captures"]`; the capture
+    synchronizes the device) of its own kind."""
+    check(summ["syncs"] is not None, f"{what}: the runner counted no host syncs")
+    by_kind = {}
+    syncs = summ["syncs"] or [-1] * summ["n"]
+    for k, (kind, n_sync, m) in enumerate(zip(summ["kinds"], syncs, summ["frame_ms"])):
+        if kind == "tracked" and k in summ["captures"]:
+            kind = "tracked, graph captured"
+        elif kind == "tracked" and init_frame is not None:
+            kind = "tracked after IMU init" if k > init_frame else "tracked before IMU init"
+        by_kind.setdefault(kind, []).append((n_sync, m, k))
+    return by_kind
+
+
+def _kind_line(by_kind: dict) -> str:
+    med = statistics.median
+    return "; ".join(
+        f"{kind} {len(v)} frames, syncs median {med([n for n, _, _ in v])} (max "
+        f"{max(n for n, _, _ in v)}), ms median {med([m for _, m, _ in v]):.2f} max "
+        f"{max(m for _, m, _ in v):.2f}" for kind, v in sorted(by_kind.items()))
+
+
+def _check_tracked_syncs(by_kind: dict, want: dict, calls: list, what: str) -> None:
+    """Every frame of a kind in `want` made exactly its documented host
+    syncs; a frame that did not is named with its B1 calls."""
+    for kind, n_want in want.items():
+        off = [(k, n) for n, _, k in by_kind.get(kind, []) if n != n_want]
+        check(not off, f"{what}: host syncs per {kind} frame not {n_want}: (frame, syncs) {off}; "
+              f"their B1 calls {[(c[3], c[0]) for c in calls if c[3] in {k for k, _ in off}]}")
+
+
+def _run_runner(argv: list, rerun_frame=None):
+    """`run_sequence.main(argv)` in this process with every frame recorded
+    (`entry.record_frames`), the kernels' launches counted from 0, B1's calls
+    by site and, at `rerun_frame`, the local-map match again through the
+    kernels and the plain versions; the frames on which a pose solve's CUDA
+    graph was captured go to the summary's "captures". Returns (summary,
+    frame records, launches, B1 sites, the re-run's dict, B1's calls)."""
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch import run_sequence, spans
+    from orbslam3_tpu_torch.ops import cuda_fast, cuda_match
+    from orbslam3_tpu_torch.optim import graphed
+
+    captures, graph_run = set(), graphed.run
+
+    def run(*a, **kw):
+        n = graphed.CAPTURES
+        out = graph_run(*a, **kw)
+        if graphed.CAPTURES > n and spans._active is not None:
+            captures.add(spans._active.frame)
+        return out
+
+    cuda_fast.LAUNCHES = 0
+    cuda_match.LAUNCHES = 0
+    graphed.run = run
+    try:
+        with _rerun_local_map(-1 if rerun_frame is None else rerun_frame) as rerun, \
+                _b1_calls([], keep_args=False) as calls, E.record_frames() as rows, \
+                contextlib.redirect_stdout(_NoSummary(sys.stdout)):
+            res = run_sequence.main(argv)
+    finally:
+        graphed.run = graph_run
+    sites = {}
+    for c in calls:
+        sites[c[0]] = sites.get(c[0], 0) + 1
+    launches = {"fast_nms": cuda_fast.LAUNCHES,
+                "hamming_top2": cuda_match.LAUNCHES - sites.pop("comparison", 0)}
+    if rerun.get("took"):
+        res["frame_ms"][rerun_frame] -= rerun["took"][0]
+    res["captures"] = captures
+    return res, rows, launches, sites, rerun, calls
+
+
+def phase19_runner_modes(dev, card: str) -> dict:
+    """Phase 19: 19a, the runner in each mode of RUNNER_MODES_19A against a
+    direct drive; 19b, config 3 through the runner to its first scale
+    refinement against the JAX runner's constants. Gates and lines in the
+    module docstring. Returns the launches of the runner's runs."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    launches = {"fast_nms": 0, "hamming_top2": 0}
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="_chip_smoke_seq_19_", dir=root) as tmp:
+        for mode in RUNNER_MODES_19A:
+            t0 = time.perf_counter()
+            got = _phase19a_mode(dev, card, tmp, *mode)
+            launches = {k: launches[k] + got[k] for k in launches}
+            walls[mode[0]] = time.perf_counter() - t0
+        print("phase 19a wall per mode (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+        t0 = time.perf_counter()
+        got = _phase19b_mono_inertial(dev, card, tmp)
+        print(f"phase 19b wall: {time.perf_counter() - t0:.1f} s")
+    return {k: launches[k] + got[k] for k in launches}
+
+
+def _phase19a_mode(dev, card, tmp, what, layout, dataset, mode, sensor, n, kw, rerun_frame):
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch.pipeline.tracking import Tracker
+
+    seq_dir = os.path.join(tmp, sensor)
+    t0 = time.perf_counter()
+    E.write_euroc_sequence(seq_dir, n, 0, layout=layout, **kw)
+    write_s = time.perf_counter() - t0
+    fmt = "kitti" if dataset == "kitti" else "tum"
+    out, kf_out = os.path.join(tmp, f"{sensor}.txt"), os.path.join(tmp, f"{sensor}_kf.txt")
+    argv = [os.path.join(seq_dir, "settings.yaml"), seq_dir, "--dataset", dataset, "--mode", mode,
+            "--sync-mapping", "--no-loop", "--traj-format", fmt, "--out", out, "--kf-out",
+            kf_out, "--kmax", str(RUNNER_KMAX), "--pmax", str(RUNNER_PMAX)]
+    if layout == "tumrgbd":
+        argv += ["--assoc", os.path.join(seq_dir, "associations.txt")]
+    res, rows, launches, sites, rerun, calls = _run_runner(argv, rerun_frame)
+    summ = {k: v for k, v in res.items() if k not in ("system", "states", "spans")}
+    del res
+
+    seq, imu = _load_files(seq_dir, dataset, mode)
+    slam = E.make_system(dev, sensor, Kmax=RUNNER_KMAX, Pmax=RUNNER_PMAX)
+    t1 = time.perf_counter()
+    with E.record_frames() as direct:
+        E.drive_files(slam, mode, seq, imu=imu)
+    slam.shutdown()
+    direct_s = time.perf_counter() - t1
+    tag = f"phase 19a {what}"
+    check(len(rows) == len(direct) == n, f"{tag}: {len(rows)} runner frames, {len(direct)} direct")
+    keep = ("state", "n_kf", "keyframe", "imu_init", "viba1", "viba2", "pi_taken")
+    for k, (a, b) in enumerate(zip(rows, direct)):
+        check([getattr(a, f) for f in keep] == [getattr(b, f) for f in keep],
+              f"{tag}: frame {k} differs from the direct drive: {a[:2]} vs {b[:2]}")
+        check(np.array_equal(a.R, b.R) and np.array_equal(a.t, b.t),
+              f"{tag}: frame {k}'s pose differs from the direct drive's")
+    check([kd == "keyframe" for kd in summ["kinds"]] == [r.state == "OK" and r.keyframe
+                                                          for r in rows],
+          f"{tag}: the runner's keyframe frames are not the frames that inserted one (C18)")
+    save = slam.save_trajectory_kitti if fmt == "kitti" else slam.save_trajectory_tum
+    save(out + ".direct")
+    slam.save_keyframe_trajectory_tum(kf_out + ".direct")
+    for a in (out, kf_out):
+        with open(a, "rb") as f1, open(a + ".direct", "rb") as f2:
+            check(f1.read() == f2.read(), f"{tag}: {os.path.basename(a)} differs from the direct "
+                  f"drive's byte for byte")
+    states = [r.state for r in rows]
+    first_ok = states.index("OK") if "OK" in states else None
+    check(first_ok is not None and all(x == "OK" for x in states[first_ok:]),
+          f"{tag}: a frame not OK after the map's initialization: {states}")
+    init = next((k for k, r in enumerate(rows) if r.imu_init), None)
+    inertial = mode.endswith("-vi")
+    check(not inertial or init is not None, f"{tag}: the IMU did not initialize")
+    by_kind = _syncs_by_kind(summ, init, tag)
+    base = (Tracker.HOST_SYNCS_PER_FRAME if mode == "mono"
+            else Tracker.HOST_SYNCS_PER_STEREO_FRAME)
+    want = {"tracked": base, "tracked before IMU init": base,
+            "tracked after IMU init": Tracker.HOST_SYNCS_PER_STEREO_INERTIAL_FRAME}
+    _check_tracked_syncs(by_kind, want, calls, tag)
+    check(launches["fast_nms"] == n * (2 if mode.startswith("stereo") else 1)
+          and sites.get("local map", 0) > 0, f"{tag}: launches {launches}, B1 by site {sites}")
+    check("args" in rerun and rerun["same"], f"{tag}: frame {rerun_frame}'s local-map match "
+          f"did not run again or differs, kernels vs plain")
+    ms = summ["frame_ms"]
+    print(f"{tag}: {n} frames written ({layout} layout) in {write_s:.1f} s; the runner "
+          f"({' '.join(argv[2:6])} --sync-mapping --no-loop) equals a direct drive of "
+          f"`entry.make_system(cuda, {sensor!r})` on the decoded files frame for frame (states, "
+          f"keyframes, IMU stages, poses bit for bit) and in its trajectory files byte for byte; "
+          f"initialized at frame {first_ok}, IMU at {init}, {summ['n_kf']} keyframes; ATE "
+          f"{summ['ate']} m, scale vs GT {summ['scale']}; frame ms median "
+          f"{statistics.median(ms):.2f} max {max(ms):.2f}, direct drive {direct_s:.1f} s "
+          f"[{card}]", flush=True)
+    print(f"{tag} syncs and ms per frame kind: {_kind_line(by_kind)}")
+    a = rerun["args"]
+    print(f"{tag} kernels vs plain: frame {rerun_frame}'s local-map match ({a[0].shape[0]} map "
+          f"points x {a[1].shape[0]} keypoints) equal, {rerun['n_assoc']} associations; "
+          f"launches {launches}; B1 by site {sites}")
+    return launches
+
+
+def _cpu_refine(captured: dict) -> tuple:
+    """The first scale refinement again on the CPU (the plain path) from its
+    inputs copied off the card: (Rwg, scale)."""
+    from orbslam3_tpu_torch.atlas import store as st
+    from orbslam3_tpu_torch.ops import imu as imu_ops
+    from orbslam3_tpu_torch.pipeline import inertial_support as isup
+
+    s = captured["state"]
+    store = st.MapStore(Kmax=s.kf_R.shape[0], Pmax=s.mp_pos.shape[0], Nf=s.kf_mp.shape[1],
+                        device="cpu")
+    store.state = s
+    store.n_kf, store.kf_ts = captured["n_kf"], captured["kf_ts"]
+    ini = isup.ImuInitializer(captured["calib"], mono=True)
+    ini.initialized = True
+    check(ini.refine_scale(store, captured["preints"], captured["Rbc"], captured["tbc"]),
+          "phase 19b: the CPU's scale refinement failed")
+    return ini.applied_transform
+
+
+def _phase19b_mono_inertial(dev, card, tmp) -> dict:
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch import spans
+    from orbslam3_tpu_torch.ate import ate_rmse, ate_scale
+    from orbslam3_tpu_torch.atlas import store as st
+    from orbslam3_tpu_torch.io import datasets
+    from orbslam3_tpu_torch.ops import imu as imu_ops
+    from orbslam3_tpu_torch.pipeline import inertial_support as isup
+    from orbslam3_tpu_torch.pipeline.tracking import Tracker
+
+    jx = JAX_VI_RUNNER
+    seq = os.path.join(tmp, "mono_vi")
+    t0 = time.perf_counter()
+    E.write_euroc_sequence(seq, N19B, 0, imu=True)
+    t1 = time.perf_counter()
+    digest = datasets.sequence_digest(seq)
+    print(f"phase 19b sequence: {N19B} frames of config 3 with its 200 Hz IMU in the EuRoC "
+          f"layout, written in {t1 - t0:.1f} s; sha256 of its pixels and CSV text {digest} "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    check(digest == SEQ19B_DIGEST, f"phase 19b: the sequence's digest {digest} is not the CPU's "
+          f"{SEQ19B_DIGEST}")
+    refines = []
+    refine = isup.ImuInitializer.refine_scale
+
+    def watched(self, store, preints, Rbc, tbc, *a, **kw):
+        first = not refines
+        if first:  # its inputs, copied off the card before the call moves the map
+            with _comparing():
+                captured = dict(
+                    state=st.MapState(*(x.cpu() for x in store.state)), n_kf=store.n_kf,
+                    kf_ts=store.kf_ts.copy(), Rbc=np.array(Rbc), tbc=np.array(tbc),
+                    preints={k: imu_ops.Preintegrated(*(x.cpu() for x in p))
+                             for k, p in preints.items()},
+                    calib=imu_ops.ImuCalib(*(x.cpu() for x in self.calib)))
+        self.applied_transform = None
+        ok = refine(self, store, preints, Rbc, tbc, *a, **kw)
+        t = self.applied_transform
+        refines.append(dict(frame=spans._active.frame, n_kf=store.n_kf, ok=bool(ok),
+                            scale=None if t is None else float(t[1]),
+                            Rwg=None if t is None else np.array(t[0])))
+        if first:
+            refines[0]["captured"] = captured
+        return ok
+
+    out, kf_out = os.path.join(tmp, "mono_vi.txt"), os.path.join(tmp, "mono_vi_kf.txt")
+    argv = [os.path.join(seq, "settings.yaml"), seq, "--dataset", "euroc", "--mode", "mono-vi",
+            "--sync-mapping", "--no-loop", "--out", out, "--kf-out", kf_out, "--kmax",
+            str(RUNNER_KMAX), "--pmax", str(RUNNER_PMAX)]
+    isup.ImuInitializer.refine_scale = watched
+    try:
+        res, rows, launches, sites, _, calls = _run_runner(argv)
+    finally:
+        isup.ImuInitializer.refine_scale = refine
+    slam, summ = res["system"], {k: v for k, v in res.items() if k not in ("system", "spans")}
+    states = [r.state for r in rows]
+    first_ok = states.index("OK") if "OK" in states else None
+    init = next((k for k, r in enumerate(rows) if r.imu_init), None)
+    viba1 = next((k for k, r in enumerate(rows) if r.viba1), None)
+    viba2 = next((k for k, r in enumerate(rows) if r.viba2), None)
+    init_kfs = rows[init].n_kf if init is not None else None
+    gt = datasets.load_groundtruth_euroc(seq)
+    ts, pos = slam.get_trajectory()
+    ate_se3 = ate_rmse(ts, pos, gt[0], gt[1], with_scale=False)
+    ate_sim3 = ate_rmse(ts, pos, gt[0], gt[1], with_scale=True)
+    scale = ate_scale(ts, pos, gt[0], gt[1])
+    after = [k for k in range(init + 1, N19B) if states[k] == "OK"] if init is not None else []
+    share = sum(rows[k].pi_taken for k in after) / max(len(after), 1)
+    print(f"phase 19b outcome: map initialized at frame {first_ok}, IMU at frame {init} with "
+          f"{init_kfs} keyframes (JAX runner {jx['imu_init_frame']}, {jx['imu_init_kfs']}), VIBA1 "
+          f"at frame {viba1} (JAX {jx['viba1_frame']}), VIBA2 at {viba2} (JAX "
+          f"{jx['viba2_frame']}), scale refinements "
+          f"{[(r['frame'], r['n_kf'], r['ok'], r['scale']) for r in refines]} (frame, keyframes, "
+          f"applied, scale; JAX's first at frame {jx['refine_frame']} with {jx['refine_kfs']} "
+          f"keyframes); {summ['n_kf']} keyframes; SE3 ATE {ate_se3:.6f} m (JAX {jx['ate_se3']}), "
+          f"Sim3 ATE {ate_sim3:.6f} m (JAX {jx['ate_sim3']}), scale {scale:.5f} (JAX "
+          f"{jx['scale']}); pose-inertial result on {share:.4f} of {len(after)} frames after the "
+          f"IMU initialization; states { {x: states.count(x) for x in sorted(set(states))} }",
+          flush=True)
+    check(first_ok is not None and all(x == "OK" for x in states[first_ok:]),
+          f"phase 19b: a frame not OK after the map's initialization")
+    check(init_kfs is not None and abs(init_kfs - jx["imu_init_kfs"]) <= 2,
+          f"phase 19b: IMU initialized with {init_kfs} keyframes, JAX {jx['imu_init_kfs']}")
+    check(viba1 is not None and viba2 is not None, "phase 19b: VIBA1 or VIBA2 did not run")
+    check(refines and abs(refines[0]["n_kf"] - jx["refine_kfs"]) <= 2,
+          f"phase 19b: first scale refinement with {refines[0]['n_kf'] if refines else None} "
+          f"keyframes, JAX {jx['refine_kfs']}")
+    check(after and share >= 0.8, f"phase 19b: pose-inertial result on {share:.4f} of the frames "
+          f"after the IMU initialization")
+    gates = dict(se3=max(2 * jx["ate_se3"], 0.01), sim3=max(2 * jx["ate_sim3"], 0.01),
+                 scale=max(2 * abs(1 - jx["scale"]), 0.02))
+    check(np.isfinite(pos).all() and ate_se3 <= gates["se3"] and ate_sim3 <= gates["sim3"]
+          and abs(scale - 1) <= gates["scale"],
+          f"phase 19b: SE3 ATE {ate_se3}, Sim3 ATE {ate_sim3}, scale {scale} outside {gates}")
+    for r0 in refines[:1]:
+        check(r0["ok"], "phase 19b: the first scale refinement was not applied")
+        Rwg_cpu, s_cpu = _cpu_refine(r0.pop("captured"))
+        d_s, d_R = abs(s_cpu - r0["scale"]), float(np.abs(Rwg_cpu - r0["Rwg"]).max())
+        check(d_s <= 1e-4 and d_R <= 1e-4, f"phase 19b: the first refinement on the card and on "
+              f"the CPU differ: scale {r0['scale']} vs {s_cpu}, Rwg by {d_R}")
+        print(f"phase 19b first scale refinement (frame {r0['frame']}) again on the CPU from its "
+              f"inputs: scale {s_cpu:.7f} vs the card's {r0['scale']:.7f} (|d| {d_s:.2e}), Rwg "
+              f"within {d_R:.2e} (gate 1e-4 each)")
+    by_kind = _syncs_by_kind(summ, init, "phase 19b")
+    _check_tracked_syncs(by_kind, {"tracked before IMU init": Tracker.HOST_SYNCS_PER_FRAME,
+                                   "tracked after IMU init": Tracker.HOST_SYNCS_PER_INERTIAL_FRAME},
+                         calls, "phase 19b")
+    ms = summ["frame_ms"]
+    special = {"IMU init": init, "VIBA1": viba1, "VIBA2": viba2}
+    special.update({f"refinement {i + 1}": r["frame"] for i, r in enumerate(refines)})
+    print(f"phase 19b syncs and ms per frame kind: {_kind_line(by_kind)} [{card}]")
+    print("phase 19b ms of the inertial stages' frames: " + "; ".join(
+        f"{name} frame {k} {ms[k]:.2f} ms ({(summ['syncs'] or [None] * N19B)[k]} syncs)"
+        for name, k in special.items() if k is not None) + f"; frames/s "
+          f"{N19B / (sum(ms) / 1e3):.2f} over {N19B} frames [{card}]")
+    spans_ = res["spans"]
+    for name in ("try_initialize", "full VI-BA", "scale refinement", "local inertial BA"):
+        v = spans_.get(name, [])
+        if v:
+            shown = v if len(v) <= 6 else v[:3] + v[-3:]
+            print(f"phase 19b {name}: {len(v)} calls; (frame, host ms, device ms) "
+                  f"{[(f, round(h, 2), None if d is None else round(d, 2)) for f, h, d in shown]}")
+    check(launches["fast_nms"] == N19B and sites.get("local map", 0) > 0,
+          f"phase 19b: launches {launches}, B1 by site {sites}")
+    print(f"phase 19b launches on the main path {launches}; B1 by site {sites}")
+    return launches
+
+
 DIST_RANKS = 2
 DIST_TIMEOUT = 300
 DIST_WALL = 600  # s for the whole two-rank replay
@@ -2029,11 +2446,21 @@ def phase18b_config5(dev, card: str, p15: dict) -> dict:
     from orbslam3_tpu_torch.parallel.context import digests_equal
     from orbslam3_tpu_torch.pipeline.tracking import Tracker
 
+    import tempfile
+
+    from orbslam3_tpu_torch import entry as E
+
     rep15 = p15["rep"]
     t0 = time.perf_counter()
-    ranks = launch.replay(DIST_RANKS, dev, timeout=DIST_TIMEOUT, wall=DIST_WALL, sensor="mono",
-                          n_frames=MM_FRAMES, vocabulary=VOC_100K, t_loop=MM_T_LOOP,
-                          multimap=True, blind=MM_BLIND)
+    with tempfile.TemporaryDirectory(prefix="_chip_smoke_frames_",
+                                     dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        frames = os.path.join(tmp, "lap.npz")  # phase 15's lap, rendered once in this process
+        E.save_frames(frames, MM_FRAMES, 0, t_loop=MM_T_LOOP, blind=MM_BLIND)
+        saved_s = time.perf_counter() - t0
+        ranks = launch.replay(DIST_RANKS, dev, timeout=DIST_TIMEOUT, wall=DIST_WALL,
+                              sensor="mono", n_frames=MM_FRAMES, vocabulary=VOC_100K,
+                              t_loop=MM_T_LOOP, multimap=True, blind=MM_BLIND,
+                              frames_file=frames)
     wall_s = time.perf_counter() - t0
     r0 = ranks[0]
     med = lambda xs: statistics.median(xs) if xs else float("nan")  # noqa: E731
@@ -2047,7 +2474,8 @@ def phase18b_config5(dev, card: str, p15: dict) -> dict:
           f"{[{k: v for k, v in m.items() if k not in ('R', 't')} for m in r0['merges']]}; "
           f"GBA {r0['gba_finished']} finished, {r0['n_chunks']} chunks, {r0['n_dist_solves']} "
           f"over the group; merge queries {r0['n_queries']}, sharded {r0['n_sharded_queries']}; "
-          f"ATE {r0['ate']:.6f} m (phase 15 {rep15.ate:.6f}); {wall_s:.1f} s wall")
+          f"ATE {r0['ate']:.6f} m (phase 15 {rep15.ate:.6f}); {wall_s:.1f} s wall, of which "
+          f"{saved_s:.1f} s writing phase 15's frames for the ranks to read")
     check(len(r0["stored"]) >= 1 and len(rep15.stored) >= 1, "phase 18b: no map stored")
     f0, f15 = r0["stored"][0]["frame"], rep15.stored[0]["frame"]
     check(abs(f0 - f15) <= 2 and r0["n_maps"][f0] == 2,
@@ -2116,7 +2544,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--save-inputs", metavar="FILE",
                     help="write phase 7's kernel inputs to FILE (torch.save)")
-    ap.add_argument("--only", choices=["15", "16", "17", "18"],
+    ap.add_argument("--only", choices=["15", "16", "17", "18", "19"],
                     help="build, then run this phase alone (its B1 rows in the record)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2151,7 +2579,7 @@ def run(opts) -> int:
     print(_build.resource_report(), end="")
     walls["build"] = time.perf_counter()
     card = smi.stdout.strip().splitlines()[0]
-    if opts.only in ("15", "16", "17", "18"):
+    if opts.only in ("15", "16", "17", "18", "19"):
         err, rows = 0.0, []
         if opts.only == "15":
             err, rows, launches = phase15_rows(phase15_multimap(dev), card)
@@ -2166,10 +2594,16 @@ def run(opts) -> int:
         elif opts.only == "16":
             p16 = phase16_runner(dev, card)
             err, rows, launches = p16["err"], [p16["row"]], p16["launches"]
-        else:
+        elif opts.only == "17":
             launches = phase17_stream_viewer(dev, card)["launches"]
+        else:
+            launches = phase19_runner_modes(dev, card)
         walls[f"phase {opts.only}"] = time.perf_counter()
-        record = {"kernels": [{"name": "hamming_top2", "route": "cuda",
+        record = {"kernels": [{"name": "fast_nms", "route": "cuda",
+                               "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",
+                               "replaces": "orbslam3_tpu/ops/pallas_fast.py:141",
+                               "launches": launches["fast_nms"]},
+                              {"name": "hamming_top2", "route": "cuda",
                                "source": "orbslam3_tpu_torch/csrc/hamming_top2.cu",
                                "replaces": "orbslam3_tpu/ops/pallas_match.py:155",
                                "launches": launches["hamming_top2"], "max_abs_err": err,
@@ -2324,7 +2758,7 @@ def run(opts) -> int:
               f"{int(got_k['n_a'])} by the motion model), n_inl {int(got_k['n_inl'])} vs "
               f"{int(got_p['n_inl'])}, max |dR| {dR:.2e}, max |dt| {dt:.2e}")
     # The local-map variant's frame: the motion model's and the local map's calls.
-    b1_shapes = {site: a for site, a, _ in frame_calls if a is not None}
+    b1_shapes = {c[0]: c[1] for c in frame_calls if c[1] is not None}
     check(sorted(b1_shapes) == ["local map", "motion model"],
           f"B1 calls of a frame: {[c[0] for c in frame_calls]}")
 
@@ -2609,7 +3043,7 @@ def run(opts) -> int:
     launches8 = {"fast_nms": cuda_fast.LAUNCHES, "hamming_top2": cuda_match.LAUNCHES}
     with _build.force_plain():
         wide_p = E.mono_replay(dev, N_WIDE, orb=wide)
-    keys = [m for _, _, m in wide_calls]
+    keys = [c[2] for c in wide_calls]
     check(launches8["fast_nms"] == N_WIDE and launches8["hamming_top2"] == len(keys) > 0,
           f"2000-feature replay launches {launches8}, {len(keys)} B1 calls")
     check(max(keys) > 1024, f"2000-feature replay: B1 saw at most {max(keys)} keys")
@@ -2775,6 +3209,9 @@ def run(opts) -> int:
     walls["phase 18a"] = time.perf_counter()
     p18 = phase18b_config5(dev, card, p15)
     walls["phase 18b"] = time.perf_counter()
+    # --- Phase 19: the runner's sensor modes; config 3 to the scale refinement
+    p19 = phase19_runner_modes(dev, card)
+    walls["phase 19"] = time.perf_counter()
 
     if opts.save_inputs:
         per_replay = {**per_site, **p10["sites"]}
@@ -2788,7 +3225,7 @@ def run(opts) -> int:
                                               p11["launches"], p12["rgbd"], p12["raw"],
                                               p13["launches"], p14["launches"], launches15,
                                               p16["launches"], p17["launches"],
-                                              p18["launches"]))
+                                              p18["launches"], p19))
     lm = next(r for r in b1_rows if r["call"] == "local map")  # the kernel's headline call
     record = {"kernels": [
         {"name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",

@@ -1,6 +1,6 @@
 """Trajectory score of the port's replays: Umeyama/Sim3 alignment and the
-ATE RMSE — `orbslam3_tpu/eval/ate.py`'s `umeyama`, `associate` and
-`ate_rmse`, in numpy. The port carries its own copy because the card's
+ATE RMSE — `orbslam3_tpu/eval/ate.py`'s `umeyama`, `associate`, `ate_rmse`
+and `ate_scale`, in numpy. The port carries its own copy because the card's
 checks import nothing of the JAX package; `tests/test_torch_system.py`
 holds it equal to the reference's."""
 
@@ -57,3 +57,14 @@ def ate_rmse(est_ts, est_pos, gt_ts, gt_pos, with_scale: bool = True,
     s, R, t = umeyama(est, gt, with_scale)
     err = np.linalg.norm((s * (R @ est.T)).T + t - gt, axis=1)
     return float(np.sqrt((err**2).mean()))
+
+
+def ate_scale(est_ts: np.ndarray, est_pos: np.ndarray, gt_ts: np.ndarray, gt_pos: np.ndarray,
+              max_dt: float = 0.02) -> float:
+    """The Sim3 fit's scale of the estimate against the ground truth (about 1
+    for a metric sensor: stereo, RGB-D, inertial); NaN under 3 associated
+    poses."""
+    ia, ib = associate(est_ts, gt_ts, max_dt)
+    if len(ia) < 3:
+        return float("nan")
+    return float(umeyama(est_pos[ia], gt_pos[ib], with_scale=True)[0])

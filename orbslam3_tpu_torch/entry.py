@@ -32,6 +32,11 @@ stereo-inertial on the rectified pair, and config 4, the stereo-inertial
 two-camera fisheye rig of `make_synth_euroc.py --fisheye` (512x512
 Kannala-Brandt 8 cameras 0.15 m apart in a smaller room).
 
+The same sequences go to disk in each dataset layout the runner reads
+(`write_euroc_sequence`), and `drive_files` drives a `System` (`make_system`
+builds `replay`'s) directly on a directory's decoded files, the runner's
+counterpart; `record_frames` watches either run frame by frame.
+
 Scenes are built with numpy from a seed (`make_scene`, `make_mapping_scene`
 draw from the generator in the reference's order), so a test can hand the
 same map to the JAX package and to the port.
@@ -42,6 +47,8 @@ from __future__ import annotations
 import contextlib
 import functools
 import importlib.util
+import json
+import os
 import time
 import warnings
 from pathlib import Path
@@ -567,60 +574,172 @@ def euroc_frames(n_frames: int, seed: int = 0, t_loop: float | None = None,
     `blind` = (at, n): frames at ... at + n - 1 are a uniform grey 35 image
     (a covered lens, both cameras of a pair); the camera moves on along its
     path, and the noise of those frames is still drawn, so every other frame
-    is the one the sequence without `blind` has."""
+    is the one the sequence without `blind` has.
+
+    Frame k depends only on the arguments other than `n_frames` and `imu`
+    and on the generator's state after frame k - 1, so the process keeps each
+    sequence it rendered with the generator's state after every frame
+    (`_Sequence`): a shorter one is its prefix, a longer one renders only its
+    new frames, and the IMU stream of an n-frame sequence is drawn from the
+    state after frame n - 1. A sequence with a kidnap or a blind interval is
+    the one without them up to its first such frame, so those frames are
+    shared too. `clear_frames()` drops them. A sequence `load_frames` read
+    is served as saved: exactly its frames, without IMU or depth."""
+    key = _Sequence.key_of(seed, t_loop, kidnap, stereo, raw, depth, fisheye, blind)
+    if key in _LOADED:
+        if n_frames != len(_LOADED[key][0]) or imu:
+            raise ValueError(f"the loaded sequence holds exactly {len(_LOADED[key][0])} "
+                             "frames and no IMU stream")
+        return _LOADED[key]
+    seq = _SEQUENCES.get(key)
+    if seq is None:
+        seq = _SEQUENCES[key] = _Sequence(*key)
+        for other in list(_SEQUENCES.values()):
+            seq.adopt_prefix(other)
+    seq.extend(n_frames)
+    out = (np.asarray(seq.ts[:n_frames]), np.stack(seq.imgs[:n_frames]),
+           np.asarray(seq.centres[:n_frames]))
+    if depth:
+        out += (np.stack(seq.depths[:n_frames]),)
+    if imu:
+        out += (_imu_stream(seq.M, seq.generator_after(n_frames), n_frames),)
+    return out
+
+
+_SEQUENCES: dict = {}  # euroc_frames' arguments but n_frames and imu -> _Sequence
+_LOADED: dict = {}  # the same key -> (ts, imgs, centres) that load_frames read
+
+
+def clear_frames() -> None:
+    """Forget every sequence `euroc_frames` rendered or `load_frames` read in
+    this process."""
+    _SEQUENCES.clear()
+    _LOADED.clear()
+
+
+def save_frames(path: str, n_frames: int, seed: int = 0, **kw) -> None:
+    """Write `euroc_frames(n_frames, seed, **kw)`'s times, images and centres
+    and its arguments to `path` (an uncompressed npz), for `load_frames` in
+    another process: the ranks of a distributed replay read the lap instead
+    of each rendering it. Not for one with depth or an IMU stream."""
+    if "depth" in kw or "imu" in kw:
+        raise ValueError("save_frames keeps no depth and no IMU stream")
+    ts, imgs, centres = euroc_frames(n_frames, seed, **kw)
+    with open(path, "wb") as f:
+        np.savez(f, args=np.array(json.dumps(dict(seed=seed, **kw))), ts=ts, imgs=imgs,
+                 centres=centres)
+
+
+def load_frames(path: str) -> None:
+    """Serve the frames `save_frames` wrote to `path` as this process's
+    `euroc_frames` of the same arguments, at exactly the saved length."""
+    with np.load(path) as d:
+        key = _Sequence.key_of(**json.loads(str(d["args"])))
+        _LOADED[key] = (d["ts"], d["imgs"], d["centres"])
+
+
+class _Sequence:
+    """One synthetic sequence as far as it was rendered: per frame its time,
+    image(s), centre, depth and the generator's state after it."""
+
+    @staticmethod
+    def key_of(seed=0, t_loop=None, kidnap=None, stereo=False, raw=False, depth=False,
+               fisheye=False, blind=None):
+        return (int(seed), None if t_loop is None else float(t_loop),
+                None if kidnap is None else tuple(kidnap), bool(stereo or raw or fisheye),
+                bool(raw), bool(depth), bool(fisheye), None if blind is None else tuple(blind))
+
+    def __init__(self, seed, t_loop, kidnap, stereo, raw, depth, fisheye, blind):
+        self.key = (seed, t_loop, kidnap, stereo, raw, depth, fisheye, blind)
+        self.seed, self.kidnap, self.stereo, self.raw = seed, kidnap, stereo, raw
+        self.depth, self.blind = depth, blind
+        self.M = _configured(fisheye, t_loop)
+        M = self.M
+        self.R_raw, self.dirs, self.dirs_r, self.baseline = np.eye(3), None, None, M.BASELINE_M
+        if fisheye:
+            self.dirs = M.kb8_dir_grid((M.FE_W, M.FE_H), M.FE_INTR_L)
+            self.dirs_r = M.kb8_dir_grid((M.FE_W, M.FE_H), M.FE_INTR_R)
+            self.baseline = M.FE_BASELINE_M
+        if raw:
+            c, s = np.cos(np.radians(M.RAW_PITCH_DEG)), np.sin(np.radians(M.RAW_PITCH_DEG))
+            self.R_raw = np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+            self.dirs = self.dirs_r = M.radtan_dir_grid((M.W, M.H), (M.FX, M.FY, M.CX, M.CY),
+                                                        M.RAW_DIST)
+        self.ts, self.imgs, self.centres, self.depths, self.states = [], [], [], [], []
+        self.tex = None
+
+    def adopt_prefix(self, other: "_Sequence") -> None:
+        """Take the frames `other` rendered that this sequence shares: all
+        those before the first kidnapped or blind frame of either, when the
+        two differ in their kidnap or blind interval only."""
+        a, b = self.key, other.key
+        if other is self or a[:2] + a[3:7] != b[:2] + b[3:7] or len(other.ts) <= len(self.ts):
+            return
+        starts = [e[0] for e in (a[2], a[7], b[2], b[7]) if e is not None]
+        n = min([len(other.ts)] + starts)
+        if n > len(self.ts):
+            for name in ("ts", "imgs", "centres", "depths", "states"):
+                setattr(self, name, list(getattr(other, name)[:n]))
+            self.tex = other.tex
+
+    def generator_after(self, n: int) -> np.random.Generator:
+        """A generator in the state the sequence's was in after frame n - 1."""
+        rng = np.random.default_rng(self.seed)
+        if n:
+            rng.bit_generator.state = self.states[n - 1]
+        return rng
+
+    def extend(self, n_frames: int) -> None:
+        """Render the frames up to n_frames - 1 that are not there yet."""
+        if len(self.ts) >= n_frames:
+            return
+        M = self.M
+        rng = np.random.default_rng(self.seed)
+        if self.tex is None:
+            self.tex = M.make_textures(rng)
+        if self.states:
+            rng.bit_generator.state = self.states[-1]
+        shape = (M.H, M.W) if self.dirs is None else self.dirs.shape[:2]
+
+        def noisy(img):
+            return np.clip(img + rng.normal(0, 1.5, img.shape), 0, 255).astype(np.uint8)
+
+        def view(R_render, p, dirs_i, covered):
+            if covered:  # a covered lens; its noise is drawn all the same
+                noisy(np.zeros(shape))
+                return np.full(shape, 35, np.uint8)
+            return noisy(M.render(self.tex, R_render, p, dirs=dirs_i))
+
+        kidnap, blind = self.kidnap, self.blind
+        for k in range(len(self.ts), n_frames):
+            t = k / M.CAM_HZ
+            src = k if kidnap is None or k < kidnap[0] else kidnap[1] + k - kidnap[0]
+            R_wc, p = M.pose_at(src / M.CAM_HZ)
+            R_render = R_wc @ self.R_raw if self.raw else R_wc
+            covered = blind is not None and blind[0] <= k < blind[0] + blind[1]
+            img = view(R_render, p, self.dirs, covered)
+            if self.stereo:
+                p_r = p + R_wc @ np.array([self.baseline, 0.0, 0.0])
+                img = np.stack([img, view(R_render, p_r, self.dirs_r, covered)])
+            self.imgs.append(img)
+            if self.depth:
+                self.depths.append(ray_depth(M, R_wc, p))
+            self.ts.append(t)
+            self.centres.append(p)
+            self.states.append(rng.bit_generator.state)
+
+
+def _configured(fisheye: bool = False, t_loop: float | None = None):
+    """`synth_euroc()` with the globals its `main` sets: the `--fisheye`
+    room and lap, and `T_LOOP` = t_loop when given."""
     M = synth_euroc()
-    R_raw, dirs, dirs_r, baseline = np.eye(3), None, None, M.BASELINE_M
     if fisheye:  # the script's --fisheye room and rig
-        stereo = True
         M.BOX_LO = np.array([-3.5, -3.5, 0.0])
         M.BOX_HI = np.array([3.5, 3.5, 3.0])
         M.TRAJ_R, M.TRAJ_Z, M.T_LOOP = 1.4, 1.3, 40.0
-        dirs = M.kb8_dir_grid((M.FE_W, M.FE_H), M.FE_INTR_L)
-        dirs_r = M.kb8_dir_grid((M.FE_W, M.FE_H), M.FE_INTR_R)
-        baseline = M.FE_BASELINE_M
     if t_loop is not None:
         M.T_LOOP = float(t_loop)
-    rng = np.random.default_rng(seed)
-    tex = M.make_textures(rng)
-    if raw:
-        stereo = True
-        c, s = np.cos(np.radians(M.RAW_PITCH_DEG)), np.sin(np.radians(M.RAW_PITCH_DEG))
-        R_raw = np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
-        dirs = dirs_r = M.radtan_dir_grid((M.W, M.H), (M.FX, M.FY, M.CX, M.CY), M.RAW_DIST)
-
-    def noisy(img):
-        return np.clip(img + rng.normal(0, 1.5, img.shape), 0, 255).astype(np.uint8)
-
-    shape = (M.H, M.W) if dirs is None else dirs.shape[:2]
-
-    def view(R_render, p, dirs_i, covered):
-        if covered:  # a covered lens; its noise is drawn all the same
-            noisy(np.zeros(shape))
-            return np.full(shape, 35, np.uint8)
-        return noisy(M.render(tex, R_render, p, dirs=dirs_i))
-
-    ts, imgs, centres, depths = [], [], [], []
-    for k in range(n_frames):
-        t = k / M.CAM_HZ
-        src = k if kidnap is None or k < kidnap[0] else kidnap[1] + k - kidnap[0]
-        R_wc, p = M.pose_at(src / M.CAM_HZ)
-        R_render = R_wc @ R_raw if raw else R_wc
-        covered = blind is not None and blind[0] <= k < blind[0] + blind[1]
-        img = view(R_render, p, dirs, covered)
-        if stereo:
-            p_r = p + R_wc @ np.array([baseline, 0.0, 0.0])
-            img = np.stack([img, view(R_render, p_r, dirs_r, covered)])
-        imgs.append(img)
-        if depth:
-            depths.append(ray_depth(M, R_wc, p))
-        ts.append(t)
-        centres.append(p)
-    out = (np.asarray(ts), np.stack(imgs), np.asarray(centres))
-    if depth:
-        out += (np.stack(depths),)
-    if imu:
-        out += (_imu_stream(M, rng, n_frames),)
-    return out
+    return M
 
 
 def _imu_stream(M, rng: np.random.Generator, n_frames: int):
@@ -661,28 +780,60 @@ START_NS = 1403636579763555584  # make_synth_euroc.py's --start-ns default
 
 
 def write_euroc_sequence(out_dir: str, n_frames: int, seed: int = 0,
-                         t_loop: float | None = None, imu: bool = False) -> None:
-    """`euroc_frames(n_frames, seed, t_loop, imu=imu)` written to `out_dir` in
-    the mav0 layout of `make_synth_euroc.py`: the images, the ground truth at
-    every frame (the script's `rot_to_quat_wxyz` of `pose_at`), the IMU
-    stream and the script's `SETTINGS_YAML` (752x480, 1000 features, 8
-    levels), at the script's timestamps (`START_NS` + t in ns)."""
+                         t_loop: float | None = None, imu: bool = False, stereo: bool = False,
+                         fisheye: bool = False, depth: bool = False,
+                         layout: str = "euroc") -> None:
+    """`euroc_frames(n_frames, seed, t_loop, imu=imu, stereo=stereo,
+    fisheye=fisheye, depth=depth)` written to `out_dir` with the settings
+    text of `make_synth_euroc.py` for that mode: its `SETTINGS_YAML` (752x480,
+    1000 features, 8 levels), with `stereo` plus its `--stereo` lines
+    (`Camera.bf` = FX x 0.11, `ThDepth` 35), with `depth` plus those and
+    `DepthMapFactor` 5000, with `fisheye` its `FE_SETTINGS_YAML` (the KB8 pair,
+    `Camera2.*`, `Tlr`). `layout` picks the directory's format:
+
+    - "euroc": the script's mav0 layout (`datasets.write_euroc`) at its
+      timestamps (`START_NS` + t in ns): the images (and `cam1` for a pair,
+      the TUM-VI layout of `--fisheye`), the ground truth at every frame (the
+      script's `rot_to_quat_wxyz` of `pose_at`) and the IMU stream;
+    - "kitti": `datasets.write_kitti` (`image_0/`, `image_1/` for a pair,
+      `times.txt` at t = k / 20 s);
+    - "tumrgbd" (with `depth`, which no other layout takes):
+      `datasets.write_tum_rgbd`, the left images, the ray-cast depth at
+      `DepthMapFactor` and `associations.txt`, at t = k / 20 s."""
     from orbslam3_tpu_torch.io import datasets
 
-    out = euroc_frames(n_frames, seed=seed, t_loop=t_loop, imu=imu)
+    if layout not in ("euroc", "kitti", "tumrgbd"):
+        raise ValueError(f"layout {layout!r} is not euroc, kitti or tumrgbd")
+    if depth != (layout == "tumrgbd"):
+        raise ValueError("depth is written in the tumrgbd layout, and only there")
+    out = euroc_frames(n_frames, seed=seed, t_loop=t_loop, imu=imu, stereo=stereo,
+                       fisheye=fisheye, depth=depth)
     ts, imgs = out[0], out[1]
-    M = synth_euroc()
-    if t_loop is not None:
-        M.T_LOOP = float(t_loop)
-    poses = [M.pose_at(t) for t in ts]
-    quats = np.asarray([M.rot_to_quat_wxyz(R) for R, _ in poses])
-    ns = [START_NS + int(round(t * 1e9)) for t in ts]
-    imu_rows = None
-    if imu:
-        t_imu, acc, gyro = out[3]
-        imu_rows = ([START_NS + int(round(t * 1e9)) for t in t_imu], gyro, acc)
-    datasets.write_euroc(out_dir, ns, imgs, M.SETTINGS_YAML, imu=imu_rows,
-                         groundtruth=(np.asarray([p for _, p in poses]), quats))
+    pair = stereo or fisheye
+    left, right = (imgs[:, 0], imgs[:, 1]) if pair else (imgs, None)
+    M = _configured(fisheye, t_loop)
+    settings = M.FE_SETTINGS_YAML if fisheye else M.SETTINGS_YAML
+    if stereo or depth:
+        settings += f"Camera.bf: {M.FX * M.BASELINE_M}\nThDepth: 35.0\n"
+    if depth:
+        settings += f"DepthMapFactor: {datasets.DEPTH_MAP_FACTOR}\n"
+    if layout == "euroc":
+        poses = [M.pose_at(t) for t in ts]
+        quats = np.asarray([M.rot_to_quat_wxyz(R) for R, _ in poses])
+        ns = [START_NS + int(round(t * 1e9)) for t in ts]
+        imu_rows = None
+        if imu:
+            t_imu, acc, gyro = out[-1]
+            imu_rows = ([START_NS + int(round(t * 1e9)) for t in t_imu], gyro, acc)
+        datasets.write_euroc(out_dir, ns, left, settings, right=right, imu=imu_rows,
+                             groundtruth=(np.asarray([p for _, p in poses]), quats))
+        return
+    if layout == "kitti":
+        datasets.write_kitti(out_dir, ts, left, right=right)
+    else:
+        datasets.write_tum_rgbd(out_dir, ts, left, out[3])
+    with open(os.path.join(out_dir, "settings.yaml"), "w") as f:
+        f.write(settings)
 
 
 def ray_depth(M, R_wc: np.ndarray, p: np.ndarray) -> np.ndarray:
@@ -810,11 +961,110 @@ def vi_calib(device, cfg: dict = EUROC_MONO_VI):
     return ImuCalib.create(Tbc[:3, :3], Tbc[:3, 3], **cfg["imu"], device=device)
 
 
-@functools.lru_cache(maxsize=1)
+def make_system(device, sensor: str, orb: feat.OrbParams = EUROC_MONO["orb"],
+                Kmax: int | None = None, Pmax: int | None = None):
+    """The `System` that `replay` drives for `sensor` (one of `SENSORS`) on
+    `device`: its config's camera, bf, rig, IMU calibration and capacities
+    (Kmax, Pmax unless given); "raw_stereo" with `raw_stereo_rig()`'s
+    rectification."""
+    from orbslam3_tpu_torch.system import Sensor, System
+
+    if sensor not in SENSORS:
+        raise ValueError(f"sensor {sensor!r} is not one of {SENSORS}")
+    dev = torch.device(device)
+    cfg = {"mono": EUROC_MONO, "mono_vi": EUROC_MONO_VI, "stereo_vi": EUROC_STEREO_VI,
+           "stereo_vi_fisheye": EUROC_STEREO_VI_FISHEYE}.get(sensor, EUROC_STEREO)
+    kind = {"mono": Sensor.MONOCULAR, "rgbd": Sensor.RGBD, "mono_vi": Sensor.IMU_MONOCULAR,
+            "stereo_vi": Sensor.IMU_STEREO,
+            "stereo_vi_fisheye": Sensor.IMU_STEREO}.get(sensor, Sensor.STEREO)
+    slam = System(kind, cam.CameraModel.KB8 if sensor == "stereo_vi_fisheye"
+                  else cam.CameraModel.PINHOLE, cfg["camera"], cfg["img_wh"], orb, device=dev,
+                  bf=cfg.get("bf", 0.0), camera2=cfg.get("camera2"), Kmax=Kmax or cfg["Kmax"],
+                  Pmax=Pmax or cfg["Pmax"], fps=cfg["fps"],
+                  imu_calib=vi_calib(dev, cfg) if sensor in INERTIAL_SENSORS else None)
+    if sensor == "raw_stereo":
+        slam.enable_rectification(*raw_stereo_rig())
+    return slam
+
+
+class FrameRecord(NamedTuple):
+    """What `record_frames` keeps of one `track_*` call, after it."""
+
+    state: str  # TrackState name
+    n_kf: int  # keyframe slots of the active map (a keyframe may take a freed one)
+    keyframe: bool  # the frame inserted a keyframe
+    R: np.ndarray  # the returned frame's Tcw
+    t: np.ndarray
+    imu_init: bool  # the IMU initialized (False without one)
+    viba1: bool
+    viba2: bool
+    pi_taken: bool  # the frame took the pose-inertial result
+
+
+@contextlib.contextmanager
+def record_frames():
+    """Within the block, every `System.track_monocular` / `track_stereo` /
+    `track_rgbd` call of any System appends its `FrameRecord` (numpy copies,
+    host state only: no device read) to the list it yields. It watches a run
+    from outside, the runner's as well as a direct drive."""
+    from orbslam3_tpu_torch.system import System
+
+    rows, originals = [], {}
+
+    def recording(name):
+        fn = originals[name] = getattr(System, name)
+
+        def track(self, *args, **kw):
+            out = fn(self, *args, **kw)
+            ini = self.mapper.imu_init
+            rows.append(FrameRecord(self.tracking_state.name, self.n_keyframes,
+                                    self.tracker.last_kf_frame_id == out.frame_id, np.array(out.R),
+                                    np.array(out.t), bool(self.mapper.imu_initialized),
+                                    bool(ini is not None and ini.viba1_done),
+                                    bool(ini is not None and ini.viba2_done),
+                                    bool(self.tracker.pi_taken)))
+            return out
+
+        return track
+
+    for name in ("track_monocular", "track_stereo", "track_rgbd"):
+        setattr(System, name, recording(name))
+    try:
+        yield rows
+    finally:
+        for name, fn in originals.items():
+            setattr(System, name, fn)
+
+
+RUNNER_MODES = ("mono", "mono-vi", "stereo", "stereo-vi", "rgbd")  # run_sequence's --mode
+
+
+def drive_files(slam, mode: str, seq, imu=None) -> None:
+    """Drive `slam` directly over a dataset directory's decoded files, as
+    `run_sequence` would in `mode` (one of `RUNNER_MODES`): `seq` is the
+    `datasets` loader's `ImageSequence` (left images, the right ones or the
+    depth PNGs), `imu` its `load_euroc_imu` samples, fed per frame by
+    `imu_batches`. A depth PNG is divided by `datasets.DEPTH_MAP_FACTOR`, the
+    factor the writers use, not by the settings' (the runner reads those)."""
+    from orbslam3_tpu_torch.io import datasets
+
+    if mode not in RUNNER_MODES:
+        raise ValueError(f"mode {mode!r} is not one of {RUNNER_MODES}")
+    ts = np.asarray(seq.timestamps, np.float64)
+    batches = (imu_batches(ts, (imu.timestamps, imu.acc, imu.gyro)) if imu is not None
+               else [None] * len(ts))
+    for k in range(len(ts)):
+        t = float(ts[k])
+        if mode in ("mono", "mono-vi"):
+            slam.track_monocular(seq.read(k), t, imu_measurements=batches[k])
+        elif mode in ("stereo", "stereo-vi"):
+            slam.track_stereo(seq.read(k), seq.read_right(k), t, imu_measurements=batches[k])
+        else:
+            slam.track_rgbd(seq.read(k), seq.read_depth(k) / datasets.DEPTH_MAP_FACTOR, t)
+
+
 def _rendered(sensor: str, n_frames: int, seed: int, t_loop, kidnap, blind=None):
-    """`euroc_frames` for a replay of `sensor`; the last sequence is kept, so
-    a replay of a prefix of the same sequence (`n_track`, the plain run
-    after the kernels' one) does not render it again."""
+    """`euroc_frames` for a replay of `sensor`."""
     return euroc_frames(n_frames, seed, t_loop=t_loop, kidnap=kidnap, blind=blind,
                         stereo=sensor in ("stereo", "stereo_vi"), raw=sensor == "raw_stereo",
                         depth=sensor == "rgbd", imu=sensor in INERTIAL_SENSORS,
@@ -882,13 +1132,11 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
     from orbslam3_tpu_torch.io.vocab_io import load_binary_vocabulary
     from orbslam3_tpu_torch.ops import cuda_fast, cuda_match
     from orbslam3_tpu_torch.parallel import comm
-    from orbslam3_tpu_torch.system import Sensor, System
 
     if sensor not in SENSORS:
         raise ValueError(f"sensor {sensor!r} is not one of {SENSORS}")
     t0 = time.perf_counter()
     inertial = sensor in INERTIAL_SENSORS
-    fisheye = sensor == "stereo_vi_fisheye"
     if multimap and vocabulary is None:
         raise ValueError("multimap needs a vocabulary")
     frames = _rendered(sensor, n_frames, seed, t_loop, kidnap, blind)
@@ -900,17 +1148,7 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
     render_s = time.perf_counter() - t0
     dev = torch.device(device)
     cuda = dev.type == "cuda"
-    cfg = {"mono": EUROC_MONO, "mono_vi": EUROC_MONO_VI, "stereo_vi": EUROC_STEREO_VI,
-           "stereo_vi_fisheye": EUROC_STEREO_VI_FISHEYE}.get(sensor, EUROC_STEREO)
-    kind = {"mono": Sensor.MONOCULAR, "rgbd": Sensor.RGBD, "mono_vi": Sensor.IMU_MONOCULAR,
-            "stereo_vi": Sensor.IMU_STEREO,
-            "stereo_vi_fisheye": Sensor.IMU_STEREO}.get(sensor, Sensor.STEREO)
-    slam = System(kind, cam.CameraModel.KB8 if fisheye else cam.CameraModel.PINHOLE,
-                  cfg["camera"], cfg["img_wh"], orb, device=dev, bf=cfg.get("bf", 0.0),
-                  camera2=cfg.get("camera2"), Kmax=cfg["Kmax"], Pmax=cfg["Pmax"],
-                  fps=cfg["fps"], imu_calib=vi_calib(dev, cfg) if inertial else None)
-    if sensor == "raw_stereo":
-        slam.enable_rectification(*raw_stereo_rig())
+    slam = make_system(dev, sensor, orb)
 
     def track(k, t):
         if sensor == "mono":

@@ -1,13 +1,16 @@
-"""Dataset loaders: EuRoC, TUM-VI, TUM RGB-D, KITTI, and a writer of the
-EuRoC `mav0` layout.
+"""Dataset loaders and writers: EuRoC, TUM-VI, TUM RGB-D, KITTI.
 
 The loaders are host-only copies of the JAX package's (the `LoadImages` /
 `LoadIMU` CSV parsers of the reference's example mains); they return
 timestamps in seconds (float64) and lazy image paths, and read PNGs through
-`io/png.py` with `cv2.imread`'s semantics. `write_euroc` writes a sequence in
-the format of `scripts/make_synth_euroc.py`; `sequence_digest` names a
-sequence by its decoded pixels and CSV text, so that two machines whose
-`zlib` compresses differently agree on it.
+`io/png.py` with `cv2.imread`'s semantics. The writers are the port's
+stand-ins for the `cv2.imwrite` calls that write each layout:
+`write_euroc` the `mav0` layout of `scripts/make_synth_euroc.py` (with
+`right`, the TUM-VI pair of its `--fisheye`), `write_kitti` the odometry
+layout, `write_tum_rgbd` the RGB-D layout with 16-bit depth PNGs and an
+associations file. `sequence_digest` names a sequence by its decoded pixels
+and CSV text, so that two machines whose `zlib` compresses differently agree
+on it.
 """
 
 from __future__ import annotations
@@ -174,6 +177,44 @@ def write_euroc(out_dir: str, timestamps_ns, images, settings_yaml: str, *,
                         f"{a[0]:.6f},{a[1]:.6f},{a[2]:.6f}\n")
     with open(os.path.join(out_dir, "settings.yaml"), "w") as f:
         f.write(settings_yaml)
+
+
+def write_kitti(out_dir: str, timestamps, images, right=None) -> None:
+    """The KITTI odometry layout that `load_kitti` reads: `image_0/%06d.png`
+    (and `image_1/` for `right`), `times.txt` with one time in seconds a line
+    (`%.6e`, as KITTI writes them). Images are (N, H, W) uint8."""
+    for cam, imgs in [("image_0", images)] + ([("image_1", right)] if right is not None else []):
+        os.makedirs(os.path.join(out_dir, cam), exist_ok=True)
+        for k, img in enumerate(imgs):
+            png.imwrite(os.path.join(out_dir, cam, f"{k:06d}.png"), np.asarray(img))
+    with open(os.path.join(out_dir, "times.txt"), "w") as f:
+        f.writelines(f"{float(t):.6e}\n" for t in timestamps)
+
+
+DEPTH_MAP_FACTOR = 5000.0  # TUM RGB-D's depth PNG scale (rgbd_tum.cc's DepthMapFactor)
+
+
+def write_tum_rgbd(out_dir: str, timestamps, images, depths) -> str:
+    """The TUM RGB-D layout that `load_tum_rgbd` reads: `rgb/<t>.png` (8-bit),
+    `depth/<t>.png` (16-bit, metres times `DEPTH_MAP_FACTOR` rounded, 0
+    where the depth is not finite or not positive, at most 65535) and
+    `associations.txt`, lines `t rgb/<t>.png t depth/<t>.png` with times in
+    seconds to 6 decimals as the dataset names its files. Returns the
+    associations file's path."""
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+    lines = []
+    for t, img, d in zip(timestamps, images, depths):
+        name = f"{float(t):.6f}"
+        png.imwrite(os.path.join(out_dir, "rgb", f"{name}.png"), np.asarray(img))
+        d = np.asarray(d, np.float64) * DEPTH_MAP_FACTOR
+        raw = np.where(np.isfinite(d) & (d > 0), np.minimum(np.round(d), 65535), 0)
+        png.imwrite(os.path.join(out_dir, "depth", f"{name}.png"), raw.astype(np.uint16))
+        lines.append(f"{name} rgb/{name}.png {name} depth/{name}.png\n")
+    path = os.path.join(out_dir, "associations.txt")
+    with open(path, "w") as f:
+        f.writelines(lines)
+    return path
 
 
 def sequence_digest(seq_dir: str) -> str:

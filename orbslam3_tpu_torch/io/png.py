@@ -2,7 +2,8 @@
 `cv2.imread` / `cv2.imwrite` / `cv2.imencode`, which the card's machine lacks.
 
 It decodes non-interlaced PNGs of colour type 0 (grey) and 2 (RGB) at 8 and
-16 bits, under all five row filters, and encodes 8-bit grey and RGB. The read
+16 bits, under all five row filters, and encodes 8-bit grey and RGB and 16-bit
+grey (a TUM RGB-D depth map). The read
 modes follow OpenCV's (whose PNG reader is libpng):
 
 - `IMREAD_GRAYSCALE`: RGB becomes grey by libpng's fixed-point weights (red
@@ -134,20 +135,26 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def encode(img: np.ndarray, text: dict | None = None) -> bytes:
-    """PNG bytes of an 8-bit grey (H, W) or BGR (H, W, 3) image, as
-    `cv2.imencode(".png", img)[1]` decodes; every row filter 0, zlib at
+    """PNG bytes of an 8-bit grey (H, W) or BGR (H, W, 3) image or a 16-bit
+    grey (H, W) one, as `cv2.imencode(".png", img)[1]` decodes (16-bit
+    samples big-endian, as PNG stores them); every row filter 0, zlib at
     OpenCV's default PNG compression level (1). `text` adds a `tEXt` chunk
     per key."""
     img = np.asarray(img)
-    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
-        raise ValueError(f"encode takes 8-bit grey or 3-channel images, got "
-                         f"{img.dtype} {img.shape}")
+    grey16 = img.dtype == np.uint16 and img.ndim == 2
+    if not grey16 and (img.dtype != np.uint8 or img.ndim not in (2, 3)
+                       or (img.ndim == 3 and img.shape[2] != 3)):
+        raise ValueError(f"encode takes 8-bit grey or 3-channel images or 16-bit grey ones, "
+                         f"got {img.dtype} {img.shape}")
     height, width = img.shape[:2]
     colour = 0 if img.ndim == 2 else 2
     pixels = img if img.ndim == 2 else img[..., ::-1]  # BGR -> RGB
+    if grey16:
+        pixels = pixels.astype(">u2").view(np.uint8)
     rows = np.zeros((height, 1 + pixels[0].size), np.uint8)
     rows[:, 1:] = pixels.reshape(height, -1)
-    out = [_SIGNATURE, _chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, colour, 0, 0, 0))]
+    out = [_SIGNATURE, _chunk(b"IHDR", struct.pack(">IIBBBBB", width, height,
+                                                   16 if grey16 else 8, colour, 0, 0, 0))]
     for key, value in (text or {}).items():
         out.append(_chunk(b"tEXt", key.encode("latin-1") + b"\0" + str(value).encode("latin-1")))
     out.append(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)))
@@ -156,6 +163,7 @@ def encode(img: np.ndarray, text: dict | None = None) -> bytes:
 
 
 def imwrite(path: str, img: np.ndarray) -> None:
-    """`cv2.imwrite(path, img)` for 8-bit grey and BGR images."""
+    """`cv2.imwrite(path, img)` for 8-bit grey and BGR images and 16-bit grey
+    ones."""
     with open(path, "wb") as f:
         f.write(encode(img))

@@ -27,6 +27,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from orbslam3_tpu_torch.device import require_cuda
+
 
 class Vocabulary(NamedTuple):
     """Flattened vocabulary tree (tensors on one device).
@@ -132,9 +134,10 @@ def _kmedians(desc: np.ndarray, k: int, rng: np.random.Generator, iters: int = 8
 
 
 def build_vocabulary(descriptors: np.ndarray, k: int = 10, depth: int = 4, seed: int = 0,
-                     device="cpu") -> Vocabulary:
+                     device=None) -> Vocabulary:
     """Train a k^depth-word tree (`TemplatedVocabulary::create`) from (N, 32)
-    uint8 descriptors, with uniform word weights as the reference."""
+    uint8 descriptors, with uniform word weights as the reference, on
+    `device` (None: the first CUDA card, raising where there is none)."""
     rng = np.random.default_rng(seed)
     node_desc = [np.zeros(32, np.uint8)]  # root (desc unused)
     node_children = [[]]
@@ -164,6 +167,8 @@ def build_vocabulary(descriptors: np.ndarray, k: int = 10, depth: int = 4, seed:
     children = np.full((n_nodes, k), -1, np.int32)
     for i, ch in enumerate(node_children):
         children[i, : len(ch)] = ch
+    if device is None:
+        device = require_cuda()
     return from_arrays(np.stack(node_desc), children, word_ids, np.ones(wc, np.float32), depth,
                        k, device)
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from orbslam3_tpu_torch import convert
+from orbslam3_tpu_torch.device import require_cuda
 from orbslam3_tpu_torch.ops import lie
 
 GRAVITY_VALUE = 9.81  # ref `ImuTypes.h:GRAVITY_VALUE`
@@ -42,10 +43,13 @@ class ImuCalib(NamedTuple):
     cov_walk: torch.Tensor  # (6,6) diag random walk
 
     @staticmethod
-    def create(Rbc, tbc, noise_gyro, noise_acc, walk_gyro, walk_acc, freq, device="cpu"):
+    def create(Rbc, tbc, noise_gyro, noise_acc, walk_gyro, walk_acc, freq, device=None):
         """Noise densities are continuous-time: scaled by sqrt(freq) as the
         reference does (`Tracking.cc:280-292`), in float32 as the JAX
-        package computes them."""
+        package computes them. On `device` (None: the first CUDA card,
+        raising where there is none)."""
+        if device is None:
+            device = require_cuda()
         sf = np.sqrt(np.float32(freq))
         ng, na = np.float32(noise_gyro) * sf, np.float32(noise_acc) * sf
         wg, wa = np.float32(walk_gyro) / sf, np.float32(walk_acc) / sf

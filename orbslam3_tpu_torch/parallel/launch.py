@@ -162,16 +162,22 @@ def replay_summary(rep) -> dict:
 
 
 def replay_rank(rank: int, n: int, device, kw: dict) -> dict:
-    """One rank of `replay`: `entry.replay(device, distributed=True, **kw)`."""
+    """One rank of `replay`: `entry.replay(device, distributed=True, **kw)`;
+    with `frames_file` in `kw`, the frames `entry.save_frames` wrote there
+    instead of rendering them."""
     from orbslam3_tpu_torch import entry as E
     from orbslam3_tpu_torch.parallel import comm
 
     comm.reset_stats()
+    kw = dict(kw)
+    frames_file = kw.pop("frames_file", None)
+    if frames_file is not None:
+        E.load_frames(frames_file)
     rep = E.replay(device, distributed=True, **kw)
     return replay_summary(rep)
 
 
 def replay(n: int, device, timeout: float = 300.0, wall: float | None = None, **kw) -> list:
     """Config 5 on `n` ranks: `replay_rank` in each (`entry.replay`'s
-    keywords in `kw`); every rank's `replay_summary`."""
+    keywords in `kw`, and `frames_file`); every rank's `replay_summary`."""
     return run(replay_rank, n, (kw,), device=device, timeout=timeout, wall=wall)

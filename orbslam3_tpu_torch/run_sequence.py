@@ -133,7 +133,7 @@ def main(argv=None) -> dict:
 
     from orbslam3_tpu_torch import config as cfg
     from orbslam3_tpu_torch import spans
-    from orbslam3_tpu_torch.ate import ate_rmse, umeyama
+    from orbslam3_tpu_torch.ate import ate_rmse, ate_scale
     from orbslam3_tpu_torch.device import require_cuda
     from orbslam3_tpu_torch.io import datasets
     from orbslam3_tpu_torch.ops import imu as imu_ops
@@ -218,22 +218,22 @@ def main(argv=None) -> dict:
             batch = [(imu.timestamps[j], imu.acc[j], imu.gyro[j]) for j in range(cursor, hi)]
             cursor = hi
         busy = am is not None and not am.idle()
-        n_kf, chunks = slam.n_keyframes, gba.n_chunks if gba is not None else 0
+        chunks = gba.n_chunks if gba is not None else 0
         caught.clear()
         tf = time.perf_counter()
         if args.mode in ("mono", "mono-vi"):
-            slam.track_monocular(seq.read(k), ts, imu_measurements=batch or None)
+            frame = slam.track_monocular(seq.read(k), ts, imu_measurements=batch or None)
         elif args.mode in ("stereo", "stereo-vi"):
-            slam.track_stereo(seq.read(k), seq.read_right(k), ts,
-                              imu_measurements=batch or None)
+            frame = slam.track_stereo(seq.read(k), seq.read_right(k), ts,
+                                      imu_measurements=batch or None)
         else:
             depth = seq.read_depth(k) / settings.camera.depth_map_factor
-            slam.track_rgbd(seq.read(k), depth, ts)
+            frame = slam.track_rgbd(seq.read(k), depth, ts)
         frame_ms.append((time.perf_counter() - tf) * 1e3)
         states.append(slam.tracking_state.name)
         if states[-1] != "OK":
             kind = "not OK"
-        elif slam.n_keyframes != n_kf:
+        elif slam.tracker.last_kf_frame_id == frame.frame_id:  # a freed slot keeps n_kf
             kind = "keyframe"
         elif busy:
             kind = "mapping stage"
@@ -308,10 +308,7 @@ def main(argv=None) -> dict:
         ate = ate_rmse(ts_est, pos_est, gt[0], gt[1], with_scale=with_scale)
         print(f"ATE RMSE: {ate:.4f} m")
         if args.mode in ("stereo", "stereo-vi", "rgbd"):
-            from orbslam3_tpu_torch.ate import associate
-
-            ia, ib = associate(ts_est, gt[0])
-            scale = float(umeyama(pos_est[ia], gt[1][ib], True)[0])
+            scale = ate_scale(ts_est, pos_est, gt[0], gt[1])
             print(f"scale vs GT: {scale:.4f}")
     first_ok = next((k for k, st in enumerate(states) if st == "OK"), None)
     summary = dict(

@@ -1,8 +1,10 @@
-"""The JAX runner (`scripts/run_sequence.py`) on the sequence that
-`chip_smoke.py` phase 16 writes and replays on the card, on the CPU.
+"""The JAX runner (`scripts/run_sequence.py`) on the sequences that
+`chip_smoke.py` phases 16 and 19b write and replay on the card, on the CPU.
 
     JAX_PLATFORMS=cpu python tests/jax_runner_lap.py --seq DIR [--frames 260] \
         [--t-loop 8] [--sync-mapping] [--out FILE]
+    JAX_PLATFORMS=cpu python tests/jax_runner_lap.py --seq DIR --frames 530 \
+        --mode mono-vi --no-loop --sync-mapping --kmax 256 --pmax 16384 --c13
 
 Writes `entry.write_euroc_sequence(DIR, frames, seed 0, t_loop, imu=True)` with the
 port's writer (752x480, `make_synth_euroc.py`'s settings: 1000 features, 8
@@ -17,6 +19,17 @@ keyframe count, the GBA runs finished and aborted and the path
 `auto_dense_schur` gave them, and the Sim3 ATE over the whole trajectory
 (`eval/ate.py`, as the runner computes and prints it to 4 decimals). One
 JSON line ends the output. chip_smoke's phase-16 constants come from this script.
+
+`--mode mono-vi` replays the same files with the IMU (`--t-loop` then
+defaults to the script's 60 s lap, the sequence of phases 13 and 19b). It
+also watches the mapper: the frame and keyframe count at which the IMU was
+initialized, the frames of VIBA1 and VIBA2, and every `refine_scale` call
+(its frame, keyframe count, whether it applied a transform, and that
+transform's scale), plus the SE3 (unscaled) ATE and the Sim3 scale. `--no-loop`,
+`--kmax` and `--pmax` pass to the runner; `--c13` repairs fault C13 in the
+JAX `Tracker` as `tests/jax_vi_replay.py --c13` does (chip_smoke phase 19b's
+constants come from `--c13`). The IMU noise is drawn after every image, so
+the constants of an N-frame sequence come from `--frames N`.
 Not a test: nothing collects it.
 """
 
@@ -39,11 +52,19 @@ jax.config.update("jax_platforms", "cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from orbslam3_tpu.eval.ate import ate_rmse  # noqa: E402
+from orbslam3_tpu.eval.ate import associate, ate_rmse, umeyama  # noqa: E402
 from orbslam3_tpu.optim import ba as jba  # noqa: E402
+from orbslam3_tpu.pipeline.inertial_support import ImuInitializer  # noqa: E402
 from orbslam3_tpu.system import System  # noqa: E402
 from orbslam3_tpu_torch import entry as E  # noqa: E402
 from orbslam3_tpu_torch.io import datasets  # noqa: E402
+
+
+# A long run compiles thousands of executables, each holding memory maps of
+# its code; past the kernel's vm.max_map_count (65530) LLVM cannot allocate
+# and the process dies. Dropping the compiled executables frees them (the
+# persistent compile cache reloads them); the results do not change.
+MAX_MAPS = 40000
 
 
 class _Tee(io.TextIOBase):
@@ -64,30 +85,68 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--seq", required=True)
     ap.add_argument("--frames", type=int, default=260)
-    ap.add_argument("--t-loop", type=float, default=8.0)
+    ap.add_argument("--t-loop", type=float, default=None,
+                    help="lap seconds (default 8 for mono, the script's 60 for mono-vi)")
+    ap.add_argument("--mode", choices=["mono", "mono-vi"], default="mono")
     ap.add_argument("--sync-mapping", action="store_true")
+    ap.add_argument("--no-loop", action="store_true")
+    ap.add_argument("--kmax", type=int, default=None)
+    ap.add_argument("--pmax", type=int, default=None)
+    ap.add_argument("--c13", action="store_true", help="repair fault C13 in the JAX Tracker")
     ap.add_argument("--out")
     a = ap.parse_args(argv)
+    if a.t_loop is None and a.mode == "mono":
+        a.t_loop = 8.0
+    if a.c13:
+        from jax_vi_replay import repair_c13
+
+        repair_c13()
     t0 = time.time()
     if not os.path.exists(os.path.join(a.seq, "settings.yaml")):
         E.write_euroc_sequence(a.seq, a.frames, 0, t_loop=a.t_loop, imu=True)
     digest = datasets.sequence_digest(a.seq)
     print(f"sequence {a.seq}: sha256 {digest} ({time.time() - t0:.1f} s)", flush=True)
 
-    watch = dict(frame=-1, slam=None, loops=[], states=[])
+    watch = dict(frame=-1, slam=None, loops=[], states=[], refine=[], n_kf=[])
+    vi = dict(imu_init_frame=None, imu_init_kfs=None, viba1_frame=None, viba2_frame=None)
     track = System.track_monocular
+    refine = ImuInitializer.refine_scale
 
     def watched(self, *args, **kw):
         watch["slam"] = self
         watch["frame"] += 1
+        with open("/proc/self/maps") as f:
+            n_maps = sum(1 for _ in f)
+        if n_maps > MAX_MAPS:  # compiled executables' code maps near the kernel's limit
+            jax.clear_caches()
+            print(f"frame {watch['frame']}: {n_maps} memory maps, JAX caches cleared",
+                  flush=True)
         n_before = self.loop_closer.n_loops_closed if self.loop_closer else 0
         out = track(self, *args, **kw)
         if self.loop_closer is not None and self.loop_closer.n_loops_closed > n_before:
             watch["loops"].append(watch["frame"])
         watch["states"].append(self.tracking_state.name)
+        watch["n_kf"].append(self.store.n_kf)
+        ini = self.mapper.imu_init
+        if ini is not None:
+            k = watch["frame"]
+            if vi["imu_init_frame"] is None and ini.initialized:
+                vi.update(imu_init_frame=k, imu_init_kfs=self.store.n_kf)
+            if vi["viba1_frame"] is None and ini.viba1_done:
+                vi["viba1_frame"] = k
+            if vi["viba2_frame"] is None and ini.viba2_done:
+                vi["viba2_frame"] = k
         return out
 
+    def watched_refine(self, store, *args, **kw):
+        ok = refine(self, store, *args, **kw)
+        t = self.applied_transform
+        watch["refine"].append(dict(frame=watch["frame"], n_kf=store.n_kf, ok=bool(ok),
+                                    scale=None if t is None else float(t[1])))
+        return ok
+
     System.track_monocular = watched
+    ImuInitializer.refine_scale = watched_refine
     spec = importlib.util.spec_from_file_location(
         "run_sequence", os.path.join(REPO, "scripts", "run_sequence.py"))
     runner = importlib.util.module_from_spec(spec)
@@ -95,11 +154,18 @@ def main(argv=None):
     out_dir = a.seq.rstrip("/") + "_jax"  # the sequence's directory stays as written
     os.makedirs(out_dir, exist_ok=True)
     traj = os.path.join(out_dir, "sync.txt" if a.sync_mapping else "async.txt")
+    if a.mode == "mono-vi":
+        traj = traj.replace(".txt", "_vi.txt")
     argv_run = ["run_sequence.py", os.path.join(a.seq, "settings.yaml"), a.seq,
-                "--dataset", "euroc", "--mode", "mono", "--out", traj,
+                "--dataset", "euroc", "--mode", a.mode, "--out", traj,
                 "--kf-out", traj.replace(".txt", "_kf.txt")]
     if a.sync_mapping:
         argv_run.append("--sync-mapping")
+    if a.no_loop:
+        argv_run.append("--no-loop")
+    for flag, v in (("--kmax", a.kmax), ("--pmax", a.pmax)):
+        if v is not None:
+            argv_run += [flag, str(v)]
     buf = io.StringIO()
     sys.argv = argv_run
     t1 = time.time()
@@ -107,18 +173,26 @@ def main(argv=None):
         runner.main()
     text = buf.getvalue()
     slam = watch["slam"]
-    gba = slam.loop_closer.gba_async
+    lc = slam.loop_closer
+    gba = lc.gba_async if lc is not None else None
     ts, pos = slam.get_trajectory()
     gt = datasets.load_groundtruth_euroc(a.seq)
     ate_full = ate_rmse(ts, pos, gt[0], gt[1], with_scale=True)
     ate = re.search(r"ATE RMSE: ([0-9.]+) m", text)
     first_ok = next((k for k, s in enumerate(watch["states"]) if s == "OK"), None)
-    out = dict(frames=a.frames, t_loop=a.t_loop, sync_mapping=a.sync_mapping, digest=digest,
+    ia, ib = associate(ts, gt[0])
+    out = dict(frames=a.frames, t_loop=a.t_loop, mode=a.mode, sync_mapping=a.sync_mapping,
+               no_loop=a.no_loop, c13=a.c13, digest=digest,
                ate=ate_full, ate_printed=float(ate.group(1)) if ate else None,
+               ate_se3=ate_rmse(ts, pos, gt[0], gt[1], with_scale=False),
+               scale=float(umeyama(pos[ia], gt[1][ib], with_scale=True)[0]),
+               **vi, refine=watch["refine"], n_kf_per_frame=watch["n_kf"],
+               states=watch["states"],
                loop_frames=watch["loops"],
-               n_loops=slam.loop_closer.n_loops_closed,
+               n_loops=lc.n_loops_closed if lc is not None else 0,
                merges=slam.multimap.n_merges if slam.multimap else 0,
-               n_kf=slam.store.n_kf, gba_finished=gba.n_finished, gba_aborted=gba.n_aborted,
+               n_kf=slam.store.n_kf, gba_finished=gba.n_finished if gba else 0,
+               gba_aborted=gba.n_aborted if gba else 0,
                gba_path="dense" if jba.auto_dense_schur(slam.store.state.Kmax,
                                                         slam.store.state.Pmax) else "pcg", first_ok=first_ok,
                not_ok_after_init=[k for k, s in enumerate(watch["states"])

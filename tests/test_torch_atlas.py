@@ -487,7 +487,7 @@ def test_inertial_weld_matches_jax():
     jsys = JSystem(JSensor.IMU_MONOCULAR, jcam.CameraModel.PINHOLE, np.float32(params), (640, 480),
                    Kmax=32, Pmax=1024, imu_calib=jimu.ImuCalib.create(*calib))
     psys = System(Sensor.IMU_MONOCULAR, cam.CameraModel.PINHOLE, params, (640, 480),
-                  device="cpu", Kmax=32, Pmax=1024, imu_calib=imu.ImuCalib.create(*calib))
+                  device="cpu", Kmax=32, Pmax=1024, imu_calib=imu.ImuCalib.create(*calib, device="cpu"))
     out = {}
     for name, sysm, store, pre in (
             ("jax", jsys, target, preints),

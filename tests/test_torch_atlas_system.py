@@ -70,7 +70,7 @@ def test_gap_init_stores_the_map_with_the_atlas(atlas):
     calib_args = (np.eye(3), np.zeros(3), 1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0)
     voc = MS_voc()
     port = System(Sensor.IMU_MONOCULAR, cam.CameraModel.PINHOLE, PARAMS, (W, H), device="cpu",
-                  Kmax=32, Pmax=4096, imu_calib=imu.ImuCalib.create(*calib_args))
+                  Kmax=32, Pmax=4096, imu_calib=imu.ImuCalib.create(*calib_args, device="cpu"))
     jax_ = JSystem(JSensor.IMU_MONOCULAR, jcam.CameraModel.PINHOLE, _jax_params(), (W, H),
                    Kmax=32, Pmax=4096, imu_calib=jimu.ImuCalib.create(*calib_args))
     if atlas:

@@ -31,7 +31,7 @@ def calibs(seed=0):
     Rbc = np.asarray(lie_t.exp_so3(torch.tensor(rng.normal(0, 0.1, 3), dtype=torch.float32)))
     tbc = rng.normal(0, 0.05, 3)
     return (imu_j.ImuCalib.create(Rbc, tbc, **NOISE),
-            imu_t.ImuCalib.create(Rbc, tbc, **NOISE))
+            imu_t.ImuCalib.create(Rbc, tbc, **NOISE, device="cpu"))
 
 
 def samples(seed, n=11):

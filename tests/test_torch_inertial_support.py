@@ -34,7 +34,7 @@ def _extrinsics():
 
 
 def _calibs(Rbc, tbc):
-    return imu_j.ImuCalib.create(Rbc, tbc, *NOISE), imu_t.ImuCalib.create(Rbc, tbc, *NOISE)
+    return imu_j.ImuCalib.create(Rbc, tbc, *NOISE), imu_t.ImuCalib.create(Rbc, tbc, *NOISE, device="cpu")
 
 
 def test_queue_and_preintegrate_window():
@@ -214,3 +214,35 @@ def test_try_initialize_and_refine_scale(gate):
     assert it.initialized
     compare("refine")
     assert abs(it.applied_transform[1] - 1.0) < 0.02
+
+
+@pytest.mark.parametrize("drift", [1.0, 1.03])
+def test_later_scale_refinements(drift):
+    """The second and third `refine_scale` calls on a map whose first
+    refinement ran, each from the same map in both packages (the port's
+    store copied into the JAX one before the call), after a scale drift of
+    the map (keyframe translations and points times `drift`): the applied
+    scale (about 1 / drift) and gravity rotation, and the moved keyframe
+    poses, velocities and points within 1e-4 of the reference's."""
+    store_j, store_t, pre_j, pre_t, Rbc, tbc = _chain_stores(3)
+    cj, ct = _calibs(Rbc, tbc)
+    ij, it = is_j.ImuInitializer(cj), is_t.ImuInitializer(ct)
+    assert ij.try_initialize(store_j, pre_j, Rbc, tbc) and it.try_initialize(store_t, pre_t,
+                                                                             Rbc, tbc)
+    assert ij.refine_scale(store_j, pre_j, Rbc, tbc) and it.refine_scale(store_t, pre_t, Rbc, tbc)
+    for call in (2, 3):
+        s = store_t.state
+        store_t.state = s._replace(kf_t=s.kf_t * drift, mp_pos=s.mp_pos * drift)
+        store_j.state = st_j.MapState(**{k: jnp.asarray(v.numpy())
+                                         for k, v in store_t.state._asdict().items()})
+        ij.applied_transform = it.applied_transform = None
+        assert ij.refine_scale(store_j, pre_j, Rbc, tbc) and it.refine_scale(store_t, pre_t,
+                                                                             Rbc, tbc)
+        (Rj, sj), (Rt, s_t) = ij.applied_transform, it.applied_transform
+        assert abs(s_t - sj) < 1e-4 and abs(s_t * drift - 1) < 0.01, (call, s_t, sj)
+        np.testing.assert_allclose(Rt, Rj, atol=1e-4)
+        for name in ("kf_R", "kf_t", "kf_vel", "kf_bias_g", "kf_bias_a", "mp_pos"):
+            np.testing.assert_allclose(getattr(store_t.state, name).numpy(),
+                                       np.asarray(getattr(store_j.state, name)), atol=1e-4,
+                                       err_msg=f"call {call} {name}")
+        drift = 1.0 + (drift - 1.0) / 2

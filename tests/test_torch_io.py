@@ -14,8 +14,17 @@ against the JAX package's. Every comparison is exact.
   KITTI with a right camera, TUM RGB-D with associations and 16-bit depth,
   TUM-VI);
 * `write_euroc` (through `entry.write_euroc_sequence`) writes the files of
-  `make_synth_euroc.py`, and `sequence_digest` names both alike;
-* `build_vocabulary` array for array, and an npz the JAX `load_npz` reads.
+  `make_synth_euroc.py`, also its `--stereo` and `--fisheye` (TUM-VI) pairs,
+  and `sequence_digest` names both alike;
+* the 16-bit grey encode round-trips through `png.imread` and `cv2.imread`;
+  `write_kitti`, `write_tum_rgbd` and the other layouts of
+  `write_euroc_sequence` load through the JAX package's loaders into the
+  timestamps and pixels written;
+* `build_vocabulary` array for array, and an npz the JAX `load_npz` reads;
+* `entry.euroc_frames`' in-process cache: a prefix, an extension, the IMU
+  stream after an extension, blind and kidnapped variants that take the
+  plain sequence's first frames, and a `save_frames` / `load_frames` round
+  trip each equal a fresh render in an emptied cache (`clear_frames`).
 """
 
 import dataclasses
@@ -142,6 +151,23 @@ def test_opencv_reads_the_ports_pngs(tmp_path):
     enc = png.encode(np.zeros((4, 4), np.uint8), text={"state": "OK  kp=3"})
     assert b"tEXtstate\x00OK  kp=3" in enc
     np.testing.assert_array_equal(cv2.imdecode(np.frombuffer(enc, np.uint8), -1), 0)
+
+
+@pytest.mark.parametrize("shape", [(7, 11), (480, 752), (1, 3)])
+def test_png_16_bit_grey_round_trips(tmp_path, shape):
+    rng = np.random.default_rng(shape[0])
+    img = rng.integers(0, 65536, shape).astype(np.uint16)
+    img.flat[:2] = (0, 65535)
+    path = str(tmp_path / "d.png")
+    png.imwrite(path, img)
+    for read in (png.imread, cv2.imread):
+        got = read(path, cv2.IMREAD_UNCHANGED)
+        assert got.dtype == np.uint16
+        np.testing.assert_array_equal(got, img)
+    np.testing.assert_array_equal(png.imread(path, png.IMREAD_GRAYSCALE),
+                                  cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+    ok, buf = cv2.imencode(".png", img)
+    np.testing.assert_array_equal(png.decode(bytes(buf), png.IMREAD_UNCHANGED), img)
 
 
 def test_png_refuses_what_it_does_not_read(tmp_path):
@@ -283,11 +309,85 @@ def test_writer_matches_make_synth_euroc(tmp_path):
     assert ds_t.sequence_digest(str(ref)) == ds_t.sequence_digest(str(got))
 
 
+@pytest.mark.parametrize("pair", ["stereo", "fisheye"])
+def test_pair_writer_matches_make_synth_euroc(tmp_path, pair):
+    """2 frames of the script's `--stereo` and `--fisheye` (the TUM-VI layout):
+    the same CSV and settings files byte for byte, the same pixels in cam0
+    and cam1."""
+    ref, got = tmp_path / "script", tmp_path / "port"
+    subprocess.run([sys.executable, str(REPO / "scripts" / "make_synth_euroc.py"), str(ref),
+                    "--frames", "2", f"--{pair}"], check=True, capture_output=True)
+    E.write_euroc_sequence(str(got), 2, 0, imu=True, **{pair: True})
+    for rel in ("settings.yaml", "mav0/cam0/data.csv", "mav0/cam1/data.csv",
+                "mav0/imu0/data.csv", "mav0/state_groundtruth_estimate0/data.csv"):
+        assert (ref / rel).read_bytes() == (got / rel).read_bytes(), rel
+    for cam in ("cam0", "cam1"):
+        names = sorted(os.listdir(ref / "mav0" / cam / "data"))
+        assert names == sorted(os.listdir(got / "mav0" / cam / "data")) and len(names) == 2
+        for name in names:
+            np.testing.assert_array_equal(cv2.imread(str(got / "mav0" / cam / "data" / name), -1),
+                                          cv2.imread(str(ref / "mav0" / cam / "data" / name), -1))
+    assert ds_t.sequence_digest(str(ref)) == ds_t.sequence_digest(str(got))
+
+
+def test_writers_load_through_reference(tmp_path):
+    """Each new layout, read by the JAX package's loaders: the timestamps and
+    pixels written (the depth as metres x DepthMapFactor, rounded), and the
+    port's loaders read the same."""
+    rng = np.random.default_rng(4)
+    imgs = rng.integers(0, 256, (3, 12, 16)).astype(np.uint8)
+    right = rng.integers(0, 256, (3, 12, 16)).astype(np.uint8)
+    ts = [0.0, 0.05, 0.1]
+    kitti = str(tmp_path / "kitti")
+    ds_t.write_kitti(kitti, ts, imgs, right=right)
+    seq = ds_j.load_kitti(kitti)
+    np.testing.assert_array_equal(seq.timestamps, ts)
+    for k in range(3):
+        np.testing.assert_array_equal(seq.read(k), imgs[k])
+        np.testing.assert_array_equal(seq.read_right(k), right[k])
+    _same_seq(ds_t.load_kitti(kitti), seq)
+    depth = rng.uniform(0.3, 12.0, (3, 12, 16)).astype(np.float32)
+    depth[0, 0, :4] = (0.0, -1.0, np.inf, np.nan)  # no measurement
+    tum = str(tmp_path / "tum")
+    assoc = ds_t.write_tum_rgbd(tum, ts, imgs, depth)
+    seq = ds_j.load_tum_rgbd(tum, assoc)
+    np.testing.assert_array_equal(seq.timestamps, ts)
+    for k in range(3):
+        np.testing.assert_array_equal(seq.read(k), imgs[k])
+        raw = seq.read_depth(k)
+        ok = np.isfinite(depth[k]) & (depth[k] > 0)
+        np.testing.assert_array_equal(raw[ok], np.round(depth[k][ok].astype(np.float64) * 5000))
+        assert (raw[~ok] == 0).all()
+        np.testing.assert_array_equal(ds_t.load_tum_rgbd(tum, assoc).read_depth(k), raw)
+    _same_seq(ds_t.load_tum_rgbd(tum, assoc), seq)
+    for layout, kw in (("kitti", {}), ("tumrgbd", dict(depth=True)), ("euroc", dict(imu=True)),
+                       ("kitti", dict(stereo=True))):
+        out = str(tmp_path / f"{layout}_{len(kw)}_{sorted(kw)}")
+        E.write_euroc_sequence(out, 2, 0, layout=layout, **kw)
+        frames = E.euroc_frames(2, 0, **kw)
+        left = frames[1][:, 0] if kw.get("stereo") else frames[1]
+        seq = {"kitti": lambda: ds_j.load_kitti(out),
+               "tumrgbd": lambda: ds_j.load_tum_rgbd(out, os.path.join(out, "associations.txt")),
+               "euroc": lambda: ds_j.load_euroc_images(out)}[layout]()
+        want_ts = frames[0] if layout != "euroc" else (
+            np.asarray([E.START_NS + int(round(t * 1e9)) for t in frames[0]]) * 1e-9)
+        np.testing.assert_allclose(seq.timestamps, want_ts, rtol=0, atol=1e-9)
+        for k in range(2):
+            np.testing.assert_array_equal(seq.read(k), left[k])
+            if kw.get("stereo"):
+                np.testing.assert_array_equal(seq.read_right(k), frames[1][k, 1])
+            if kw.get("depth"):
+                np.testing.assert_array_equal(seq.read_depth(k),
+                                              np.round(frames[3][k].astype(np.float64) * 5000))
+        assert cfg_t.load_settings(os.path.join(out, "settings.yaml")).camera.depth_map_factor \
+            == (5000.0 if kw.get("depth") else 1.0)
+
+
 def test_build_vocabulary_matches_reference(tmp_path):
     rng = np.random.default_rng(1)
     desc = rng.integers(0, 256, (600, 32)).astype(np.uint8)
     ref = bow_j.build_vocabulary(desc, k=4, depth=3, seed=2)
-    got = bow_t.build_vocabulary(desc, k=4, depth=3, seed=2)
+    got = bow_t.build_vocabulary(desc, k=4, depth=3, seed=2, device="cpu")
     for f in ("node_desc", "node_children", "node_word", "word_weight"):
         np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f)))
     assert (got.depth, got.k) == (ref.depth, ref.k)
@@ -296,3 +396,57 @@ def test_build_vocabulary_matches_reference(tmp_path):
     back = bow_j.load_npz(path)
     for f in ("node_desc", "node_children", "node_word", "word_weight"):
         np.testing.assert_array_equal(np.asarray(getattr(back, f)), getattr(got, f).numpy())
+
+
+def _same_frames(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        for x, y in zip(a, b) if isinstance(a, tuple) else ((a, b),):  # the IMU stream's arrays
+            np.testing.assert_array_equal(x, y)
+
+
+def _fresh(n, **kw):
+    E.clear_frames()
+    return E.euroc_frames(n, 0, **kw)
+
+
+def test_euroc_frames_cache_equals_a_fresh_render():
+    """Each sequence `euroc_frames` serves from its cache is the one a fresh
+    render of the same arguments gives."""
+    lap = dict(t_loop=16.0)
+    E.clear_frames()
+    served = {}
+    served[3, None] = E.euroc_frames(3, 0, **lap)
+    served[5, None] = E.euroc_frames(5, 0, **lap)  # renders frames 3 and 4 only
+    served[2, None] = E.euroc_frames(2, 0, **lap)  # a prefix
+    served[6, "imu"] = E.euroc_frames(6, 0, imu=True, **lap)  # the IMU after an extension
+    variants = {"blind": dict(blind=(2, 2)), "kidnap": dict(kidnap=(3, 40))}
+    for v, kw in variants.items():  # rendered after the plain sequence: they take its frames
+        served[6, v] = E.euroc_frames(6, 0, **kw, **lap)
+        key = E._Sequence.key_of(0, **kw, **lap)
+        assert E._SEQUENCES[key].imgs[0] is E._SEQUENCES[E._Sequence.key_of(0, **lap)].imgs[0]
+    served[7, "kidnap"] = E.euroc_frames(7, 0, kidnap=(3, 40), **lap)  # extends an adopted one
+    for (n, v), got in served.items():
+        kw = dict(lap, **variants.get(v, {}), imu=v == "imu")
+        _same_frames(got, _fresh(n, **kw))
+    E.clear_frames()
+
+
+def test_save_frames_round_trip(tmp_path):
+    """`load_frames` serves what `save_frames` wrote, at exactly its length
+    and without an IMU stream; other arguments render as before."""
+    path, kw = str(tmp_path / "lap.npz"), dict(t_loop=16.0, blind=(1, 2))
+    E.clear_frames()
+    E.save_frames(path, 4, 0, **kw)
+    want = _fresh(4, **kw)
+    plain = _fresh(4, t_loop=16.0)
+    E.clear_frames()
+    E.load_frames(path)
+    _same_frames(E.euroc_frames(4, 0, **kw), want)
+    for n, imu in ((3, False), (5, False), (4, True)):
+        with pytest.raises(ValueError, match="exactly 4 frames"):
+            E.euroc_frames(n, 0, imu=imu, **kw)
+    _same_frames(E.euroc_frames(4, 0, t_loop=16.0), plain)
+    with pytest.raises(ValueError, match="no depth"):
+        E.save_frames(path, 2, 0, depth=True)
+    E.clear_frames()

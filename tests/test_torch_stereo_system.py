@@ -347,7 +347,8 @@ def test_stereo_and_rgbd_take_the_card_unless_asked_for_the_cpu(monkeypatch):
     Tlr = np.eye(4)
     Tlr[0, 3] = 0.12
     kb8 = np.array([160.0, 160.0, 160.0, 120.0, 0.0035, 0.0007, -0.002, 0.0002], np.float32)
-    calib = ImuCalib.create(np.eye(3), np.zeros(3), 1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0)
+    calib = ImuCalib.create(np.eye(3), np.zeros(3), 1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0,
+                           device="cpu")
     rig = dict(camera2=(kb8, Tlr, None, (10.0, 300.0)))
     builds = [(Sensor.STEREO, CameraModel.KB8, rig), (Sensor.IMU_STEREO, CameraModel.PINHOLE,
                                                        dict(bf=scene.BF, imu_calib=calib)),

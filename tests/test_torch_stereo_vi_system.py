@@ -127,7 +127,7 @@ def reference_run(fisheye: bool = True):
 
 def port_run(ref, fisheye: bool = True):
     """The port's System(IMU_STEREO) on the reference's features."""
-    calib = imu_t.ImuCalib.create(np.eye(3), np.zeros(3), **scene.NOISE)
+    calib = imu_t.ImuCalib.create(np.eye(3), np.zeros(3), **scene.NOISE, device="cpu")
     if fisheye:
         pl, c2 = scene.fisheye_rig()
         slam = System(Sensor.IMU_STEREO, CameraModel.KB8, pl, scene.FE_WH,

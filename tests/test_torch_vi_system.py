@@ -174,7 +174,7 @@ def port(ref):
 
 
 def _port_system(device="cpu", calib=True):
-    c = imu_t.ImuCalib.create(np.eye(3), np.zeros(3), **scene.NOISE) if calib else None
+    c = imu_t.ImuCalib.create(np.eye(3), np.zeros(3), **scene.NOISE, device="cpu") if calib else None
     return System(Sensor.IMU_MONOCULAR, CameraModel.PINHOLE, scene.PARAMS, (scene.W, scene.H),
                   orb_params=feat_t.OrbParams(**ORB), device=device, Kmax=64, Pmax=8192,
                   imu_calib=c)
@@ -296,7 +296,7 @@ def test_imu_monocular_takes_the_card_unless_asked_for_the_cpu(monkeypatch):
         _port_system(device=None)
     with pytest.raises(ValueError, match="imu_calib"):
         _port_system(calib=False)
-    c = imu_t.ImuCalib.create(np.eye(3), np.zeros(3), **scene.NOISE)
+    c = imu_t.ImuCalib.create(np.eye(3), np.zeros(3), **scene.NOISE, device="cpu")
     with pytest.raises(ValueError, match="imu_calib"):
         System(Sensor.IMU_STEREO, CameraModel.PINHOLE, scene.PARAMS, (scene.W, scene.H),
                device="cpu", bf=30.0)
