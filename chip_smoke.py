@@ -68,8 +68,9 @@ its first 12 frames kernels vs plain) and raw stereo
 the CPU's, every frame OK, the SE3 ATE under phase 11's gate).
 
 Phase 13 drives the mono-inertial `System` (config 3: `entry.replay(cuda,
-"mono_vi", N_VI)`, IMU_MONOCULAR at full width with the synthetic sequence's
-200 Hz IMU) long enough to pass the IMU initialization and VIBA1: the IMU
+"mono_vi", N_VI, n_track=N_VI_TRACK)`, IMU_MONOCULAR at full width with the
+synthetic sequence's 200 Hz IMU) just past the IMU initialization and VIBA1
+(phases 19b and 20 carry config 3 further): the IMU
 initialized within 2 keyframes of the JAX `System`'s keyframe count at its
 initialization, VIBA1 run, no frame lost after the map's initialization,
 the SE3 and Sim3 ATE each under max(2 x the JAX `System`'s on the same
@@ -201,6 +202,40 @@ initialization and 4 after; it prints the syncs and ms per frame kind and
 the ms of the frames of the IMU initialization, VIBA1, VIBA2 and each
 refinement, with the card's name and power limit.
 
+Phase 20 runs the inertial Atlas: config 3 (IMU_MONOCULAR, 200 Hz IMU) with
+place recognition and the Atlas on phase 15's 16 s lap, its lens covered for
+frames 100-209 (`entry.replay(cuda, "mono_vi", MMVI_FRAMES, vocabulary=...,
+t_loop=16, multimap=True, blind=MMVI_BLIND, n_track=MMVI_TRACK)`), against
+the JAX `System` on the same lap (`tests/jax_multimap_lap.py --mode mono-vi
+--track MMVI_TRACK`): map 0's IMU initialization within 2 keyframes of
+JAX's and map 0 stored within 2 frames of JAX's frame; map 1's IMU
+initialization within 2 keyframes of JAX's; a
+merge within 2 keyframes of JAX's (the active map's count) with `imu_metric`
+true, s in (0.9, 1.1) and the gated rotation yaw only (the x and y of its log
+below 1e-6), the weld through `_local_inertial_ba` over 16 keyframes and the
+graph 4-DoF; the post-merge GBA finished; every frame OK from map 1's
+initialization apart from the blind frames and those JAX also loses; the
+pose-inertial result on >= 80% of the frames after each map's IMU
+initialization; SE3 and Sim3 ATE over the frames that are not blind under
+max(2 x JAX's, 0.01 m) and the Sim3 scale within max(2 x |1 - JAX's|, 0.02)
+of 1; 2 host syncs per tracked frame before a map's IMU initialization and
+4 after. At the merging keyframe `_merge_sim3`, `merge_maps`, the weld fuse,
+the inertial weld BA and the 4-DoF graph run again on copies of the two maps
+and their preintegrations, through the kernels and through the plain
+versions (the same matches and outcome; poses, velocities, biases and points
+within 1e-4; exact on the card), then from the same inputs copied to the
+CPU at its threads and at one thread: the Sim3, poses, velocities and
+biases within 1e-4 of the card's, the points within max(1e-4, 2 x the two
+CPU runs' distance) (fault C19: no float32 solve of the weld holds its
+points to 1e-4); a prefix from the map's initialization through
+MMVI_PREFIX frames after it is equal through the kernels and the plain
+versions. It prints the IMU prediction's distance from the tracked pose on
+the frame after the merge and the largest elsewhere (fault C20), ms and
+syncs per
+frame kind (blind, RECENTLY_LOST and LOST frames their own kinds), the
+merging frame's split by span with host clock and CUDA events, B1's
+launches per site and B2's, with the card's name and power limit.
+
 Every run prints how many CUDA graphs the pose solves captured and
 replayed (`optim.graphed`), and the wall time of each phase and of the
 whole script.
@@ -218,7 +253,8 @@ the same inputs.
 
 builds the kernels and runs phase 15 alone (its record holds B1's rows of
 that phase only); `--only 16`, `--only 17` and `--only 19` do the same for
-those, and `--only 18` runs phase 15 (18b's one-device side), then phase 18.
+those and `--only 20` for phase 20, and `--only 18` runs phase 15 (18b's one-device side),
+then phase 18.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -311,20 +347,23 @@ SCALE_TOL = 0.02  # |scale - 1|, the gate of tests/test_stereo_at_scale.py
 
 # Phase 13: the mono-inertial System (config 3). The JAX `System` on the same
 # frames on a CPU, with fault C13 repaired in its Tracker as in the port
-# (`python tests/jax_vi_replay.py --frames 160 --c13`): the IMU initialized at
-# frame 44 with 10 keyframes, VIBA1 at frame 104 (5.2 s), every frame OK after
-# the map's initialization (frame 3), 22 keyframes and 1620 points at the
-# end, SE3 ATE 0.018918 m, Sim3 ATE 0.017981 m, Sim3 scale 1.009804 over 158
-# poses. Unrepaired, it loses track on the frame after each IMU initialization
-# and never reaches VIBA1. N_VI = 160 (8 s): at least 140 and VIBA1's frame
-# plus 20.
+# (`python tests/jax_vi_replay.py --frames 160 --track 112 --c13`, 554 s): the
+# IMU initialized at frame 44 with 10 keyframes, VIBA1 at frame 104 (5.2 s),
+# every frame OK after the map's initialization (frame 3), 16 keyframes and
+# 1302 points at the end, SE3 ATE 0.020243 m, Sim3 ATE 0.020158 m, Sim3 scale
+# 1.004185 over 110 poses. Unrepaired, it loses track on the frame after each
+# IMU initialization and never reaches VIBA1. The sequence is N_VI = 160
+# frames (8 s; its IMU noise is drawn after all its images, so the length
+# fixes it); the first N_VI_TRACK are tracked, just past VIBA1: phases 19b and
+# 20 carry config 3 further.
 N_VI = 160
+N_VI_TRACK = 112
 JAX_VI_INIT_FRAME = 44
 JAX_VI_INIT_KFS = 10
 JAX_VI_VIBA1_FRAME = 104
-JAX_VI_ATE_SE3 = 0.018918
-JAX_VI_ATE_SIM3 = 0.017981
-JAX_VI_SCALE = 1.009804
+JAX_VI_ATE_SE3 = 0.020243
+JAX_VI_ATE_SIM3 = 0.020158
+JAX_VI_SCALE = 1.004185
 VI_ATE_SE3_GATE = max(2 * JAX_VI_ATE_SE3, 0.01)
 VI_ATE_SIM3_GATE = max(2 * JAX_VI_ATE_SIM3, 0.01)
 VI_SCALE_TOL = max(2 * abs(1 - JAX_VI_SCALE), 0.02)
@@ -1076,7 +1115,8 @@ def phase13_mono_inertial(dev) -> dict:
     t0 = time.perf_counter()
     try:
         with _b1_calls([], keep_args=False) as calls:
-            rep = E.replay(dev, "mono_vi", N_VI, on_frame=_vi_recorder(rec_k))
+            rep = E.replay(dev, "mono_vi", N_VI, on_frame=_vi_recorder(rec_k),
+                           n_track=N_VI_TRACK)
     finally:
         vi.solve_vi_ba = solve
     wall_s = time.perf_counter() - t0
@@ -1103,11 +1143,11 @@ def phase13_mono_inertial(dev) -> dict:
     check(rep.ate <= VI_ATE_SIM3_GATE, f"phase 13: Sim3 ATE {rep.ate} m above {VI_ATE_SIM3_GATE} m")
     check(abs(rep.scale - 1) <= VI_SCALE_TOL, f"phase 13: Sim3 scale {rep.scale}, tolerance "
           f"{VI_SCALE_TOL}")
-    after = [k for k in range(rep.imu_init_frame + 1, N_VI) if states[k] == "OK"]
+    after = [k for k in range(rep.imu_init_frame + 1, N_VI_TRACK) if states[k] == "OK"]
     share = sum(rep.pi_taken[k] for k in after) / max(len(after), 1)
     check(after and share >= 0.8, f"phase 13: pose-inertial result taken on {share:.4f} of "
           f"{len(after)} tracked frames after the IMU initialization")
-    check(all(n == 1 for n in rep.b2) and launches["fast_nms"] == N_VI,
+    check(all(n == 1 for n in rep.b2) and launches["fast_nms"] == N_VI_TRACK,
           f"phase 13: B2 launches per frame {sorted(set(rep.b2))}")
     by_kind = _inertial_by_kind(rep)
     for kind, want in (("tracked before IMU init", Tracker.HOST_SYNCS_PER_FRAME),
@@ -1115,12 +1155,13 @@ def phase13_mono_inertial(dev) -> dict:
         got = sorted(set(n for n, _ in by_kind.get(kind, [])))
         check(got == [want], f"phase 13: host syncs per {kind} frame {got}, documented {want}")
     med = statistics.median
-    print(f"phase 13 mono-inertial: {N_VI} frames at 752x480, 1000 features, 200 Hz IMU; "
+    print(f"phase 13 mono-inertial: the first {N_VI_TRACK} of {N_VI} frames at 752x480, 1000 "
+          f"features, 200 Hz IMU; "
           f"pose-inertial result taken on {share:.4f} of the {len(after)} tracked frames after "
           f"the IMU initialization ({sum(rep.pi_taken)} frames); SE3 ATE {rep.ate_se3:.6f} m "
           f"(gate {VI_ATE_SE3_GATE:.6f} m: 2 x the JAX System's {JAX_VI_ATE_SE3} m, or 0.01), "
           f"Sim3 ATE {rep.ate:.6f} m (gate {VI_ATE_SIM3_GATE:.6f} m), scale {rep.scale:.5f} "
-          f"(tolerance {VI_SCALE_TOL:.4f}); {N_VI / (sum(rep.ms) / 1e3):.2f} frames/s "
+          f"(tolerance {VI_SCALE_TOL:.4f}); {N_VI_TRACK / (sum(rep.ms) / 1e3):.2f} frames/s "
           f"({wall_s:.1f} s wall, {rep.render_s:.1f} s of rendering)")
     print("phase 13 host syncs and ms per frame kind: " + "; ".join(
         f"{kind} {len(v)} frames, syncs median {med([n for n, _ in v])} (max "
@@ -1145,7 +1186,8 @@ def phase13_mono_inertial(dev) -> dict:
           f"{peak} bytes above the map); local inertial BA {lP} x {lK} = "
           f"{vi.coupling_bytes(lP, lK)} bytes (peak {lpeak}); {len(solves)} solves")
     print(f"phase 13 launches on the main path {launches}; per frame B2 {sorted(set(rep.b2))}, "
-          f"B1 median {med(rep.b1)} (max {max(rep.b1)}) over {N_VI} frames; B1 by call {sites}")
+          f"B1 median {med(rep.b1)} (max {max(rep.b1)}) over {N_VI_TRACK} frames; B1 by call "
+          f"{sites}")
 
     print(f"phase 13 kernels vs plain prefix: "
           f"{_same_vi_prefix(dev, 'mono_vi', N_VI, rep, rec_k, 'phase 13')}")
@@ -2534,6 +2576,423 @@ def phase18b_config5(dev, card: str, p15: dict) -> dict:
     return dict(ranks=ranks, launches=launches, wall_s=wall_s)
 
 
+# Phase 20: the inertial Atlas. Config 3 (IMU_MONOCULAR, `EUROC_MONO_VI`, 200 Hz IMU) with
+# place recognition and the Atlas on phase 15's 16 s lap, its lens covered for frames
+# 100-209 (phase 15 covers 80-189: at frame 80 the port's map 0, started 11 frames after
+# JAX's by the two-view draws (C16), holds 10 keyframes, and a map of 10 is reset, not
+# stored): map 0's IMU initializes, the tracker spends 5 s RECENTLY_LOST on the IMU, map 0
+# is stored, map 1 initializes its own IMU and is merged back through the inertial gate.
+# The JAX System on the same lap on a CPU (`JAX_PLATFORMS=cpu python
+# tests/jax_multimap_lap.py --mode mono-vi --t-loop 16 --frames 420 --track 360
+# --blind-at 100 --blind-n 110`, 1926 s on 8 cores): map 0's IMU initialized at frame 64
+# with 10 keyframes, map 0 stored at frame 205 with 19; map 1 from frame 212, its IMU at
+# frame 252 with 10 keyframes; merged at frame 311 (keyframe 27 of the 28-keyframe map onto
+# 1, imu_metric, s 0.953080, the rotation yaw only, the inertial weld over 16 keyframes, the
+# 4-DoF graph); no frame lost after map 1's initialization; 2 GBA runs finished; SE3 ATE
+# 0.067729 m, Sim3 0.055033 m, scale 0.982491 over the frames that are not blind. (All 420
+# frames, 2025 s: the same events, SE3 ATE 0.067225 m.)
+MMVI_FRAMES = 420
+MMVI_TRACK = 360  # frames tracked: the merge and its GBA, without the lap's last 60 frames
+MMVI_BLIND = (100, 110)  # frames 100-209: a uniform grey 35 image
+MMVI_PREFIX = 20  # frames after the map's initialization in the kernels-vs-plain prefix
+JAX_MMVI_IMU = ((64, 10), (252, 10))  # per map: (IMU init frame, its keyframes)
+JAX_MMVI_STORED = (205, 19)  # frame, keyframes of the stored map
+JAX_MMVI_MERGE = (311, 28, 27, 1)  # frame, keyframes of the active map, the keyframe pair
+JAX_MMVI_S = 0.953080  # the merge's solved scale
+JAX_MMVI_LOST = ()  # frames after map 1's initialization, not blind, that JAX's ended not OK
+JAX_MMVI_ATE_SE3 = 0.067729
+JAX_MMVI_ATE = 0.055033
+JAX_MMVI_SCALE = 0.982491
+MM_FLOATS = ("kf_R", "kf_t", "kf_vel", "kf_bias_g", "kf_bias_a", "mp_pos")
+
+
+def _store_to(store, device):
+    """A copy of a `MapStore` on `device` (host bookkeeping its own)."""
+    c = _clone_store(store)
+    c.state = type(store.state)(*(x.to(device) for x in c.state))
+    c.device = torch.device(device)
+    return c
+
+
+def _merge_again(mm, m0: dict, device, samples=None) -> dict:
+    """The merge at `m0` (captured by phase 20 before `_do_merge`) run again on
+    copies of its two maps on `device` through `mm`: `_merge_sim3` (its
+    RANSAC draws `samples` when given, else its own; the draws are kept),
+    then from the lap's world Sim3 (as phase 15 does: a point 100 m out
+    turns float32 rounding of the Sim3 into 1e-3 m) `merge_maps`, the weld
+    fuse, and `_weld_and_distribute` (the weld BA, the essential graph) with
+    the mapper's preintegrations copied and re-keyed as `_do_merge` re-keys
+    them. The map after each stage is kept."""
+    from orbslam3_tpu_torch.ops import imu as imu_ops
+    from orbslam3_tpu_torch.ops import ransac
+    from orbslam3_tpu_torch.pipeline import map_merging
+
+    act, tgt = _store_to(m0["act"], device), _store_to(m0["tgt"], device)
+    v0 = m0["verify"]
+    draw, drawn = ransac._draw, []
+
+    def recording(valid, n_hyp, k, generator, given):
+        idx = draw(valid, n_hyp, k, generator,
+                   given if samples is None else samples.to(valid.device))
+        drawn.append(idx.clone())
+        return idx
+
+    ransac._draw = recording
+    try:
+        S = mm._merge_sim3(act, tgt, v0["kf"], v0["cand"])
+    finally:
+        ransac._draw = draw
+    out = dict(S=S, v=dict(mm.last_verify), samples=drawn[0] if drawn else None)
+    if S is None:
+        return out
+    kf_remap, _ = map_merging.merge_maps(tgt, act, m0["R"], m0["t"], m0["s"])
+    mm._weld_fuse(tgt, list(kf_remap.values()), m0["pre"])
+    stages = {"merge maps + weld fuse": _clone(tgt.state)}
+    mapper = mm.system.mapper
+    saved = mapper.preints
+    mapper.preints = {kf_remap[k]: imu_ops.Preintegrated(*(x.to(device) for x in p))
+                      for k, p in m0["preints"].items() if k in kf_remap}
+    weld_ba = mapper._local_inertial_ba
+
+    def snapshot(*a, **kw):
+        weld_ba(*a, **kw)
+        stages["weld BA"] = _clone(mapper.store.state)
+
+    mapper._local_inertial_ba = snapshot
+    try:
+        mm._weld_and_distribute(tgt, kf_remap.get(m0["ref_kf"], max(kf_remap.values())))
+    finally:
+        mapper.preints = saved
+        del mapper._local_inertial_ba
+    stages["essential graph"] = tgt.state
+    out.update(tgt=tgt, weld=dict(mm.last_weld), n_preints=len(kf_remap), stages=stages)
+    return out
+
+
+def _same_merge(a: dict, b: dict, what: str, points_tol: float = 1e-4) -> tuple:
+    """Gate two runs of `_merge_again`: the same matches, Sim3 inliers and
+    weld; the Sim3, and every pose, velocity and bias within 1e-4, every
+    point within `points_tol`; `kf_mp` equal. Returns (Sim3 difference, the
+    largest difference but the points', by stage {stage: {field: difference}})."""
+    va, vb = a["v"], b["v"]
+    check(a["S"] is not None and b["S"] is not None, f"{what}: the merge did not verify again")
+    check(np.array_equal(va["valid"], vb["valid"])
+          and np.array_equal(va["idx"][va["valid"]], vb["idx"][vb["valid"]])
+          and va["sim3_inliers"] == vb["sim3_inliers"] and a["weld"] == b["weld"],
+          f"{what}: matches {va['matches']} / {vb['matches']}, Sim3 inliers "
+          f"{va['sim3_inliers']} / {vb['sim3_inliers']}, weld {a['weld']} / {b['weld']}")
+    dS = max(float(np.abs(np.asarray(x) - np.asarray(y)).max()) for x, y in zip(a["S"], b["S"]))
+    sa, sb = a["tgt"].state, b["tgt"].state
+    check(torch.equal(sa.kf_mp.cpu(), sb.kf_mp.cpu()) and torch.equal(sa.mp_valid.cpu(),
+                                                                         sb.mp_valid.cpu()),
+          f"{what}: kf_mp rows or point validity differ")
+    kf, mp = sa.kf_valid.cpu(), sa.mp_valid.cpu()
+    by_stage = {}
+    for stage, xa in a["stages"].items():
+        xb = b["stages"][stage]
+        by_stage[stage] = {f: float((getattr(xa, f).cpu()[mp if f == "mp_pos" else kf]
+                                     - getattr(xb, f).cpu()[mp if f == "mp_pos" else kf])
+                                    .abs().max()) for f in MM_FLOATS}
+    end = by_stage["essential graph"]
+    dW = max(v for f, v in end.items() if f != "mp_pos")
+    check(dS <= 1e-4 and dW <= 1e-4 and end["mp_pos"] <= points_tol,
+          f"{what}: Sim3 within {dS}, poses, velocities and biases within {dW}, points within "
+          f"{end['mp_pos']} (tolerance {points_tol}); by stage {by_stage}")
+    return dS, dW, by_stage
+
+
+def _mmvi_kinds(rep, merge_frame: int, ms: list, captures: set) -> dict:
+    """{frame kind: [(syncs, ms, frame)]}: blind frames, RECENTLY_LOST and LOST
+    frames, the merging frame, a tracked frame that captured a pose solve's
+    CUDA graph, and the other tracked frames split at their map's IMU
+    initialization."""
+    blind = range(MMVI_BLIND[0], sum(MMVI_BLIND))
+    by_kind = {}
+    for k, (kind, n_sync, m) in enumerate(zip(rep.frame_kinds(), rep.syncs, ms)):
+        imu = next(x for x in reversed(rep.imu_maps) if x["first_frame"] <= k)
+        if k in blind:
+            kind = "blind"
+        elif k == merge_frame:
+            kind = "merge"
+        elif rep.states[k] in ("RECENTLY_LOST", "LOST"):
+            kind = rep.states[k].lower().replace("_", " ")
+        elif kind == "tracked" and k in captures:
+            kind = "tracked, graph captured"
+        elif kind == "tracked":
+            after = imu["init"] is not None and k > imu["init"]
+            kind = "tracked after IMU init" if after else "tracked before IMU init"
+        by_kind.setdefault(kind, []).append((n_sync, m, k))
+    return by_kind
+
+
+def _window_recorder(into: dict, n: int):
+    """An `on_frame` that keeps each frame's associations and pose from the
+    first OK frame ("start") through n frames after it, and the map's
+    keyframe rows and points at the last of them."""
+    def on_frame(k, slam):
+        if "start" not in into and slam.tracking_state.name == "OK":
+            into["start"] = k
+        start = into.get("start")
+        if start is None or k > start + n:
+            return
+        f = slam.tracker.last_frame
+        into.setdefault("frames", []).append((f.mp_assoc.copy(), np.array(f.R), np.array(f.t)))
+        if k == start + n:
+            s = slam.store.state
+            into["map"] = {name: getattr(s, name).cpu().numpy() for name in (
+                "kf_valid", "kf_ur", "kf_mp", "kf_R", "kf_t", "mp_valid", "mp_pos")}
+    return on_frame
+
+
+def phase20_inertial_multimap(dev, card: str) -> dict:
+    """Phase 20: the inertial Atlas (`entry.replay(cuda, "mono_vi", MMVI_FRAMES,
+    vocabulary=VOC_100K, t_loop=MM_T_LOOP, multimap=True, blind=MMVI_BLIND,
+    n_track=MMVI_TRACK)`)
+    with the gates and lines of the module docstring. Returns the kernels'
+    launches on the main path and the B1 calls by site."""
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch import spans
+    from orbslam3_tpu_torch.ops import _build, cuda_fast, cuda_match
+    from orbslam3_tpu_torch.ops import imu as imu_ops
+    from orbslam3_tpu_torch.optim import graphed
+    from orbslam3_tpu_torch.pipeline import multimap as mm_mod
+    from orbslam3_tpu_torch.pipeline.tracking import Tracker
+
+    frame = [0]
+    found, extra_ms, gba_at_merge = {}, {}, []
+    orig_do_merge = mm_mod.MultiMapManager._do_merge
+    rec_k = {}
+    window = _window_recorder(rec_k, MMVI_PREFIX)
+    captures, graph_run = set(), graphed.run
+
+    def run_graph(*a, **kw):
+        n = graphed.CAPTURES
+        out = graph_run(*a, **kw)
+        if graphed.CAPTURES > n and spans._active is not None:
+            captures.add(spans._active.frame)
+        return out
+
+    def do_merge(self, act, target, R, t, s):
+        if "merge" not in found:  # copies of both maps for the re-runs
+            sysm = self.system
+            with _comparing() as took:
+                found["merge"] = dict(
+                    act=_clone_store(act), tgt=_clone_store(target), R=R, t=t, s=s,
+                    verify=dict(self.last_verify), frame=frame[0], ref_kf=sysm.tracker.ref_kf,
+                    imu_ready=sysm.tracker.imu_ready,
+                    pre=target.state.mp_valid.cpu().numpy().copy(),
+                    preints={k: imu_ops.Preintegrated(*(x.clone() for x in p))
+                             for k, p in sysm.mapper.preints.items()})
+            extra_ms[frame[0]] = extra_ms.get(frame[0], 0.0) + took[0]
+        out = orig_do_merge(self, act, target, R, t, s)
+        gba_at_merge.append(self.system.loop_closer.gba_async.n_finished)
+        return out
+
+    preds, pred_err = {}, {}  # the IMU prediction of each frame; its distance from the result
+    imu_predict = Tracker._imu_predict
+
+    def predicted(self, last):
+        out = imu_predict(self, last)
+        preds[frame[0]] = out
+        return out
+
+    def on_frame(k, slam):
+        frame[0] = k + 1
+        window(k, slam)
+        f = slam.tracker.last_frame
+        if k in preds and slam.tracking_state.name == "OK" and f is not None:
+            (Rp, tp, _), R, t = preds[k], np.asarray(f.R), np.asarray(f.t)
+            pred_err[k] = float(np.linalg.norm(Rp.T @ tp - R.T @ t))
+
+    torch.cuda.synchronize()
+    cuda_fast.LAUNCHES = 0
+    cuda_match.LAUNCHES = 0
+    t0 = time.perf_counter()
+    mm_mod.MultiMapManager._do_merge = do_merge
+    graphed.run = run_graph
+    Tracker._imu_predict = predicted
+    try:
+        with _b1_calls([], keep_args=False) as calls:
+            rep = E.replay(dev, "mono_vi", MMVI_FRAMES, vocabulary=VOC_100K, t_loop=MM_T_LOOP,
+                           multimap=True, blind=MMVI_BLIND, on_frame=on_frame,
+                           n_track=MMVI_TRACK)
+    finally:
+        mm_mod.MultiMapManager._do_merge = orig_do_merge
+        graphed.run = graph_run
+        Tracker._imu_predict = imu_predict
+    wall_s = time.perf_counter() - t0
+    sites = {site: sum(c[0] == site for c in calls)
+             for site in (list(B1_SITES.values()) + list(B1_PR_SITES.values())
+                          + list(B1_MM_SITES.values()) + ["comparison", "other"])}
+    launches = {"fast_nms": cuda_fast.LAUNCHES,
+                "hamming_top2": cuda_match.LAUNCHES - sites["comparison"]}
+    check(sum(sites.values()) == cuda_match.LAUNCHES and sites["other"] == 0,
+          f"phase 20 B1 calls by site {sites}")
+    sysm = rep.system
+    mm = sysm.multimap
+    states = rep.states
+    print(f"phase 20 outcome: stored {rep.stored}; merges "
+          f"{[{k: v for k, v in m.items() if k not in ('R', 't')} for m in rep.merges]}; IMU "
+          f"per map {rep.imu_maps}; maps at the end {mm.atlas.n_maps}, {rep.n_kf} keyframes, "
+          f"{rep.n_mp} points; GBA {rep.gba_finished} finished, {rep.gba_aborted} aborted; SE3 "
+          f"ATE {rep.ate_se3:.6f} m, Sim3 ATE {rep.ate:.6f} m, scale {rep.scale:.5f}; states "
+          f"{ {x: states.count(x) for x in sorted(set(states))} }", flush=True)
+    # Gates: the stages of both maps, the store, the merge.
+    check(len(rep.imu_maps) >= 2 and len(rep.stored) >= 1,
+          f"phase 20: maps {rep.imu_maps}, stored {rep.stored}")
+    for i, (m, (jf, jk)) in enumerate(zip(rep.imu_maps, JAX_MMVI_IMU)):
+        check(m["init_kfs"] is not None and abs(m["init_kfs"] - jk) <= 2,
+              f"phase 20: map {i}'s IMU initialized with {m['init_kfs']} keyframes at frame "
+              f"{m['init']}, JAX {jk} at {jf}")
+    st0 = rep.stored[0]
+    check(abs(st0["frame"] - JAX_MMVI_STORED[0]) <= 2 and rep.n_maps[st0["frame"]] == 2,
+          f"phase 20: map 0 stored at frame {st0['frame']}, JAX {JAX_MMVI_STORED}")
+    check(len(rep.merges) >= 1, f"phase 20: no merge: states {states[185:]}")
+    mg = rep.merges[0]
+    log_R = mg["log_R"]
+    check(abs(mg["n_kf_active"] - JAX_MMVI_MERGE[1]) <= 2 and rep.n_maps[mg["frame"]] == 1,
+          f"phase 20: merge at frame {mg['frame']} with {mg['n_kf_active']} keyframes in the "
+          f"active map, JAX {JAX_MMVI_MERGE}")
+    check(mg["imu_metric"] and 0.9 < mg["s"] < 1.1 and abs(log_R[0]) < 1e-6
+          and abs(log_R[1]) < 1e-6, f"phase 20: the merge's gate: imu_metric "
+          f"{mg['imu_metric']}, s {mg['s']}, log R {log_R}")
+    check(mg["weld"] == "inertial" and mg["weld_window"] == 16 and mg["dof4"],
+          f"phase 20: weld {mg['weld']} over {mg['weld_window']}, dof4 {mg['dof4']}")
+    check(rep.gba_finished > gba_at_merge[0], f"phase 20: the post-merge GBA did not finish "
+          f"({rep.gba_finished} finished, {gba_at_merge[0]} before the merge)")
+    blind = set(range(MMVI_BLIND[0], sum(MMVI_BLIND)))
+    map1_ok = next(k for k in range(st0["frame"] + 1, MMVI_TRACK) if states[k] == "OK")
+    bad = [k for k in range(map1_ok, MMVI_TRACK)
+           if states[k] != "OK" and k not in blind and k not in JAX_MMVI_LOST]
+    check(not bad, f"phase 20: frames not OK after map 1's initialization (frame {map1_ok}) "
+          f"that JAX tracked: {bad} ({[states[k] for k in bad]})")
+    shares = []
+    ends = [MMVI_BLIND[0], MMVI_TRACK]
+    for i, m in enumerate(rep.imu_maps[:2]):
+        after = [k for k in range(m["init"] + 1, ends[i]) if states[k] == "OK"]
+        shares.append((sum(rep.pi_taken[k] for k in after) / max(len(after), 1), len(after)))
+        check(after and shares[-1][0] >= 0.8, f"phase 20: map {i}: the pose-inertial result "
+              f"taken on {shares[-1][0]:.4f} of {len(after)} frames after its IMU initialization")
+    gates = dict(se3=max(2 * JAX_MMVI_ATE_SE3, 0.01), sim3=max(2 * JAX_MMVI_ATE, 0.01),
+                 scale=max(2 * abs(1 - JAX_MMVI_SCALE), 0.02))
+    check(np.isfinite(rep.pos).all() and rep.ate_se3 <= gates["se3"]
+          and rep.ate <= gates["sim3"] and abs(rep.scale - 1) <= gates["scale"],
+          f"phase 20: SE3 ATE {rep.ate_se3}, Sim3 ATE {rep.ate}, scale {rep.scale} outside "
+          f"{gates}")
+    ms = [m - extra_ms.get(k, 0.0) for k, m in enumerate(rep.ms)]
+    by_kind = _mmvi_kinds(rep, mg["frame"], ms, captures)
+    _check_tracked_syncs(by_kind, {"tracked before IMU init": Tracker.HOST_SYNCS_PER_FRAME,
+                                   "tracked after IMU init": Tracker.HOST_SYNCS_PER_INERTIAL_FRAME},
+                         calls, "phase 20")
+    check(launches["fast_nms"] == MMVI_TRACK and all(n == 1 for n in rep.b2),
+          f"phase 20: B2 launches {launches['fast_nms']}, per frame {sorted(set(rep.b2))}")
+    for site in B1_MM_SITES.values():
+        check(sites[site] > 0, f"phase 20: B1 never launched at {site}: {sites}")
+
+    # The merge again at its keyframe: kernels against plain, then the card against the CPU.
+    m0 = found["merge"]
+    with _comparing():
+        run_k = _merge_again(mm, m0, dev)
+        with _build.force_plain():
+            run_p = _merge_again(mm, m0, dev)
+    dS_kp, dW_kp, st_kp = _same_merge(run_k, run_p, "phase 20 merge, kernels vs plain")
+    dW_kp = max(dW_kp, st_kp["essential graph"]["mp_pos"])
+    dS0 = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+              for a, b in zip(run_k["S"], (m0["R"], m0["t"], m0["s"])))
+    check(dS0 <= 1e-4, f"phase 20 merge: the Sim3 again {dS0} from the lap's")
+    cpu = torch.device("cpu")
+    cpu_sys = E.make_system(cpu, "mono_vi")
+    cpu_sys.tracker.imu_ready = m0["imu_ready"]
+    cpu_sys.mapper.imu_init.initialized = True
+    cpu_mm = mm_mod.MultiMapManager(cpu_sys, mm.voc)
+    # The CPU at its threads and at one: the points of a float32 solve of this window move by
+    # their conditioning (a far point seen from keyframes close together), so the two CPU
+    # runs set the points' tolerance (fault C19), and the rest holds to 1e-4.
+    n_threads = torch.get_num_threads()
+    runs_c = {}
+    for threads in (max(n_threads, 2), 1):
+        torch.set_num_threads(threads)
+        t1 = time.perf_counter()
+        runs_c[threads] = (_merge_again(cpu_mm, m0, cpu, samples=run_k["samples"]),
+                           time.perf_counter() - t1)
+    torch.set_num_threads(n_threads)
+    (run_c, cpu_s), (run_c1, cpu1_s) = runs_c.values()
+    _, dW_cc, st_cc = _same_merge(run_c, run_c1, "phase 20 merge, CPU vs CPU", points_tol=1.0)
+    spread = st_cc["essential graph"]["mp_pos"]
+    dS_kc, dW_kc, st_kc = _same_merge(run_k, run_c, "phase 20 merge, card vs CPU",
+                                      points_tol=max(1e-4, 2 * spread))
+
+    # A prefix through the kernels against the same through the plain versions: from the
+    # map's initialization through MMVI_PREFIX frames after it.
+    rec_p = {}
+    start = rec_k["start"]
+    with _build.force_plain():
+        pre_p = E.replay(dev, "mono_vi", MMVI_FRAMES, vocabulary=VOC_100K, t_loop=MM_T_LOOP,
+                         multimap=True, blind=MMVI_BLIND, n_track=start + MMVI_PREFIX + 1,
+                         on_frame=_window_recorder(rec_p, MMVI_PREFIX))
+    check(pre_p.states == states[:start + MMVI_PREFIX + 1] and rec_p.get("start") == start,
+          f"phase 20 prefix: states {pre_p.states} vs {states[:start + MMVI_PREFIX + 1]}")
+    line = _same_prefix(rec_k, rec_p, states[start:], pre_p.states[start:], "phase 20 prefix")
+
+    med = lambda xs: statistics.median(xs) if xs else float("nan")  # noqa: E731
+    spans_ms = rep.multimap_ms
+    print(f"phase 20 inertial lap: the first {MMVI_TRACK} of {MMVI_FRAMES} frames of config 3 "
+          f"with a {MM_T_LOOP:g} s lap, "
+          f"frames {MMVI_BLIND[0]}-{sum(MMVI_BLIND) - 1} blind, 200 Hz IMU; launches {launches}; "
+          f"{MMVI_TRACK / (sum(ms) / 1e3):.2f} frames/s over the replay ({wall_s:.1f} s wall, "
+          f"{rep.render_s:.1f} s of rendering) [{card}]")
+    print(f"phase 20 map 0: IMU initialized at frame {rep.imu_maps[0]['init']} with "
+          f"{rep.imu_maps[0]['init_kfs']} keyframes (JAX {JAX_MMVI_IMU[0]}), stored at frame "
+          f"{st0['frame']} with {st0['n_kf']} keyframes (JAX {JAX_MMVI_STORED}); map 1 from "
+          f"frame {map1_ok}: IMU initialized at frame {rep.imu_maps[1]['init']} with "
+          f"{rep.imu_maps[1]['init_kfs']} keyframes (JAX {JAX_MMVI_IMU[1]}); merged at frame "
+          f"{mg['frame']}: keyframe {mg['kf']} of the {mg['n_kf_active']}-keyframe map onto "
+          f"{mg['cand']} (JAX {JAX_MMVI_MERGE}), imu_metric {mg['imu_metric']}, s {mg['s']:.6f} "
+          f"(JAX {JAX_MMVI_S}), gated rotation log {[round(x, 8) for x in log_R]}, weld "
+          f"{mg['weld']} BA over {mg['weld_window']} keyframes, essential graph dof4 "
+          f"{mg['dof4']}; {mg['n_kf']} keyframes after it; GBA {rep.gba_finished} finished")
+    print(f"phase 20 gates: pose-inertial result taken on {shares} (share, frames) after each "
+          f"map's IMU initialization; SE3 ATE {rep.ate_se3:.6f} m (gate {gates['se3']:.6f}: 2 x "
+          f"JAX's {JAX_MMVI_ATE_SE3}), Sim3 ATE {rep.ate:.6f} m (gate {gates['sim3']:.6f}), scale "
+          f"{rep.scale:.5f} (tolerance {gates['scale']:.4f}); frames not OK after map 1's "
+          f"initialization outside the blind interval: "
+          f"{[k for k in range(map1_ok, MMVI_TRACK) if states[k] != 'OK' and k not in blind]} "
+          f"(JAX {list(JAX_MMVI_LOST)})")
+    print(f"phase 20 host syncs and ms per frame kind: {_kind_line(by_kind)} [{card}]")
+    print(f"phase 20 merging frame {mg['frame']} ({ms[mg['frame']]:.2f} ms, host clock; "
+          f"{rep.syncs[mg['frame']]} syncs): " + "; ".join(
+              f"{name[len('merge: '):]} host {h:.2f} / device {dv:.2f} ms"
+              for name in ("merge: merge maps", "merge: weld fuse", "merge: weld BA",
+                           "merge: essential graph", "merge: GBA start")
+              for f_, h, dv in spans_ms.get(name, []) if f_ == mg["frame"]) + f" [{card}]")
+    tm = spans_ms.get("try merge", [])
+    print(f"phase 20 try merge: {len(tm)} calls, host ms median {med([h for _, h, _ in tm]):.2f}"
+          f", device ms median {med([d for _, _, d in tm if d is not None]):.2f} [{card}]")
+    print(f"phase 20 merge again at keyframe {m0['verify']['kf']} onto {m0['verify']['cand']}: "
+          f"kernels vs plain: {run_k['v']['matches']} matches equal, "
+          f"{run_k['v']['sim3_inliers']} Sim3 inliers, Sim3 within {dS_kp:.1e} (the lap's within "
+          f"{dS0:.1e}), {run_k['n_preints']} keyframes migrated, weld {run_k['weld']}, kf_mp "
+          f"equal, poses, velocities, biases and points within {dW_kp:.1e}; card vs CPU "
+          f"({cpu_s:.1f} s on the CPU at {max(n_threads, 2)} threads): Sim3 within {dS_kc:.1e}, "
+          f"poses, velocities and biases within {dW_kc:.1e}, points within "
+          f"{st_kc['essential graph']['mp_pos']:.1e} (by stage "
+          f"{[(k, round(v['mp_pos'], 7)) for k, v in st_kc.items()]}); the CPU at 1 thread "
+          f"({cpu1_s:.1f} s) against it: poses, velocities and biases within {dW_cc:.1e}, points "
+          f"within {spread:.1e} (by stage {[(k, round(v['mp_pos'], 7)) for k, v in st_cc.items()]}"
+          f"), so the card's points are held within max(1e-4, 2 x {spread:.1e})")
+    nxt = mg["frame"] + 1
+    after = {k: e for k, e in pred_err.items() if k > rep.imu_maps[1]["init"] and k != nxt}
+    worst = sorted(after.items(), key=lambda x: -x[1])[:3]
+    print(f"phase 20 IMU prediction against the tracked camera centre (fault C20): the frame "
+          f"after the merge {pred_err.get(nxt, float('nan')):.6f} m; the other tracked frames "
+          f"after map 1's IMU initialization median {med(list(after.values())):.6f} m, the "
+          f"largest (frame, m) {[(k, round(e, 4)) for k, e in worst]}; loop closures at frames "
+          f"{[lp['frame'] for lp in rep.loops]}")
+    print(f"phase 20 kernels vs plain prefix: {line}")
+    print(f"phase 20 launches on the main path {launches}; B1 by site {sites}")
+    return dict(rep=rep, launches=launches, sites=sites)
+
+
 def check(ok, what: str) -> None:
     """Fail the run (every phase's checks are hard failures)."""
     if not ok:
@@ -2544,7 +3003,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--save-inputs", metavar="FILE",
                     help="write phase 7's kernel inputs to FILE (torch.save)")
-    ap.add_argument("--only", choices=["15", "16", "17", "18", "19"],
+    ap.add_argument("--only", choices=["15", "16", "17", "18", "19", "20"],
                     help="build, then run this phase alone (its B1 rows in the record)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2579,7 +3038,7 @@ def run(opts) -> int:
     print(_build.resource_report(), end="")
     walls["build"] = time.perf_counter()
     card = smi.stdout.strip().splitlines()[0]
-    if opts.only in ("15", "16", "17", "18", "19"):
+    if opts.only in ("15", "16", "17", "18", "19", "20"):
         err, rows = 0.0, []
         if opts.only == "15":
             err, rows, launches = phase15_rows(phase15_multimap(dev), card)
@@ -2596,6 +3055,8 @@ def run(opts) -> int:
             err, rows, launches = p16["err"], [p16["row"]], p16["launches"]
         elif opts.only == "17":
             launches = phase17_stream_viewer(dev, card)["launches"]
+        elif opts.only == "20":
+            launches = phase20_inertial_multimap(dev, card)["launches"]
         else:
             launches = phase19_runner_modes(dev, card)
         walls[f"phase {opts.only}"] = time.perf_counter()
@@ -3212,6 +3673,9 @@ def run(opts) -> int:
     # --- Phase 19: the runner's sensor modes; config 3 to the scale refinement
     p19 = phase19_runner_modes(dev, card)
     walls["phase 19"] = time.perf_counter()
+    # --- Phase 20: the inertial Atlas: an inertial merge ------------------------
+    p20 = phase20_inertial_multimap(dev, card)
+    walls["phase 20"] = time.perf_counter()
 
     if opts.save_inputs:
         per_replay = {**per_site, **p10["sites"]}
@@ -3225,7 +3689,7 @@ def run(opts) -> int:
                                               p11["launches"], p12["rgbd"], p12["raw"],
                                               p13["launches"], p14["launches"], launches15,
                                               p16["launches"], p17["launches"],
-                                              p18["launches"], p19))
+                                              p18["launches"], p19, p20["launches"]))
     lm = next(r for r in b1_rows if r["call"] == "local map")  # the kernel's headline call
     record = {"kernels": [
         {"name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",

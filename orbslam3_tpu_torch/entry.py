@@ -583,8 +583,10 @@ def euroc_frames(n_frames: int, seed: int = 0, t_loop: float | None = None,
     new frames, and the IMU stream of an n-frame sequence is drawn from the
     state after frame n - 1. A sequence with a kidnap or a blind interval is
     the one without them up to its first such frame, so those frames are
-    shared too. `clear_frames()` drops them. A sequence `load_frames` read
-    is served as saved: exactly its frames, without IMU or depth."""
+    shared too; two that differ in their blind interval alone share every
+    frame that neither covers. `clear_frames()` drops them. A sequence
+    `load_frames` read is served as saved: exactly its frames, without IMU
+    or depth."""
     key = _Sequence.key_of(seed, t_loop, kidnap, stereo, raw, depth, fisheye, blind)
     if key in _LOADED:
         if n_frames != len(_LOADED[key][0]) or imu:
@@ -671,9 +673,22 @@ class _Sequence:
     def adopt_prefix(self, other: "_Sequence") -> None:
         """Take the frames `other` rendered that this sequence shares: all
         those before the first kidnapped or blind frame of either, when the
-        two differ in their kidnap or blind interval only."""
+        two differ in their kidnap or blind interval only; when both differ
+        in their blind interval only, every frame (a frame blind in `other`
+        but not here is left to `extend` to render)."""
         a, b = self.key, other.key
         if other is self or a[:2] + a[3:7] != b[:2] + b[3:7] or len(other.ts) <= len(self.ts):
+            return
+        if a[2] is None and b[2] is None and b[7] is not None and b[7][0] > 0:
+            # Blind frames draw their noise too: the generator states, times and
+            # centres are the same, and so is every frame that neither covers.
+            n = len(other.ts)
+            self.imgs = [self.imgs[k] if k < len(self.imgs) else
+                         self._grey() if self.covered(k) else
+                         other.imgs[k] if not other.covered(k) else None for k in range(n)]
+            for name in ("ts", "centres", "depths", "states"):
+                setattr(self, name, list(getattr(other, name)))
+            self.tex = other.tex
             return
         starts = [e[0] for e in (a[2], a[7], b[2], b[7]) if e is not None]
         n = min([len(other.ts)] + starts)
@@ -682,6 +697,16 @@ class _Sequence:
                 setattr(self, name, list(getattr(other, name)[:n]))
             self.tex = other.tex
 
+    def covered(self, k: int) -> bool:
+        return self.blind is not None and self.blind[0] <= k < self.blind[0] + self.blind[1]
+
+    def _grey(self) -> np.ndarray:
+        """A covered lens: frame k's image(s) in a blind interval."""
+        M = self.M
+        shape = (M.H, M.W) if self.dirs is None else self.dirs.shape[:2]
+        img = np.full(shape, 35, np.uint8)
+        return np.stack([img, img]) if self.stereo else img
+
     def generator_after(self, n: int) -> np.random.Generator:
         """A generator in the state the sequence's was in after frame n - 1."""
         rng = np.random.default_rng(self.seed)
@@ -689,16 +714,10 @@ class _Sequence:
             rng.bit_generator.state = self.states[n - 1]
         return rng
 
-    def extend(self, n_frames: int) -> None:
-        """Render the frames up to n_frames - 1 that are not there yet."""
-        if len(self.ts) >= n_frames:
-            return
+    def _render(self, k: int, rng: np.random.Generator):
+        """Frame k's image(s), drawing its noise from `rng` (in the state
+        after frame k - 1), and its time, centre and depth."""
         M = self.M
-        rng = np.random.default_rng(self.seed)
-        if self.tex is None:
-            self.tex = M.make_textures(rng)
-        if self.states:
-            rng.bit_generator.state = self.states[-1]
         shape = (M.H, M.W) if self.dirs is None else self.dirs.shape[:2]
 
         def noisy(img):
@@ -710,20 +729,34 @@ class _Sequence:
                 return np.full(shape, 35, np.uint8)
             return noisy(M.render(self.tex, R_render, p, dirs=dirs_i))
 
-        kidnap, blind = self.kidnap, self.blind
+        kidnap = self.kidnap
+        src = k if kidnap is None or k < kidnap[0] else kidnap[1] + k - kidnap[0]
+        R_wc, p = M.pose_at(src / M.CAM_HZ)
+        R_render = R_wc @ self.R_raw if self.raw else R_wc
+        covered = self.covered(k)
+        img = view(R_render, p, self.dirs, covered)
+        if self.stereo:
+            p_r = p + R_wc @ np.array([self.baseline, 0.0, 0.0])
+            img = np.stack([img, view(R_render, p_r, self.dirs_r, covered)])
+        return img, k / M.CAM_HZ, p, ray_depth(M, R_wc, p) if self.depth else None
+
+    def extend(self, n_frames: int) -> None:
+        """Render the frames up to n_frames - 1 that are not there yet."""
+        for k in range(min(n_frames, len(self.imgs))):
+            if self.imgs[k] is None:  # adopted from a sequence that covered it
+                self.imgs[k] = self._render(k, self.generator_after(k))[0]
+        if len(self.ts) >= n_frames:
+            return
+        rng = np.random.default_rng(self.seed)
+        if self.tex is None:
+            self.tex = self.M.make_textures(rng)
+        if self.states:
+            rng.bit_generator.state = self.states[-1]
         for k in range(len(self.ts), n_frames):
-            t = k / M.CAM_HZ
-            src = k if kidnap is None or k < kidnap[0] else kidnap[1] + k - kidnap[0]
-            R_wc, p = M.pose_at(src / M.CAM_HZ)
-            R_render = R_wc @ self.R_raw if self.raw else R_wc
-            covered = blind is not None and blind[0] <= k < blind[0] + blind[1]
-            img = view(R_render, p, self.dirs, covered)
-            if self.stereo:
-                p_r = p + R_wc @ np.array([self.baseline, 0.0, 0.0])
-                img = np.stack([img, view(R_render, p_r, self.dirs_r, covered)])
+            img, t, p, depth = self._render(k, rng)
             self.imgs.append(img)
             if self.depth:
-                self.depths.append(ray_depth(M, R_wc, p))
+                self.depths.append(depth)
             self.ts.append(t)
             self.centres.append(p)
             self.states.append(rng.bit_generator.state)
@@ -880,6 +913,9 @@ def raw_stereo_rig():
         for pr3 in (0.0, -M.FX * M.BASELINE_M))
 
 
+IMU_STAGE_KEYS = ("init", "init_kfs", "viba1", "viba1_kfs", "viba2", "viba2_kfs")
+
+
 class ReplayResult(NamedTuple):
     """One replay; the per-frame lists have one entry per frame."""
 
@@ -914,11 +950,17 @@ class ReplayResult(NamedTuple):
     viba2: int | None = None  # the frame of VIBA2
     pi_taken: list = []  # per frame: whether the pose-inertial result was taken
     inertial_ms: dict = {}  # per inertial call: list of (frame, host ms, device ms)
+    imu_maps: list = []  # per map, in the order they started: dict(first_frame, and the frame
+    #                      and keyframe count of its IMU initialization, VIBA1 and VIBA2 under
+    #                      IMU_STAGE_KEYS, None where the stage did not run)
     # Multi-map (`multimap=True`; empty otherwise):
     n_maps: list = []  # per frame: the Atlas's map count after it
     stored: list = []  # per stored map: dict(frame, n_kf of the map stored)
     merges: list = []  # per merge: dict(frame, kf, cand, R, t, s (the world Sim3), n_kf_active
-    #                    (the merged map's keyframes), n_kf (the target's after it))
+    #                    (the merged map's keyframes), n_kf (the target's after it)); inertial
+    #                    sensors add imu_metric (the scale and yaw gate applied), log_R (so3
+    #                    log of the gated R), weld ("inertial" or "visual" BA), weld_window,
+    #                    dof4 (the essential graph's)
     multimap_ms: dict = {}  # per span ("try merge", "merge: ..."): list of (frame, host ms,
     #                         device ms)
     # Distributed (`distributed=True`; empty otherwise):
@@ -1117,7 +1159,9 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
     keyframe pair, world Sim3) and the ms of each multi-map span: "try
     merge" on each keyframe frame of a map while another is stored, and
     `_do_merge`'s split ("merge: merge maps", "merge: weld fuse", "merge:
-    weld BA", "merge: essential graph", "merge: GBA start"). `blind` =
+    weld BA", "merge: essential graph", "merge: GBA start"); with an
+    inertial sensor, each map's IMU stages (`imu_maps`) and each merge's
+    inertial facts (the gate, the weld's BA, the graph's DoF). `blind` =
     (at, n) covers the lens for n frames from frame `at` (`euroc_frames`);
     the ATEs are then over the other frames.
 
@@ -1130,7 +1174,7 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
     warnings that count `syncs` do not see a collective's host wait."""
     from orbslam3_tpu_torch.ate import associate, umeyama
     from orbslam3_tpu_torch.io.vocab_io import load_binary_vocabulary
-    from orbslam3_tpu_torch.ops import cuda_fast, cuda_match
+    from orbslam3_tpu_torch.ops import cuda_fast, cuda_match, lie
     from orbslam3_tpu_torch.parallel import comm
 
     if sensor not in SENSORS:
@@ -1183,7 +1227,7 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
     gba = slam.loop_closer.gba_async if slam.loop_closer is not None else None
     states, keyframe, ms, syncs, b2, b1, chunks = [], [], [], [], [], [], []
     vi_frames = dict(init=None, kfs=None, viba1=None, viba2=None)
-    pi_taken = []
+    pi_taken, imu_maps = [], []
     n_maps, stored, merges, collectives = [], [], [], []
     mm = slam.multimap
     timer = spans.Recorder(cuda)
@@ -1225,6 +1269,12 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
                     merges.append(dict(frame=k, kf=v["kf"], cand=v["cand"], R=R.tolist(),
                                        t=tw.tolist(), s=sw, n_kf_active=store0.n_kf,
                                        n_kf=slam.store.n_kf))
+                    if inertial:
+                        merges[-1].update(
+                            imu_metric=v["imu_metric"], weld=mm.last_weld["ba"],
+                            weld_window=mm.last_weld["window"], dof4=mm.last_weld["dof4"],
+                            log_R=lie.log_so3(torch.from_numpy(np.asarray(R, np.float32)))
+                            .tolist())
                 n_maps.append(mm.atlas.n_maps)
             if inertial:
                 pi_taken.append(slam.tracker.pi_taken)
@@ -1235,6 +1285,13 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
                     vi_frames["viba1"] = k
                 if vi_frames["viba2"] is None and ini.viba2_done:
                     vi_frames["viba2"] = k
+                if not imu_maps or imu_maps[-1][0] is not ini:  # a new map's initializer
+                    imu_maps.append((ini, dict(first_frame=k, **dict.fromkeys(IMU_STAGE_KEYS))))
+                m = imu_maps[-1][1]
+                for key, done in (("init", ini.initialized), ("viba1", ini.viba1_done),
+                                  ("viba2", ini.viba2_done)):
+                    if m[key] is None and done:
+                        m[key], m[key + "_kfs"] = k, slam.store.n_kf
             if on_frame is not None:
                 on_frame(k, slam)
     slam.shutdown()
@@ -1262,7 +1319,8 @@ def replay(device, sensor: str, n_frames: int, seed: int = 0,
                         lost=lost, relocalized=reloc, system=slam,
                         imu_init_frame=vi_frames["init"], imu_init_kfs=vi_frames["kfs"],
                         viba1=vi_frames["viba1"], viba2=vi_frames["viba2"], pi_taken=pi_taken,
-                        inertial_ms=timer.result() if inertial else {}, n_maps=n_maps,
+                        inertial_ms=timer.result() if inertial else {},
+                        imu_maps=[m for _, m in imu_maps], n_maps=n_maps,
                         stored=stored, merges=merges,
                         multimap_ms=timer.result() if multimap else {}, collectives=collectives)
 

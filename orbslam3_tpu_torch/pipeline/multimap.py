@@ -91,6 +91,7 @@ class MultiMapManager:
         self.n_sharded_queries = 0  # of them, over a distributed group
         self.lost_streak = 0
         self.last_verify: dict = {}  # the last verification: counts, matches, Sim3
+        self.last_weld: dict = {}  # the last weld: its BA ("inertial" or "visual"), window, dof4
 
     def _kfdb(self, store: st.MapStore) -> KeyFrameDB:
         if store not in self.kfdbs:
@@ -193,8 +194,10 @@ class MultiMapManager:
         m = matching.match_nn(s1.kf_desc[kf_id], s2.kf_desc[cand], has1, has2,
                               max_dist=matching.TH_LOW, ratio=0.75, cross_check=True)
         idx2, valid = _np(m.idx), _np(m.valid)
+        inertial = sysm.sensor in (Sensor.IMU_MONOCULAR, Sensor.IMU_STEREO)
+        imu_metric = inertial and sysm.tracker.imu_ready
         out = self.last_verify = dict(kf=kf_id, cand=cand, matches=int(valid.sum()),
-                                      idx=idx2, valid=valid)
+                                      idx=idx2, valid=valid, imu_metric=imu_metric)
         if out["matches"] < self.min_merge_matches:
             return None
         i2 = np.clip(idx2, 0, None)
@@ -219,8 +222,6 @@ class MultiMapManager:
         # Stereo and RGB-D maps are metric: the Sim3 keeps s = 1 (`mbFixScale`,
         # `LoopClosing.h:125`); a monocular-inertial one solves the scale and
         # gates it (`LoopClosing.cc:107`).
-        inertial = sysm.sensor in (Sensor.IMU_MONOCULAR, Sensor.IMU_STEREO)
-        imu_metric = inertial and sysm.tracker.imu_ready
         fix_scale = sysm.sensor in (Sensor.STEREO, Sensor.RGBD, Sensor.IMU_STEREO)
         gen = torch.Generator(device=act.device).manual_seed(int(kf_id) + 7777)
         ok, R12, t12, s12, _ = ransac.sim3_ransac(
@@ -274,6 +275,11 @@ class MultiMapManager:
         tr.last_kf_id = kf_remap.get(tr.last_kf_id, tr.ref_kf)
         tr.velocity = None  # the world frame changed
         tr._ref_pose = None
+        # The body velocity is a vector of the old world: the Sim3 turns and
+        # scales it (fault C20; ORB-SLAM3's `UpdateFrameIMU` after `MergeLocal2`).
+        # A keyframe frame then takes its keyframe's; a merge that completes in a
+        # later frame's tick (asynchronous mapping) keeps this one.
+        tr.body_vel = (float(s) * (np.asarray(R, np.float32) @ tr.body_vel)).astype(np.float32)
         # The source map's trajectory entries move to their migrated reference
         # keyframes; a relative translation of the old map scales by s.
         tr.trajectory = [
@@ -373,9 +379,12 @@ class MultiMapManager:
         mapper._covis_pin = None
         s0 = target.state
         R_pre, t_pre = _np(s0.kf_R), _np(s0.kf_t)  # the graph's measurements
+        inertial = mapper.imu_initialized
+        weld = self.last_weld = dict(ba="inertial" if inertial else "visual",
+                                     window=16 if inertial else None, dof4=None)
         with spans.span("merge: weld BA"):
             try:
-                if mapper.imu_initialized:
+                if inertial:
                     mapper._local_inertial_ba(weld_center, window=16)
                 else:
                     mapper._local_ba(weld_center)
@@ -429,8 +438,8 @@ class MultiMapManager:
                 edge_s=torch.ones(E, device=dev), edge_valid=torch.ones(E, dtype=torch.bool,
                                                                         device=dev),
                 edge_weight=torch.ones(E, device=dev))
-            R_new, t_new, s_new = pg.solve_pose_graph(graph, iters=10,
-                                                      dof4=mapper.imu_initialized)
+            weld["dof4"] = mapper.imu_initialized
+            R_new, t_new, s_new = pg.solve_pose_graph(graph, iters=10, dof4=weld["dof4"])
             ref = torch.clamp(s.mp_first_kf, 0, K - 1).to(torch.int64)
             newp = pg.correct_points(s.mp_pos, s.kf_R[ref], s.kf_t[ref],
                                      torch.ones(s.Pmax, device=dev), R_new[ref], t_new[ref],

@@ -15,6 +15,8 @@ VIBA1 and VIBA2 ran, keyframe and map-point counts, the SE3 (unscaled) and
 Sim3 ATE and the Sim3 scale. The sequence's IMU noise is drawn after all
 its images (as the script draws it), so a run of fewer frames has other
 IMU samples: the constants of an N-frame replay come from `--frames N`.
+`--track M` tracks only the first M of them (`entry.replay(..., n_track=M)`;
+the ATE is then over those frames).
 
 `--c13` repairs fault C13 (ROADMAP) in the JAX `Tracker` for this run only,
 the way the port repairs it: the keyframe frame whose mapping pass
@@ -78,6 +80,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, required=True)
     ap.add_argument("--c13", action="store_true", help="repair fault C13 in the JAX Tracker")
+    ap.add_argument("--track", type=int, help="track only the first TRACK of the frames")
     ap.add_argument("--out")
     a = ap.parse_args(argv)
     if a.c13:
@@ -92,7 +95,8 @@ def main(argv=None):
                   imu_calib=calib, Kmax=cfg["Kmax"], Pmax=cfg["Pmax"], fps=cfg["fps"])
     states, n_kf = [], []
     init_frame = init_kfs = viba1 = viba2 = None
-    for k, (t, batch) in enumerate(zip(gt_ts, E.imu_batches(gt_ts, imu))):
+    batches = E.imu_batches(gt_ts, imu)[:a.track]
+    for k, (t, batch) in enumerate(zip(gt_ts, batches)):
         slam.track_monocular(imgs[k].astype(np.float32), float(t), imu_measurements=batch)
         states.append(slam.tracking_state.name)
         n_kf.append(slam.n_keyframes)
@@ -109,7 +113,7 @@ def main(argv=None):
     ia, ib = associate(ts, gt_ts, 0.01)
     scale = float(umeyama(pos[ia], gt_pos[ib], with_scale=True)[0]) if len(ia) >= 3 else \
         float("nan")
-    out = dict(frames=a.frames, c13=a.c13, states=states, n_kf_per_frame=n_kf,
+    out = dict(frames=a.frames, track=a.track, c13=a.c13, states=states, n_kf_per_frame=n_kf,
                init=states.index("OK") if "OK" in states else None,
                imu_init_frame=init_frame, imu_init_kfs=init_kfs, viba1_frame=viba1,
                viba2_frame=viba2, n_kf=slam.store.n_kf,

@@ -432,6 +432,25 @@ def test_euroc_frames_cache_equals_a_fresh_render():
     E.clear_frames()
 
 
+def test_euroc_frames_blind_variants_share_their_frames():
+    """Two laps that differ in their blind interval alone: the second takes
+    every frame the first rendered that neither covers (the same arrays),
+    renders only those the first covered, and both equal a fresh render;
+    so does the sequence without a blind interval rendered after them."""
+    lap = dict(t_loop=16.0)
+    E.clear_frames()
+    served = {(2, 2): E.euroc_frames(8, 0, blind=(2, 2), **lap)}
+    served[4, 3] = E.euroc_frames(9, 0, blind=(4, 3), **lap)  # frames 2, 3 rendered, 8 new
+    first = E._SEQUENCES[E._Sequence.key_of(0, blind=(2, 2), **lap)]
+    second = E._SEQUENCES[E._Sequence.key_of(0, blind=(4, 3), **lap)]
+    assert all(second.imgs[k] is first.imgs[k] for k in (0, 1, 7))
+    assert all(second.imgs[k] is not first.imgs[k] for k in (2, 3, 4))
+    served[None] = E.euroc_frames(9, 0, **lap)
+    for blind, got in served.items():
+        _same_frames(got, _fresh(len(got[0]), blind=blind, **lap))
+    E.clear_frames()
+
+
 def test_save_frames_round_trip(tmp_path):
     """`load_frames` serves what `save_frames` wrote, at exactly its length
     and without an IMU stream; other arguments render as before."""
