@@ -188,19 +188,33 @@ the rig; 5 on the rig after the IMU initialization), B2 once a frame (twice
 for a pair), and at one frame of each the local-map match run again through
 the kernels and through the plain versions, equal. 19b writes config 3's
 first N19B frames with their IMU stream (the digest the CPU's) and runs them
-through `run_sequence.main(..., "--mode", "mono-vi", "--sync-mapping",
-"--no-loop")` past VIBA2 and the first scale refinement, against the JAX
-runner on the same files (`tests/jax_runner_lap.py --mode mono-vi ...
---c13`): the IMU initialized within 2 keyframes of JAX's, VIBA1 and VIBA2
-run, the first refinement applied within 2 keyframes of JAX's, every frame
-OK after the map's initialization, the pose-inertial result on >= 80% of the
-frames after the IMU initialization, SE3 and Sim3 ATE under max(2 x JAX's,
-0.01 m), the Sim3 scale within max(2 x |1 - JAX's|, 0.02) of 1, the first
-refinement's inputs copied to the CPU and solved again there within 1e-4 in
-scale and gravity rotation, 2 syncs a tracked frame before the IMU
-initialization and 4 after; it prints the syncs and ms per frame kind and
-the ms of the frames of the IMU initialization, VIBA1, VIBA2 and each
-refinement, with the card's name and power limit.
+through `run_sequence.main(..., "--mode", "mono-vi")` at the runner's
+defaults (asynchronous mapping, place recognition with the 97k-word
+vocabulary, the Atlas; Kmax 256, Pmax 16384) past VIBA2 and the first scale
+refinement, against the JAX runner at the same flags on the same files
+(`tests/jax_runner_lap.py --mode mono-vi ... --c13`): the IMU initialized,
+VIBA1, VIBA2 and the first refinement applied each within 2 keyframes of
+JAX's, every frame OK after the map's initialization, the pose-inertial
+result on >= 80% of the frames after the IMU initialization, SE3 and Sim3
+ATE under max(2 x JAX's, 0.01 m), the Sim3 scale within max(2 x |1 - JAX's|,
+0.02) of 1, the first refinement's inputs copied to the CPU and solved again
+there within 1e-4 in scale and gravity rotation, 2 syncs a tracked frame
+before the IMU initialization and 4 after. 19c writes config 4's first N19C
+frames (the KB8 pair, TUM-VI layout) and runs them through the runner at its
+defaults with `--dataset tumvi --mode stereo-vi` against the JAX runner's
+run: the IMU initialized within 2 keyframes of JAX's, VIBA1 run, every frame
+OK, SE3 ATE under max(2 x JAX's, 0.01 m), 3 syncs a tracked frame before the
+IMU initialization and 5 after. Both run their first frames again through
+the plain versions of B1 and B2 (`--max-frames`, to PREFIX19 frames past the
+IMU initialization's tick): states, keyframes, IMU stages and the
+pose-inertial choice equal, poses within 1e-4. Both print the syncs and ms
+per frame kind (each frame whose tick completed an IMU stage its own kind),
+the syncs of each mapping stage, the median, p95 and maximum frame ms (19b
+beside its synchronous run's), and fault C20's numbers: the IMU
+prediction's distance from the tracked camera centre on the frame after
+each IMU stage's tick, beside the median of the other frames after the
+initialization and the JAX runner's; a stage above C20_FACTOR x that median
+and C20_FLOOR fails the phase. With the card's name and power limit.
 
 Phase 20 runs the inertial Atlas: config 3 (IMU_MONOCULAR, 200 Hz IMU) with
 place recognition and the Atlas on phase 15's 16 s lap, its lens covered for
@@ -264,6 +278,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import statistics
@@ -2078,20 +2093,42 @@ RUNNER_MODES_19A = (
     ("KITTI mono (config 1)", "kitti", "kitti", "mono", "mono", 30, {}, 20),
 )
 RUNNER_KMAX, RUNNER_PMAX = 256, 16384  # configs 1-4's, as in phases 6-14
-# Phase 19b: config 3 through the runner past VIBA2 and the first scale
-# refinement. The JAX runner on the same files on a CPU (`python
-# tests/jax_runner_lap.py --seq DIR --frames 530 --mode mono-vi --no-loop
-# --sync-mapping --kmax 256 --pmax 16384 --c13`, 8 cores, 2171 s): the map
-# initialized at frame 3, the IMU at frame 45 with 10 keyframes, VIBA1 at frame
-# 106, VIBA2 at 306, the first scale refinement at frame 506 with 57 keyframes
-# (scale 1.000182), every frame OK after the map's initialization, 59
-# keyframes; SE3 ATE 0.019455 m, Sim3 ATE 0.013391 m, Sim3 scale 1.008023. N19B
-# is that refinement's frame + 24.
+# Phase 19b: config 3 through the runner at its defaults (asynchronous
+# mapping, place recognition with the 97k-word vocabulary, the Atlas) past
+# VIBA2 and the first scale refinement, at configs 1-4's map size. The JAX
+# runner on the same files on a CPU (`python tests/jax_runner_lap.py --seq DIR
+# --frames 530 --mode mono-vi --kmax 256 --pmax 16384 --c13`, 2220 s on 8 shared cores):
+# the map initialized at frame 3, the IMU in the tick of frame 49 with 10
+# keyframes, VIBA1 at frame 112 with 17, VIBA2 at 310 with 38, the first scale
+# refinement at 510 with 58 (scale 1.000884), every frame OK after the map's
+# initialization, no loop closed, 60 keyframes; SE3 ATE 0.025136 m, Sim3 ATE
+# 0.014356 m, Sim3 scale 1.011774. Its IMU prediction on the frame after each
+# stage's tick (fault C20, unrepaired in the JAX package) and the other frames'
+# median, in m. N19B is the synchronous JAX run's first refinement (frame 506) + 24.
 N19B = 530
 SEQ19B_DIGEST = "c3b2714cb765c8de02b8d9becf0f2f135142903e1f05ef9fe5075db6db6c6895"
-JAX_VI_RUNNER = dict(imu_init_frame=45, imu_init_kfs=10, viba1_frame=106, viba2_frame=306,
-                     refine_frame=506, refine_kfs=57, ate_se3=0.019455, ate_sim3=0.013391,
-                     scale=1.008023)
+JAX_VI_RUNNER = dict(imu_init_frame=49, imu_init_kfs=10, viba1_frame=112, viba1_kfs=17,
+                     viba2_frame=310, viba2_kfs=38, refine_frame=510, refine_kfs=58,
+                     ate_se3=0.025136, ate_sim3=0.014356, scale=1.011774,
+                     c20=dict(after={"imu_init": 0.008977, "viba1": 0.011346,
+                                     "viba2": 0.025715, "refinement 1": 0.008302},
+                              median=5.1e-05))
+# Phase 19b with `--sync-mapping --no-loop` (PR 15, the final run's; PERF.md
+# §5): frame ms over the 530 frames, printed beside the defaults' numbers.
+SYNC19B_MS = dict(median=176.50, p95=565.14, max=1098.40)
+# Phase 19c: config 4, the TUM-VI stereo-inertial fisheye rig, through the
+# runner at its defaults, past its IMU initialization and VIBA1. The JAX runner
+# on the same files (`python tests/jax_runner_lap.py --seq DIR --frames 130 --mode
+# stereo-vi --kmax 256 --pmax 16384 --c13`, 718 s on 8 shared cores): every frame
+# OK, the IMU in the tick of frame 52 with 10 keyframes, VIBA1 at frame 112, 18
+# keyframes, no loop closed; SE3 ATE 0.001989 m, Sim3 scale 0.998377.
+N19C = 130
+SEQ19C_DIGEST = "ad7141f308d6b930fbd981dc413743ef49e27df617d12fb2b5cead912f8d2c03"
+JAX_SVI_RUNNER = dict(imu_init_frame=52, imu_init_kfs=10, viba1_frame=112, ate_se3=0.001989,
+                      c20=dict(after={"imu_init": 0.013374, "viba1": 0.007855},
+                               median=6.5e-05))
+PREFIX19 = 8  # the plain re-run's frames past the frame that initialized the IMU
+C20_FACTOR, C20_FLOOR = 5.0, 0.01  # fault C20 shows: above 5 x the median and 0.01 m
 
 
 def _load_files(seq_dir: str, dataset: str, mode: str):
@@ -2111,16 +2148,20 @@ def _load_files(seq_dir: str, dataset: str, mode: str):
     return seq, imu
 
 
-def _syncs_by_kind(summ: dict, init_frame, what: str) -> dict:
+def _syncs_by_kind(summ: dict, init_frame, what: str, stages: dict | None = None) -> dict:
     """{frame kind: [(syncs, ms, frame)]} of a runner run: its tracked frames
-    split at the IMU initialization (when there is one), and a tracked frame
+    split at the IMU initialization (when there is one), a tracked frame
     that captured a pose solve's CUDA graph (`summ["captures"]`; the capture
-    synchronizes the device) of its own kind."""
+    synchronizes the device) of its own kind, and so is each frame whose call
+    completed an IMU stage (`stages`, `entry.imu_stage_frames`)."""
     check(summ["syncs"] is not None, f"{what}: the runner counted no host syncs")
     by_kind = {}
     syncs = summ["syncs"] or [-1] * summ["n"]
+    at_stage = {k: name for name, k in (stages or {}).items()}
     for k, (kind, n_sync, m) in enumerate(zip(summ["kinds"], syncs, summ["frame_ms"])):
-        if kind == "tracked" and k in summ["captures"]:
+        if k in at_stage:
+            kind = f"{at_stage[k]} completed ({kind})"
+        elif kind == "tracked" and k in summ["captures"]:
             kind = "tracked, graph captured"
         elif kind == "tracked" and init_frame is not None:
             kind = "tracked after IMU init" if k > init_frame else "tracked before IMU init"
@@ -2189,9 +2230,10 @@ def _run_runner(argv: list, rerun_frame=None):
 
 def phase19_runner_modes(dev, card: str) -> dict:
     """Phase 19: 19a, the runner in each mode of RUNNER_MODES_19A against a
-    direct drive; 19b, config 3 through the runner to its first scale
-    refinement against the JAX runner's constants. Gates and lines in the
-    module docstring. Returns the launches of the runner's runs."""
+    direct drive; 19b, config 3 through the runner at its defaults to its
+    first scale refinement, and 19c, config 4 through it past VIBA1, against
+    the JAX runner's constants. Gates and lines in the module docstring.
+    Returns the launches of the runner's runs."""
     import tempfile
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2204,10 +2246,12 @@ def phase19_runner_modes(dev, card: str) -> dict:
             launches = {k: launches[k] + got[k] for k in launches}
             walls[mode[0]] = time.perf_counter() - t0
         print("phase 19a wall per mode (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
-        t0 = time.perf_counter()
-        got = _phase19b_mono_inertial(dev, card, tmp)
-        print(f"phase 19b wall: {time.perf_counter() - t0:.1f} s")
-    return {k: launches[k] + got[k] for k in launches}
+        for name, fn in (("19b", _phase19b_mono_inertial), ("19c", _phase19c_stereo_inertial)):
+            t0 = time.perf_counter()
+            got = fn(dev, card, tmp)
+            launches = {k: launches[k] + got[k] for k in launches}
+            print(f"phase {name} wall: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def _phase19a_mode(dev, card, tmp, what, layout, dataset, mode, sensor, n, kw, rerun_frame):
@@ -2307,6 +2351,111 @@ def _cpu_refine(captured: dict) -> tuple:
     return ini.applied_transform
 
 
+@contextlib.contextmanager
+def _stage_syncs(into: dict):
+    """Within the block, the host syncs each mapping stage (`LocalMapper.STAGES`)
+    made, appended per stage name to `into`: the syncs that the runner's
+    sync-debug mode recorded while the stage ran."""
+    from orbslam3_tpu_torch.pipeline.local_mapping import LocalMapper
+
+    stages = LocalMapper.STAGES
+
+    def counted(fn):
+        def stage(self, kf_id):
+            log = getattr(warnings._showwarnmsg_impl, "__self__", None)  # catch_warnings' list
+            n0 = len(log) if isinstance(log, list) else None
+            out = fn(self, kf_id)
+            if n0 is not None:
+                into.setdefault(fn.__name__, []).append(
+                    sum("synchroniz" in str(w.message) for w in log[n0:]))
+            return out
+
+        return stage
+
+    LocalMapper.STAGES = tuple(counted(f) for f in stages)
+    try:
+        yield into
+    finally:
+        LocalMapper.STAGES = stages
+
+
+def _plain_prefix(argv: list, rows: list, n: int, what: str) -> str:
+    """The runner's first `n` frames again through the plain versions of B1 and
+    B2 (`--max-frames n`), held to the kernels' run: every frame's state,
+    keyframe count, IMU stages and pose-inertial choice equal, its pose, IMU
+    prediction and tracked centre within 1e-4."""
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch import run_sequence
+    from orbslam3_tpu_torch.ops import _build
+
+    keep = ("state", "n_kf", "keyframe", "imu_init", "viba1", "viba2", "pi_taken", "refined")
+    t0 = time.perf_counter()
+    with _build.force_plain(), E.record_frames() as plain, \
+            contextlib.redirect_stdout(io.StringIO()):
+        run_sequence.main(argv + ["--max-frames", str(n)])
+    took = time.perf_counter() - t0
+    check(len(plain) == n, f"{what} plain prefix: {len(plain)} frames, not {n}")
+    d = 0.0
+    for k, (a, b) in enumerate(zip(rows, plain)):
+        check([getattr(a, f) for f in keep] == [getattr(b, f) for f in keep],
+              f"{what} plain prefix: frame {k} differs: {a[:3]}, {b[:3]}")
+        for x, y in ((a.R, b.R), (a.t, b.t), (a.pred, b.pred), (a.centre, b.centre)):
+            check((x is None) == (y is None), f"{what} plain prefix: frame {k}'s records differ")
+            if x is not None:
+                d = max(d, float(np.abs(np.asarray(x) - np.asarray(y)).max()))
+    check(d <= 1e-4, f"{what} plain prefix: poses within {d}")
+    return (f"{n} frames again through the plain versions ({took:.1f} s): states, keyframes, IMU "
+            f"stages and the pose-inertial choice equal on every frame, poses, IMU predictions "
+            f"and tracked centres within {d:.1e}")
+
+
+def _c20_line(rows: list, what: str, jax: dict) -> dict:
+    """Fault C20's numbers of a run (`entry.imu_prediction_errors`), printed
+    beside the JAX runner's; `shows` lists the stages whose next frame is
+    above C20_FACTOR x the median and C20_FLOOR."""
+    from orbslam3_tpu_torch import entry as E
+
+    c20 = E.imu_prediction_errors(rows)
+    med = c20["median"]
+    c20["shows"] = [name for name, e in c20["after"].items() if e is not None and med is not None
+                    and e > C20_FACTOR * med and e > C20_FLOOR]
+    fmt = lambda d: {k: None if v is None else round(v, 6) for k, v in d.items()}  # noqa: E731
+    print(f"{what} IMU prediction against the tracked camera centre (fault C20), m: on the frame "
+          f"after each IMU stage's tick {fmt(c20['after'])} (stages' frames {c20['stages']}); the "
+          f"other {c20['n']} frames after the IMU initialization median "
+          f"{med if med is None else round(med, 6)}, largest "
+          f"{[(k, round(e, 6)) for k, e in c20['largest']]}; the JAX runner "
+          f"{fmt(jax['c20']['after'])}, median {jax['c20']['median']}; above {C20_FACTOR:g} x the "
+          f"median and {C20_FLOOR} m: {c20['shows'] or 'none'}")
+    return c20
+
+
+def _vi_runner_lines(summ: dict, rows: list, stages: dict, stage_syncs: dict, calls: list,
+                     base: int, after: int, what: str, card: str, sync_ms: dict | None) -> None:
+    """Syncs per frame kind (the IMU stages' frames their own kinds) gated for
+    the tracked frames (`base` before the IMU initialization, `after` after
+    it); the syncs of each mapping stage; frame ms percentiles."""
+    init = stages.get("imu_init")
+    by_kind = _syncs_by_kind(summ, init, what, stages)
+    _check_tracked_syncs(by_kind, {"tracked before IMU init": base,
+                                   "tracked after IMU init": after}, calls, what)
+    print(f"{what} syncs and ms per frame kind: {_kind_line(by_kind)} [{card}]")
+    med = statistics.median
+    print(f"{what} host syncs per asynchronous mapping stage: " + "; ".join(
+        f"{name} {len(v)} runs, median {med(v)}, max {max(v)}"
+        for name, v in stage_syncs.items() if v))
+    ms = summ["frame_ms"]
+    line = (f"{what} frame ms: median {med(ms):.2f}, p95 {float(np.percentile(ms, 95)):.2f}, max "
+            f"{max(ms):.2f} (frame {int(np.argmax(ms))}), {len(ms) / (sum(ms) / 1e3):.2f} frames/s")
+    if sync_ms:
+        line += (f"; with --sync-mapping --no-loop (PERF.md): median {sync_ms['median']}, p95 "
+                 f"{sync_ms['p95']}, max {sync_ms['max']}")
+    print(line + f" [{card}]")
+    print(f"{what} ms of the frames whose tick completed an IMU stage: " + "; ".join(
+        f"{name} frame {k} {ms[k]:.2f} ms ({(summ['syncs'] or [None] * len(ms))[k]} syncs)"
+        for name, k in stages.items()) + f" [{card}]")
+
+
 def _phase19b_mono_inertial(dev, card, tmp) -> dict:
     from orbslam3_tpu_torch import entry as E
     from orbslam3_tpu_torch import spans
@@ -2353,19 +2502,19 @@ def _phase19b_mono_inertial(dev, card, tmp) -> dict:
 
     out, kf_out = os.path.join(tmp, "mono_vi.txt"), os.path.join(tmp, "mono_vi_kf.txt")
     argv = [os.path.join(seq, "settings.yaml"), seq, "--dataset", "euroc", "--mode", "mono-vi",
-            "--sync-mapping", "--no-loop", "--out", out, "--kf-out", kf_out, "--kmax",
-            str(RUNNER_KMAX), "--pmax", str(RUNNER_PMAX)]
+            "--out", out, "--kf-out", kf_out, "--kmax", str(RUNNER_KMAX), "--pmax",
+            str(RUNNER_PMAX)]
     isup.ImuInitializer.refine_scale = watched
     try:
-        res, rows, launches, sites, _, calls = _run_runner(argv)
+        with _stage_syncs({}) as stage_syncs:
+            res, rows, launches, sites, _, calls = _run_runner(argv)
     finally:
         isup.ImuInitializer.refine_scale = refine
     slam, summ = res["system"], {k: v for k, v in res.items() if k not in ("system", "spans")}
     states = [r.state for r in rows]
     first_ok = states.index("OK") if "OK" in states else None
-    init = next((k for k, r in enumerate(rows) if r.imu_init), None)
-    viba1 = next((k for k, r in enumerate(rows) if r.viba1), None)
-    viba2 = next((k for k, r in enumerate(rows) if r.viba2), None)
+    stages = E.imu_stage_frames(rows)
+    init, viba1, viba2 = (stages.get(k) for k in ("imu_init", "viba1", "viba2"))
     init_kfs = rows[init].n_kf if init is not None else None
     gt = datasets.load_groundtruth_euroc(seq)
     ts, pos = slam.get_trajectory()
@@ -2374,22 +2523,30 @@ def _phase19b_mono_inertial(dev, card, tmp) -> dict:
     scale = ate_scale(ts, pos, gt[0], gt[1])
     after = [k for k in range(init + 1, N19B) if states[k] == "OK"] if init is not None else []
     share = sum(rows[k].pi_taken for k in after) / max(len(after), 1)
-    print(f"phase 19b outcome: map initialized at frame {first_ok}, IMU at frame {init} with "
+    print(f"phase 19b outcome (the runner at its defaults: {summ['mapping']} mapping, place "
+          f"recognition, the Atlas): map initialized at frame {first_ok}, IMU at frame {init} with "
           f"{init_kfs} keyframes (JAX runner {jx['imu_init_frame']}, {jx['imu_init_kfs']}), VIBA1 "
           f"at frame {viba1} (JAX {jx['viba1_frame']}), VIBA2 at {viba2} (JAX "
           f"{jx['viba2_frame']}), scale refinements "
           f"{[(r['frame'], r['n_kf'], r['ok'], r['scale']) for r in refines]} (frame, keyframes, "
           f"applied, scale; JAX's first at frame {jx['refine_frame']} with {jx['refine_kfs']} "
-          f"keyframes); {summ['n_kf']} keyframes; SE3 ATE {ate_se3:.6f} m (JAX {jx['ate_se3']}), "
-          f"Sim3 ATE {ate_sim3:.6f} m (JAX {jx['ate_sim3']}), scale {scale:.5f} (JAX "
-          f"{jx['scale']}); pose-inertial result on {share:.4f} of {len(after)} frames after the "
-          f"IMU initialization; states { {x: states.count(x) for x in sorted(set(states))} }",
-          flush=True)
+          f"keyframes); {summ['n_kf']} keyframes, {summ['n_loops']} loops, {summ['merges']} "
+          f"merges; SE3 ATE {ate_se3:.6f} m (JAX {jx['ate_se3']}), Sim3 ATE {ate_sim3:.6f} m (JAX "
+          f"{jx['ate_sim3']}), scale {scale:.5f} (JAX {jx['scale']}); pose-inertial result on "
+          f"{share:.4f} of {len(after)} frames after the IMU initialization; states "
+          f"{ {x: states.count(x) for x in sorted(set(states))} }", flush=True)
+    check(summ["mapping"] == "asynchronous" and summ["mapper_idle"],
+          f"phase 19b: mapping {summ['mapping']}, idle after shutdown {summ['mapper_idle']}")
     check(first_ok is not None and all(x == "OK" for x in states[first_ok:]),
           f"phase 19b: a frame not OK after the map's initialization")
     check(init_kfs is not None and abs(init_kfs - jx["imu_init_kfs"]) <= 2,
           f"phase 19b: IMU initialized with {init_kfs} keyframes, JAX {jx['imu_init_kfs']}")
     check(viba1 is not None and viba2 is not None, "phase 19b: VIBA1 or VIBA2 did not run")
+    for name in ("viba1", "viba2"):
+        k = stages.get(name)
+        check(k is not None and abs(rows[k].n_kf - jx[f"{name}_kfs"]) <= 2,
+              f"phase 19b: {name} at frame {k} ({k is not None and rows[k].n_kf} keyframes), JAX "
+              f"{jx[f'{name}_kfs']} at frame {jx[f'{name}_frame']}")
     check(refines and abs(refines[0]["n_kf"] - jx["refine_kfs"]) <= 2,
           f"phase 19b: first scale refinement with {refines[0]['n_kf'] if refines else None} "
           f"keyframes, JAX {jx['refine_kfs']}")
@@ -2409,18 +2566,10 @@ def _phase19b_mono_inertial(dev, card, tmp) -> dict:
         print(f"phase 19b first scale refinement (frame {r0['frame']}) again on the CPU from its "
               f"inputs: scale {s_cpu:.7f} vs the card's {r0['scale']:.7f} (|d| {d_s:.2e}), Rwg "
               f"within {d_R:.2e} (gate 1e-4 each)")
-    by_kind = _syncs_by_kind(summ, init, "phase 19b")
-    _check_tracked_syncs(by_kind, {"tracked before IMU init": Tracker.HOST_SYNCS_PER_FRAME,
-                                   "tracked after IMU init": Tracker.HOST_SYNCS_PER_INERTIAL_FRAME},
-                         calls, "phase 19b")
-    ms = summ["frame_ms"]
-    special = {"IMU init": init, "VIBA1": viba1, "VIBA2": viba2}
-    special.update({f"refinement {i + 1}": r["frame"] for i, r in enumerate(refines)})
-    print(f"phase 19b syncs and ms per frame kind: {_kind_line(by_kind)} [{card}]")
-    print("phase 19b ms of the inertial stages' frames: " + "; ".join(
-        f"{name} frame {k} {ms[k]:.2f} ms ({(summ['syncs'] or [None] * N19B)[k]} syncs)"
-        for name, k in special.items() if k is not None) + f"; frames/s "
-          f"{N19B / (sum(ms) / 1e3):.2f} over {N19B} frames [{card}]")
+    _vi_runner_lines(summ, rows, stages, stage_syncs, calls, Tracker.HOST_SYNCS_PER_FRAME,
+                     Tracker.HOST_SYNCS_PER_INERTIAL_FRAME, "phase 19b", card, SYNC19B_MS)
+    c20 = _c20_line(rows, "phase 19b", jx)
+    check(not c20["shows"], f"phase 19b: the IMU prediction after {c20['shows']} (fault C20)")
     spans_ = res["spans"]
     for name in ("try_initialize", "full VI-BA", "scale refinement", "local inertial BA"):
         v = spans_.get(name, [])
@@ -2431,6 +2580,68 @@ def _phase19b_mono_inertial(dev, card, tmp) -> dict:
     check(launches["fast_nms"] == N19B and sites.get("local map", 0) > 0,
           f"phase 19b: launches {launches}, B1 by site {sites}")
     print(f"phase 19b launches on the main path {launches}; B1 by site {sites}")
+    print(f"phase 19b kernels vs plain: {_plain_prefix(argv, rows, init + PREFIX19, 'phase 19b')}")
+    return launches
+
+
+def _phase19c_stereo_inertial(dev, card, tmp) -> dict:
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch.ate import ate_rmse, ate_scale
+    from orbslam3_tpu_torch.io import datasets
+    from orbslam3_tpu_torch.pipeline.tracking import Tracker
+
+    jx = JAX_SVI_RUNNER
+    seq = os.path.join(tmp, "stereo_vi")
+    t0 = time.perf_counter()
+    E.write_euroc_sequence(seq, N19C, 0, imu=True, fisheye=True)
+    t1 = time.perf_counter()
+    digest = datasets.sequence_digest(seq)
+    print(f"phase 19c sequence: {N19C} frames of config 4 (the 512x512 KB8 pair) with its 200 Hz "
+          f"IMU in the TUM-VI layout, written in {t1 - t0:.1f} s; sha256 {digest} "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    check(digest == SEQ19C_DIGEST, f"phase 19c: the sequence's digest {digest} is not the CPU's "
+          f"{SEQ19C_DIGEST}")
+    out, kf_out = os.path.join(tmp, "stereo_vi.txt"), os.path.join(tmp, "stereo_vi_kf.txt")
+    argv = [os.path.join(seq, "settings.yaml"), seq, "--dataset", "tumvi", "--mode", "stereo-vi",
+            "--out", out, "--kf-out", kf_out, "--kmax", str(RUNNER_KMAX), "--pmax",
+            str(RUNNER_PMAX)]
+    with _stage_syncs({}) as stage_syncs:
+        res, rows, launches, sites, _, calls = _run_runner(argv)
+    slam, summ = res["system"], {k: v for k, v in res.items() if k not in ("system", "spans")}
+    states = [r.state for r in rows]
+    stages = E.imu_stage_frames(rows)
+    init, viba1 = stages.get("imu_init"), stages.get("viba1")
+    init_kfs = rows[init].n_kf if init is not None else None
+    gt = datasets.load_groundtruth_euroc(seq)
+    ts, pos = slam.get_trajectory()
+    ate_se3 = ate_rmse(ts, pos, gt[0], gt[1], with_scale=False)
+    scale = ate_scale(ts, pos, gt[0], gt[1])
+    after = [k for k in range(init + 1, N19C) if states[k] == "OK"] if init is not None else []
+    share = sum(rows[k].pi_taken for k in after) / max(len(after), 1)
+    gate = max(2 * jx["ate_se3"], 0.01)
+    print(f"phase 19c outcome (the runner at its defaults: {summ['mapping']} mapping, place "
+          f"recognition, the Atlas): IMU at frame {init} with {init_kfs} keyframes (JAX runner "
+          f"{jx['imu_init_frame']}, {jx['imu_init_kfs']}), VIBA1 at frame {viba1} (JAX "
+          f"{jx['viba1_frame']}); {summ['n_kf']} keyframes, {summ['n_loops']} loops, "
+          f"{summ['merges']} merges; SE3 ATE {ate_se3:.6f} m (gate {gate:.6f}: 2 x JAX's "
+          f"{jx['ate_se3']}, or 0.01), Sim3 scale {scale:.5f}; pose-inertial result on "
+          f"{share:.4f} of {len(after)} frames after the IMU initialization; states "
+          f"{ {x: states.count(x) for x in sorted(set(states))} }", flush=True)
+    check(summ["mapping"] == "asynchronous" and summ["mapper_idle"],
+          f"phase 19c: mapping {summ['mapping']}, idle after shutdown {summ['mapper_idle']}")
+    check(all(x == "OK" for x in states), f"phase 19c: a frame not OK: {states}")
+    check(init_kfs is not None and abs(init_kfs - jx["imu_init_kfs"]) <= 2,
+          f"phase 19c: IMU initialized with {init_kfs} keyframes, JAX {jx['imu_init_kfs']}")
+    check(viba1 is not None, "phase 19c: VIBA1 did not run")
+    check(np.isfinite(pos).all() and ate_se3 <= gate, f"phase 19c: SE3 ATE {ate_se3} above {gate}")
+    _vi_runner_lines(summ, rows, stages, stage_syncs, calls, Tracker.HOST_SYNCS_PER_STEREO_FRAME,
+                     Tracker.HOST_SYNCS_PER_STEREO_INERTIAL_FRAME, "phase 19c", card, None)
+    c20 = _c20_line(rows, "phase 19c", jx)
+    check(not c20["shows"], f"phase 19c: the IMU prediction after {c20['shows']} (fault C20)")
+    check(launches["fast_nms"] == 2 * N19C and sites.get("local map", 0) > 0,
+          f"phase 19c: launches {launches}, B1 by site {sites}")
+    print(f"phase 19c launches on the main path {launches}; B1 by site {sites}")
+    print(f"phase 19c kernels vs plain: {_plain_prefix(argv, rows, init + PREFIX19, 'phase 19c')}")
     return launches
 
 

@@ -51,6 +51,7 @@ import json
 import os
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, NamedTuple
 
@@ -610,6 +611,7 @@ def euroc_frames(n_frames: int, seed: int = 0, t_loop: float | None = None,
 
 _SEQUENCES: dict = {}  # euroc_frames' arguments but n_frames and imu -> _Sequence
 _LOADED: dict = {}  # the same key -> (ts, imgs, centres) that load_frames read
+RENDER_THREADS = min(8, os.cpu_count() or 1)  # threads that ray-cast a sequence's frames
 
 
 def clear_frames() -> None:
@@ -714,34 +716,44 @@ class _Sequence:
             rng.bit_generator.state = self.states[n - 1]
         return rng
 
-    def _render(self, k: int, rng: np.random.Generator):
-        """Frame k's image(s), drawing its noise from `rng` (in the state
-        after frame k - 1), and its time, centre and depth."""
+    def _views(self, k: int):
+        """Frame k's noise-free view(s) (None for a covered lens), its time,
+        centre and depth: a function of k alone."""
         M = self.M
-        shape = (M.H, M.W) if self.dirs is None else self.dirs.shape[:2]
-
-        def noisy(img):
-            return np.clip(img + rng.normal(0, 1.5, img.shape), 0, 255).astype(np.uint8)
-
-        def view(R_render, p, dirs_i, covered):
-            if covered:  # a covered lens; its noise is drawn all the same
-                noisy(np.zeros(shape))
-                return np.full(shape, 35, np.uint8)
-            return noisy(M.render(self.tex, R_render, p, dirs=dirs_i))
-
         kidnap = self.kidnap
         src = k if kidnap is None or k < kidnap[0] else kidnap[1] + k - kidnap[0]
         R_wc, p = M.pose_at(src / M.CAM_HZ)
         R_render = R_wc @ self.R_raw if self.raw else R_wc
         covered = self.covered(k)
-        img = view(R_render, p, self.dirs, covered)
+        views = [None if covered else M.render(self.tex, R_render, p, dirs=self.dirs)]
         if self.stereo:
             p_r = p + R_wc @ np.array([self.baseline, 0.0, 0.0])
-            img = np.stack([img, view(R_render, p_r, self.dirs_r, covered)])
-        return img, k / M.CAM_HZ, p, ray_depth(M, R_wc, p) if self.depth else None
+            views.append(None if covered else M.render(self.tex, R_render, p_r, dirs=self.dirs_r))
+        return views, k / M.CAM_HZ, p, ray_depth(M, R_wc, p) if self.depth else None
+
+    def _noisy(self, views: list, rng: np.random.Generator):
+        """A frame's image(s) from its views, each drawing its noise from `rng`
+        in turn (a covered lens's noise is drawn all the same)."""
+        M = self.M
+        shape = (M.H, M.W) if self.dirs is None else self.dirs.shape[:2]
+        imgs = []
+        for v in views:
+            noise = rng.normal(0, 1.5, shape if v is None else v.shape)
+            imgs.append(np.full(shape, 35, np.uint8) if v is None
+                        else np.clip(v + noise, 0, 255).astype(np.uint8))
+        return np.stack(imgs) if self.stereo else imgs[0]
+
+    def _render(self, k: int, rng: np.random.Generator):
+        """Frame k's image(s), drawing its noise from `rng` (in the state
+        after frame k - 1), and its time, centre and depth."""
+        views, t, p, depth = self._views(k)
+        return self._noisy(views, rng), t, p, depth
 
     def extend(self, n_frames: int) -> None:
-        """Render the frames up to n_frames - 1 that are not there yet."""
+        """Render the frames up to n_frames - 1 that are not there yet. The
+        noise-free views are ray-cast by RENDER_THREADS threads (numpy's
+        array work releases the interpreter lock); the noise is drawn in
+        frame order, so the frames are those of one thread."""
         for k in range(min(n_frames, len(self.imgs))):
             if self.imgs[k] is None:  # adopted from a sequence that covered it
                 self.imgs[k] = self._render(k, self.generator_after(k))[0]
@@ -752,14 +764,16 @@ class _Sequence:
             self.tex = self.M.make_textures(rng)
         if self.states:
             rng.bit_generator.state = self.states[-1]
-        for k in range(len(self.ts), n_frames):
-            img, t, p, depth = self._render(k, rng)
-            self.imgs.append(img)
-            if self.depth:
-                self.depths.append(depth)
-            self.ts.append(t)
-            self.centres.append(p)
-            self.states.append(rng.bit_generator.state)
+        ks = list(range(len(self.ts), n_frames))
+        with ThreadPoolExecutor(RENDER_THREADS) as pool:
+            for i in range(0, len(ks), 4 * RENDER_THREADS):  # a bounded number in flight
+                for views, t, p, depth in pool.map(self._views, ks[i:i + 4 * RENDER_THREADS]):
+                    self.imgs.append(self._noisy(views, rng))
+                    if self.depth:
+                        self.depths.append(depth)
+                    self.ts.append(t)
+                    self.centres.append(p)
+                    self.states.append(rng.bit_generator.state)
 
 
 def _configured(fisheye: bool = False, t_loop: float | None = None):
@@ -1041,6 +1055,50 @@ class FrameRecord(NamedTuple):
     viba1: bool
     viba2: bool
     pi_taken: bool  # the frame took the pose-inertial result
+    refined: bool = False  # a scale refinement moved the map in this call
+    pred: np.ndarray | None = None  # the camera centre of the frame's IMU prediction
+    centre: np.ndarray | None = None  # the tracked camera centre, before the call's tick
+
+    def pred_err(self) -> float | None:
+        """|IMU prediction - tracked camera centre| (m), where the frame had both."""
+        if self.pred is None or self.centre is None:
+            return None
+        return float(np.linalg.norm(self.pred - self.centre))
+
+
+def imu_stage_frames(rows: list) -> dict:
+    """{stage: the frame whose call completed it} of `record_frames` rows:
+    the IMU initialization, VIBA1, VIBA2 and each applied scale refinement
+    ("refinement 1", ...). Under asynchronous mapping a stage completes in
+    the tick after the frame's tracking, so the next frame is the first that
+    starts from it."""
+    out = {}
+    for name in ("imu_init", "viba1", "viba2"):
+        k = next((k for k, r in enumerate(rows) if getattr(r, name)), None)
+        if k is not None:
+            out[name] = k
+    for i, k in enumerate(k for k, r in enumerate(rows) if r.refined):
+        out[f"refinement {i + 1}"] = k
+    return out
+
+
+def imu_prediction_errors(rows: list) -> dict:
+    """Fault C20's numbers from `record_frames` rows: `stages`
+    (`imu_stage_frames`); `after`, per stage, the distance (m) between the
+    IMU prediction and the tracked camera centre on the frame after the call
+    that completed it, the first frame to start from it (None past the last
+    frame); and over the other frames after the IMU initialization that have
+    both, their `median`, their count `n` and the three `largest` (frame, m)."""
+    stages = imu_stage_frames(rows)
+    after = {k + 1 for k in stages.values()}
+    init = stages.get("imu_init")
+    rest = {k: r.pred_err() for k, r in enumerate(rows) if init is not None and k > init
+            and k not in after and r.pred_err() is not None}
+    return dict(stages=stages,
+                after={name: rows[k + 1].pred_err() if k + 1 < len(rows) else None
+                       for name, k in stages.items()},
+                median=float(np.median(list(rest.values()))) if rest else None, n=len(rest),
+                largest=sorted(rest.items(), key=lambda x: -x[1])[:3])
 
 
 @contextlib.contextmanager
@@ -1048,15 +1106,22 @@ def record_frames():
     """Within the block, every `System.track_monocular` / `track_stereo` /
     `track_rgbd` call of any System appends its `FrameRecord` (numpy copies,
     host state only: no device read) to the list it yields. It watches a run
-    from outside, the runner's as well as a direct drive."""
+    from outside, the runner's as well as a direct drive. With an IMU it also
+    keeps the frame's IMU prediction (the host copy `Tracker._imu_predict`
+    fetched), the tracked camera centre before the frame's tick of background
+    work (`System._tick_gba`) may move the map, and whether a scale
+    refinement was applied."""
+    from orbslam3_tpu_torch.pipeline import inertial_support as isup
+    from orbslam3_tpu_torch.pipeline.tracking import Tracker
     from orbslam3_tpu_torch.system import System
 
-    rows, originals = [], {}
+    rows, originals, seen = [], {}, {}
 
     def recording(name):
-        fn = originals[name] = getattr(System, name)
+        fn = originals[System, name] = getattr(System, name)
 
         def track(self, *args, **kw):
+            seen.clear()
             out = fn(self, *args, **kw)
             ini = self.mapper.imu_init
             rows.append(FrameRecord(self.tracking_state.name, self.n_keyframes,
@@ -1064,18 +1129,42 @@ def record_frames():
                                     np.array(out.t), bool(self.mapper.imu_initialized),
                                     bool(ini is not None and ini.viba1_done),
                                     bool(ini is not None and ini.viba2_done),
-                                    bool(self.tracker.pi_taken)))
+                                    bool(self.tracker.pi_taken), bool(seen.get("refined")),
+                                    seen.get("pred"), seen.get("centre")))
             return out
 
         return track
 
+    def tick(self):
+        last = self.tracker.last_frame
+        if self.tracker.imu_calib is not None and last is not None \
+                and self.tracking_state.name == "OK":
+            R, t = np.asarray(last.R, np.float64), np.asarray(last.t, np.float64)
+            seen["centre"] = -R.T @ t
+        return originals[System, "_tick_gba"](self)
+
+    def imu_predict(self, last):
+        out = originals[Tracker, "_imu_predict"](self, last)
+        R, t = np.asarray(out[0], np.float64), np.asarray(out[1], np.float64)
+        seen["pred"] = -R.T @ t
+        return out
+
+    def refine_scale(self, *args, **kw):
+        ok = originals[isup.ImuInitializer, "refine_scale"](self, *args, **kw)
+        seen["refined"] = seen.get("refined", False) or bool(ok)
+        return ok
+
     for name in ("track_monocular", "track_stereo", "track_rgbd"):
         setattr(System, name, recording(name))
+    for cls, name, fn in ((System, "_tick_gba", tick), (Tracker, "_imu_predict", imu_predict),
+                          (isup.ImuInitializer, "refine_scale", refine_scale)):
+        originals[cls, name] = getattr(cls, name)
+        setattr(cls, name, fn)
     try:
         yield rows
     finally:
-        for name, fn in originals.items():
-            setattr(System, name, fn)
+        for (cls, name), fn in originals.items():
+            setattr(cls, name, fn)
 
 
 RUNNER_MODES = ("mono", "mono-vi", "stereo", "stereo-vi", "rgbd")  # run_sequence's --mode

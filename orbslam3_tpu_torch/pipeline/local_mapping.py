@@ -403,6 +403,10 @@ class LocalMapper:
         self.imu_init = isup.ImuInitializer(imu_calib, mono=mono) if imu_calib is not None else None
         self.bad_imu = False  # watchdog flag (ref mbBadImu, LocalMapping.cc:192)
         self._last_scale_ref_ts = -1e18
+        # IMU stages completed (the initialization, VIBA1, VIBA2, an applied
+        # scale refinement): `System._tick_gba` hands the tracker the new state
+        # after a tick that completed one.
+        self.n_imu_stages = 0
         if imu_calib is not None:
             self.Rbc = imu_calib.Rbc.cpu().numpy()
             self.tbc = imu_calib.tbc.cpu().numpy()
@@ -835,6 +839,7 @@ class LocalMapper:
         if self.tracker is not None:
             self.tracker.imu_ready = True
         self._sync_tracker(kf_id)
+        self.n_imu_stages += 1
 
     def _viba_staging(self, kf_id: int):
         """The refinements after initialization (`LocalMapping.cc:232-273`),
@@ -850,25 +855,34 @@ class LocalMapper:
         if not ini.viba1_done and tinit > 5.0:
             self._full_inertial_ba(kf_id, prior_gyro=1.0, prior_acc=1e5)
             ini.viba1_done = True
+            self.n_imu_stages += 1
         elif ini.viba1_done and not ini.viba2_done and tinit > 15.0:
             self._full_inertial_ba(kf_id, prior_gyro=0.0, prior_acc=0.0)
             ini.viba2_done = True
+            self.n_imu_stages += 1
         elif (ini.mono and ini.viba2_done and 25.0 < tinit < 75.0
               and now - self._last_scale_ref_ts >= 10.0):
             self._last_scale_ref_ts = now
             ini.applied_transform = None
             with spans.span("scale refinement"):
-                ini.refine_scale(self.store, self.preints, self.Rbc, self.tbc)
+                applied = ini.refine_scale(self.store, self.preints, self.Rbc, self.tbc)
             self._sync_tracker(kf_id)
+            self.n_imu_stages += bool(applied)
 
     def _full_inertial_ba(self, kf_id: int, prior_gyro: float, prior_acc: float):
         """Whole-map VI-BA (`Optimizer::FullInertialBA`, `Optimizer.cc:473`):
-        the temporal chain from this keyframe back to the map's origin, the
-        window bucketed to a multiple of 16, 10 iterations."""
+        the temporal chain from the map's newest keyframe back to its origin,
+        the window bucketed to a multiple of 16, 10 iterations. The newest
+        keyframe is this pass's own, except under asynchronous mapping, where
+        keyframes inserted since wait for their passes: ORB-SLAM3 optimizes
+        every keyframe of the map, and the tracker's next frames start from
+        the newest one's velocity (`Tracker.update_frame_imu`, fault C20)."""
         n_live = self.store.n_kf - len(self.store.free_kf_slots)
         window = max(16 * ((n_live + 15) // 16), 16)
+        ids = np.flatnonzero(_np(self.store.state.kf_valid)[: self.store.n_kf])
+        newest = int(ids[np.argmax(self.store.kf_ts[ids])]) if len(ids) else kf_id
         with spans.span("full VI-BA"):
-            self._local_inertial_ba(kf_id, window=window, prior_gyro=prior_gyro,
+            self._local_inertial_ba(newest, window=window, prior_gyro=prior_gyro,
                                     prior_acc=prior_acc, iters=10)
 
     def _local_inertial_ba(self, kf_id: int, window: int = 10, prior_gyro: float = 1e2,

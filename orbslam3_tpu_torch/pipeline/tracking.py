@@ -613,6 +613,34 @@ class Tracker:
         last.R = (R_cr @ R_r).astype(np.float32)
         last.t = (R_cr @ t_r + t_cr).astype(np.float32)
 
+    def update_frame_imu(self):
+        """`Tracking::UpdateFrameIMU` (`Tracking.cc:3161-3224`) after an IMU
+        stage that completed in a later frame's tick (asynchronous mapping):
+        the last frame's pose and body velocity are re-predicted from its
+        keyframe's new state (pose, velocity, biases) through the
+        preintegration since that keyframe (`pre_from_kf`), or are that
+        keyframe's when the last frame inserted it; the biases become the
+        keyframe's. The marginalization prior, from before the stage, is
+        dropped. One fetch (fault C20: the keyframe velocity the stage handed
+        over, `LocalMapper._sync_tracker`, is that of the pass's keyframe,
+        frames older than the last one)."""
+        last, k = self.last_frame, self.last_kf_id
+        if last is None or k < 0:
+            return
+        s = self.store.state
+        R, t, v = s.kf_R[k], s.kf_t[k], s.kf_vel[k]
+        bg, ba = s.kf_bias_g[k], s.kf_bias_a[k]
+        if self.last_kf_frame_id != last.frame_id and self.pre_from_kf is not None:
+            cal = self.imu_calib
+            R_wb, p_wb = isup.cam_to_body(R, t, cal.Rbc, cal.tbc)
+            R1, v, p1 = isup.predict_state(R_wb, p_wb, v, bg, ba, self.pre_from_kf)
+            R, t = isup.body_to_cam(R1, p1, cal.Rbc, cal.tbc)
+        b = fetch_bundle(dict(R=R, t=t, v=v, bg=bg, ba=ba))
+        last.R, last.t = b["R"], b["t"]
+        self.body_vel, self.bias_g, self.bias_a = b["v"], b["bg"], b["ba"]
+        self.frame_prior = None
+        self._ref_pose = None
+
     def _obs_count_cached(self):
         """Per-point observation counts, recomputed only when the map moved
         (`compute_obs_count`)."""

@@ -339,15 +339,21 @@ class System:
     def _tick_gba(self):
         """After each frame, one stage of an asynchronous mapping pass (the
         reference's LocalMapping thread, time-sliced) and one chunk of a
-        running background GBA (its transient GBA thread). Where the stage,
-        or the loop closing or merge after it, moved the map, the last frame
-        follows it (`Tracker.follow_map`, fault C17)."""
+        running background GBA (its transient GBA thread). Where the stage
+        completed an IMU stage (the initialization, VIBA1, VIBA2, a scale
+        refinement), the last frame's pose and velocity are re-predicted from
+        its keyframe's new state (`Tracker.update_frame_imu`, fault C20);
+        where else the stage, or the loop closing or merge after it, moved the
+        map, the last frame follows it (`Tracker.follow_map`, fault C17)."""
         am = self.async_mapper
         if am is not None and not am.idle():
             tr = self.tracker
             loops, store, tr._map_transformed = self.n_loops_closed, self.store, False
+            stages = self.mapper.n_imu_stages
             am.tick()
-            if self.n_loops_closed > loops or tr._map_transformed or self.store is not store:
+            if self.mapper.n_imu_stages > stages and self.store is store and tr.imu_ready:
+                tr.update_frame_imu()
+            elif self.n_loops_closed > loops or tr._map_transformed or self.store is not store:
                 tr.follow_map()
         lc = self.loop_closer
         if lc is not None and lc.gba_async is not None and lc.gba_async.running:

@@ -4,7 +4,9 @@
     JAX_PLATFORMS=cpu python tests/jax_runner_lap.py --seq DIR [--frames 260] \
         [--t-loop 8] [--sync-mapping] [--out FILE]
     JAX_PLATFORMS=cpu python tests/jax_runner_lap.py --seq DIR --frames 530 \
-        --mode mono-vi --no-loop --sync-mapping --kmax 256 --pmax 16384 --c13
+        --mode mono-vi --kmax 256 --pmax 16384 --c13
+    JAX_PLATFORMS=cpu python tests/jax_runner_lap.py --seq DIR --frames 130 \
+        --mode stereo-vi --kmax 256 --pmax 16384 --c13
 
 Writes `entry.write_euroc_sequence(DIR, frames, seed 0, t_loop, imu=True)` with the
 port's writer (752x480, `make_synth_euroc.py`'s settings: 1000 features, 8
@@ -30,6 +32,20 @@ transform's scale), plus the SE3 (unscaled) ATE and the Sim3 scale. `--no-loop`,
 JAX `Tracker` as `tests/jax_vi_replay.py --c13` does (chip_smoke phase 19b's
 constants come from `--c13`). The IMU noise is drawn after every image, so
 the constants of an N-frame sequence come from `--frames N`.
+
+`--mode stereo-vi` writes config 4's sequence instead (`fisheye=True`, the
+TUM-VI layout of `make_synth_euroc.py --fisheye`: the 512x512 KB8 pair, its
+settings and IMU) and replays it with `--dataset tumvi --mode stereo-vi`;
+its ATE is the SE3 one, as the runner prints it for a metric sensor.
+
+In both inertial modes it also records every frame's IMU prediction (the
+camera centre of `predict_state` through the last gap, taken where the
+`Tracker` turns it into a camera pose) and the tracked camera centre after
+the frame, and prints fault C20's numbers (ROADMAP): the distance between
+the two on the first frame after each frame whose call completed an IMU
+stage (the IMU alignment, VIBA1, VIBA2, an applied scale refinement; under
+async mapping the stage runs in that call's tick, after its tracking), and
+the median over the other tracked frames after the IMU initialization.
 Not a test: nothing collects it.
 """
 
@@ -46,6 +62,7 @@ import sys
 import time
 
 import jax
+import numpy as np
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -54,6 +71,7 @@ sys.path.insert(0, REPO)
 
 from orbslam3_tpu.eval.ate import associate, ate_rmse, umeyama  # noqa: E402
 from orbslam3_tpu.optim import ba as jba  # noqa: E402
+from orbslam3_tpu.pipeline import inertial_support as jisup  # noqa: E402
 from orbslam3_tpu.pipeline.inertial_support import ImuInitializer  # noqa: E402
 from orbslam3_tpu.system import System  # noqa: E402
 from orbslam3_tpu_torch import entry as E  # noqa: E402
@@ -65,6 +83,20 @@ from orbslam3_tpu_torch.io import datasets  # noqa: E402
 # and the process dies. Dropping the compiled executables frees them (the
 # persistent compile cache reloads them); the results do not change.
 MAX_MAPS = 40000
+
+
+def c20_errors(pred_err: dict, stages: dict, init_frame) -> dict:
+    """Fault C20's numbers from {frame: |IMU prediction - tracked centre|}
+    and {stage: the frame whose call completed it}: per stage, the error on
+    the frame after it; the median and the largest over the other frames
+    after the IMU initialization."""
+    after_stage = {k + 1 for k in stages.values() if k is not None}
+    rest = sorted(e for k, e in pred_err.items()
+                  if init_frame is not None and k > init_frame and k not in after_stage)
+    med = rest[len(rest) // 2] if len(rest) % 2 else (
+        (rest[len(rest) // 2 - 1] + rest[len(rest) // 2]) / 2 if rest else None)
+    return dict(after={name: pred_err.get(k + 1) for name, k in stages.items() if k is not None},
+                median_other=med, max_other=rest[-1] if rest else None, n_other=len(rest))
 
 
 class _Tee(io.TextIOBase):
@@ -87,7 +119,7 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=260)
     ap.add_argument("--t-loop", type=float, default=None,
                     help="lap seconds (default 8 for mono, the script's 60 for mono-vi)")
-    ap.add_argument("--mode", choices=["mono", "mono-vi"], default="mono")
+    ap.add_argument("--mode", choices=["mono", "mono-vi", "stereo-vi"], default="mono")
     ap.add_argument("--sync-mapping", action="store_true")
     ap.add_argument("--no-loop", action="store_true")
     ap.add_argument("--kmax", type=int, default=None)
@@ -102,17 +134,38 @@ def main(argv=None):
 
         repair_c13()
     t0 = time.time()
+    stereo = a.mode == "stereo-vi"
     if not os.path.exists(os.path.join(a.seq, "settings.yaml")):
-        E.write_euroc_sequence(a.seq, a.frames, 0, t_loop=a.t_loop, imu=True)
+        E.write_euroc_sequence(a.seq, a.frames, 0, t_loop=a.t_loop, imu=True, fisheye=stereo)
     digest = datasets.sequence_digest(a.seq)
     print(f"sequence {a.seq}: sha256 {digest} ({time.time() - t0:.1f} s)", flush=True)
 
     watch = dict(frame=-1, slam=None, loops=[], states=[], refine=[], n_kf=[])
     vi = dict(imu_init_frame=None, imu_init_kfs=None, viba1_frame=None, viba2_frame=None)
-    track = System.track_monocular
+    preds, tracked, pred_err = {}, {}, {}
     refine = ImuInitializer.refine_scale
+    body_to_cam = jisup.body_to_cam
+    tick = System._tick_gba
 
-    def watched(self, *args, **kw):
+    def ticked(self):  # the tracked camera centre, before the tick may move the map
+        last = self.tracker.last_frame
+        if last is not None and self.tracking_state.name == "OK":
+            R, t = np.asarray(last.R, np.float64), np.asarray(last.t, np.float64)
+            tracked[watch["frame"]] = -R.T @ t
+        return tick(self)
+
+    def predicted(R_wb, p_wb, Rbc, tbc):
+        if sys._getframe(1).f_code.co_filename.endswith("tracking.py"):  # the IMU prediction
+            preds[watch["frame"]] = np.asarray(p_wb) + np.asarray(R_wb) @ np.asarray(tbc)
+        return body_to_cam(R_wb, p_wb, Rbc, tbc)
+
+    def watching(track):
+        def watched(self, *args, **kw):
+            return _watched(track, self, *args, **kw)
+
+        return watched
+
+    def _watched(track, self, *args, **kw):
         watch["slam"] = self
         watch["frame"] += 1
         with open("/proc/self/maps") as f:
@@ -123,6 +176,9 @@ def main(argv=None):
                   flush=True)
         n_before = self.loop_closer.n_loops_closed if self.loop_closer else 0
         out = track(self, *args, **kw)
+        k = watch["frame"]
+        if k in preds and k in tracked and self.tracking_state.name == "OK":
+            pred_err[k] = float(np.linalg.norm(preds[k] - tracked[k]))
         if self.loop_closer is not None and self.loop_closer.n_loops_closed > n_before:
             watch["loops"].append(watch["frame"])
         watch["states"].append(self.tracking_state.name)
@@ -145,8 +201,11 @@ def main(argv=None):
                                     scale=None if t is None else float(t[1])))
         return ok
 
-    System.track_monocular = watched
+    System.track_monocular = watching(System.track_monocular)
+    System.track_stereo = watching(System.track_stereo)
     ImuInitializer.refine_scale = watched_refine
+    jisup.body_to_cam = predicted
+    System._tick_gba = ticked
     spec = importlib.util.spec_from_file_location(
         "run_sequence", os.path.join(REPO, "scripts", "run_sequence.py"))
     runner = importlib.util.module_from_spec(spec)
@@ -154,10 +213,10 @@ def main(argv=None):
     out_dir = a.seq.rstrip("/") + "_jax"  # the sequence's directory stays as written
     os.makedirs(out_dir, exist_ok=True)
     traj = os.path.join(out_dir, "sync.txt" if a.sync_mapping else "async.txt")
-    if a.mode == "mono-vi":
-        traj = traj.replace(".txt", "_vi.txt")
+    if a.mode != "mono":
+        traj = traj.replace(".txt", "_vi.txt" if a.mode == "mono-vi" else "_svi.txt")
     argv_run = ["run_sequence.py", os.path.join(a.seq, "settings.yaml"), a.seq,
-                "--dataset", "euroc", "--mode", a.mode, "--out", traj,
+                "--dataset", "tumvi" if stereo else "euroc", "--mode", a.mode, "--out", traj,
                 "--kf-out", traj.replace(".txt", "_kf.txt")]
     if a.sync_mapping:
         argv_run.append("--sync-mapping")
@@ -179,6 +238,10 @@ def main(argv=None):
     gt = datasets.load_groundtruth_euroc(a.seq)
     ate_full = ate_rmse(ts, pos, gt[0], gt[1], with_scale=True)
     ate = re.search(r"ATE RMSE: ([0-9.]+) m", text)
+    stages = dict(imu_init=vi["imu_init_frame"], viba1=vi["viba1_frame"],
+                  viba2=vi["viba2_frame"])
+    stages.update({f"refinement {i + 1}": r["frame"]
+                   for i, r in enumerate(x for x in watch["refine"] if x["ok"])})
     first_ok = next((k for k, s in enumerate(watch["states"]) if s == "OK"), None)
     ia, ib = associate(ts, gt[0])
     out = dict(frames=a.frames, t_loop=a.t_loop, mode=a.mode, sync_mapping=a.sync_mapping,
@@ -187,6 +250,8 @@ def main(argv=None):
                ate_se3=ate_rmse(ts, pos, gt[0], gt[1], with_scale=False),
                scale=float(umeyama(pos[ia], gt[1][ib], with_scale=True)[0]),
                **vi, refine=watch["refine"], n_kf_per_frame=watch["n_kf"],
+               c20=c20_errors(pred_err, stages, vi["imu_init_frame"]),
+               pred_err=[pred_err.get(k) for k in range(len(watch["states"]))],
                states=watch["states"],
                loop_frames=watch["loops"],
                n_loops=lc.n_loops_closed if lc is not None else 0,

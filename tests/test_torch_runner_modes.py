@@ -124,8 +124,8 @@ def _tum_rgbd(root):
              "--pmax", "4096"], slam, datasets.load_tum_rgbd(str(root), assoc), None)
 
 
-def _tumvi_fisheye(root):
-    E.write_euroc_sequence(str(root), 16, 0, imu=True, fisheye=True)
+def _tumvi_fisheye(root, n_frames=16):
+    E.write_euroc_sequence(str(root), n_frames, 0, imu=True, fisheye=True)
     seq = datasets.load_tumvi_images(str(root))
     seq.paths_right = datasets.load_tumvi_images(str(root), cam="cam1").paths
     slam = E.make_system("cpu", "stereo_vi_fisheye", Kmax=32, Pmax=8192)
@@ -152,8 +152,8 @@ def _euroc_stereo(root):
             seq, None)
 
 
-def _euroc_mono_vi(root):
-    ts, imgs, centres, _ = vi_scene.frames(N_VI, VI_T0)
+def _euroc_mono_vi(root, n_frames=N_VI):
+    ts, imgs, centres, _ = vi_scene.frames(n_frames, VI_T0)
     t_imu, acc, gyro = vi_scene.imu_stream(ts[-1] + 0.01)
     n = vi_scene.NOISE
     imu_yaml = ("Tbc: !!opencv-matrix\n   rows: 4\n   cols: 4\n   dt: f\n   data: [1.0, 0.0, 0.0, "
@@ -166,7 +166,7 @@ def _euroc_mono_vi(root):
         str(root), to_ns(ts), [np.clip(np.round(x), 0, 255).astype(np.uint8) for x in imgs],
         _pinhole_yaml(vi_scene.FOCAL, vi_scene.W, vi_scene.H, 10.0, imu_yaml),
         imu=(to_ns(t_imu), gyro, acc),
-        groundtruth=(centres, np.tile([1.0, 0.0, 0.0, 0.0], (N_VI, 1))))
+        groundtruth=(centres, np.tile([1.0, 0.0, 0.0, 0.0], (n_frames, 1))))
     calib = imu_ops.ImuCalib.create(np.eye(3), np.zeros(3), **n, device="cpu")
     slam = System(Sensor.IMU_MONOCULAR, CameraModel.PINHOLE, vi_scene.PARAMS,
                   (vi_scene.W, vi_scene.H), ORB, device="cpu", Kmax=32, Pmax=4096, fps=10.0,
