@@ -128,7 +128,8 @@ writer and gates its digest (decoded pixels and CSV text) equal to the
 CPU's, then runs the runner at its defaults (`run_sequence.main`: async
 mapping, Kmax 512, Pmax 65536, the 97k-word vocabulary, place recognition
 and the Atlas) in this process, and `python -m
-orbslam3_tpu_torch.run_sequence ... --sync-mapping` as a subprocess. Each
+orbslam3_tpu_torch.run_sequence ... --sync-mapping --max-frames 200` (its
+first SYNC16_FRAMES frames) as a subprocess. Each
 run: every frame OK from the map's initialization on, a loop closed within
 30 frames of the JAX runner's on the same files, the closure lowering the
 ATE, a GBA finished on the matrix-free PCG path, the mapper idle after
@@ -138,7 +139,7 @@ ms per frame, syncs and ms per frame kind, the GBA's chunk ms and each
 mapping stage's ms (`mapping/*` spans). In the async run the local-map
 match of one frame runs again through the kernels and through the plain
 versions (equal), and B1 at its 65536-key call is held exact and timed.
-Phase 17 writes config 3's first 80 frames to disk and serves them to an
+Phase 17 writes config 3's first 60 frames to disk and serves them to an
 IMU_MONOCULAR `System` on the card (async mapping, the viewer on) over a
 UNIX socket from a thread, with `serve_stream.replay` as the client: every
 frame answered, the states and poses equal (within 1e-4) to the same
@@ -174,10 +175,10 @@ launches and collectives.
 
 Phase 19 runs the runner's other sensor modes from files on disk. 19a
 writes, with the port's own writers (`entry.write_euroc_sequence`), EuRoC
-stereo (config 2, 60 frames), the TUM-VI stereo-inertial fisheye pair
-(config 4, 70 frames, past its IMU initialization near frame 45), TUM RGB-D (30
+stereo (config 2, 30 frames), the TUM-VI stereo-inertial fisheye pair
+(config 4, 60 frames, past its IMU initialization near frame 45), TUM RGB-D (20
 frames, the ray-cast depth as 16-bit PNGs at DepthMapFactor 5000) and KITTI
-mono (config 1's frames, 30), and runs each through `run_sequence.main(...,
+mono (config 1's frames, 20), and runs each through `run_sequence.main(...,
 "--sync-mapping", "--no-loop", "--kmax", "256", "--pmax", "16384")` in this
 process and through a direct drive of `entry.make_system(cuda, sensor)` on
 the same decoded files (`entry.drive_files`): every frame's state, keyframe
@@ -248,7 +249,40 @@ the frame after the merge and the largest elsewhere (fault C20), ms and
 syncs per
 frame kind (blind, RECENTLY_LOST and LOST frames their own kinds), the
 merging frame's split by span with host clock and CUDA events, B1's
-launches per site and B2's, with the card's name and power limit.
+launches per site and B2's, and its essential graph's largest keyframe
+rotation change and gravity-axis change, with the card's name and power
+limit.
+
+Phase 21 runs config 3 through the runner at its defaults (asynchronous
+mapping, place recognition with the 97k-word vocabulary, the Atlas; Kmax
+256, Pmax 16384) on phase 10's 8 s lap (N21 frames; the sequence phase 16
+writes, with its IMU, the digest the CPU's), on which an inertial loop
+closes, against the JAX runner at the same flags on the same files
+(`tests/jax_runner_lap.py --mode mono-vi --t-loop 8 --frames 260 ... --c13`,
+JAX_VI_LAP; its 4-DoF graph unrepaired, so the gates are outcomes): the IMU
+initialized and VIBA1 each within 2 keyframes of JAX's; a loop closed with
+a keyframe count within 2 of JAX's, every Sim3 scale exactly 1; per 4-DoF
+graph every corrected keyframe's R z within GRAVITY_TOL of its old one and
+the loop edge's rotation residual (the angle of M^-1 S_j S_i^-1), where it
+was above YAW_RESIDUAL_MIN, at least halved (fault C22); a GBA finished
+after the loop; every frame OK after the map's initialization; the
+pose-inertial result on >= 80% of the frames after the IMU initialization
+and of those after the loop's tick; SE3 ATE under max(2 x JAX's, 0.01 m);
+2 syncs a tracked frame before the IMU initialization and 4 after; fault
+C20: no frame after an IMU stage's, the loop's or a GBA's finishing tick
+above C20_FACTOR x the other frames' median and C20_FLOOR (printed beside
+the JAX runner's and the parent checkout's). At the closing pair
+`_verify_sim3` runs again through the kernels and the plain versions
+(exact), and the first correction (graph, points, velocities,
+SearchAndFuse) again from its inputs copied to the CPU at its threads and
+at one: `kf_mp` equal, poses and velocities within 1e-4, points within
+max(1e-4, 2 x the two CPU runs' distance) (C19). The frames through the IMU
+initialization's tick and PREFIX19 after it run again through the plain
+versions (`--max-frames`), equal. It prints the ms and syncs per frame kind
+(the loop's tick, the GBA chunks and finish their own), `_verify_sim3`, the
+graph, the point correction, SearchAndFuse and each GBA chunk by `spans`
+(CUDA events and host clock), B1's launches by site and B2's, with the
+card's name and power limit.
 
 Every run prints how many CUDA graphs the pose solves captured and
 replayed (`optim.graphed`), and the wall time of each phase and of the
@@ -267,8 +301,8 @@ the same inputs.
 
 builds the kernels and runs phase 15 alone (its record holds B1's rows of
 that phase only); `--only 16`, `--only 17` and `--only 19` do the same for
-those and `--only 20` for phase 20, and `--only 18` runs phase 15 (18b's one-device side),
-then phase 18.
+those, `--only 20` and `--only 21` for phases 20 and 21, and `--only 18` runs
+phase 15 (18b's one-device side), then phase 18.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -284,6 +318,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -1611,18 +1646,24 @@ def phase15_multimap(dev) -> dict:
 # vocabulary, place recognition and the Atlas): initialized at frame 1, every
 # frame OK after it, one loop closed (async: keyframe 31 onto 2 after frame
 # 167; sync: 67 onto 5 after frame 156), the GBA finished on the PCG path, 47
-# and 75 keyframes, Sim3 ATE 0.020303 m (async) and 0.012712 m (sync).
+# and 75 keyframes, Sim3 ATE 0.020303 m (async) and 0.012712 m (sync). The
+# `--sync-mapping` run tracks the first SYNC16_FRAMES frames (`--max-frames`,
+# cut from 260 for the time limit); the JAX runner with `--sync-mapping
+# --max-frames 200` (2559 s): the same loop after frame 156, its GBA finished
+# in frame 160's tick, 71 keyframes, Sim3 ATE 0.013689 m.
 SEQ16_FRAMES = 260
 SEQ16_T_LOOP = 8.0
 SEQ16_DIGEST = "2592ec37f0f0b18819bc18b578e12b7c4ce567c6b6aea6bf43b6aa4259e8faed"
+SYNC16_FRAMES = 200
 JAX_RUNNER = {
     "async": dict(ate=0.020303, loop_frame=167, n_kf=47, gba_finished=1),
-    "sync": dict(ate=0.012712, loop_frame=156, n_kf=75, gba_finished=1),
+    "sync": dict(ate=0.013689, loop_frame=156, n_kf=71, gba_finished=1),
 }
 RUNNER_LOOP_SLACK = 30  # frames between the port's first closure and the JAX runner's
 RERUN16_FRAME = 200  # the frame whose local-map match runs again, kernels vs plain
-# Phase 17: the stream server and the viewer, config 3's first 80 frames.
-N_STREAM = 80
+# Phase 17: the stream server and the viewer, config 3's first 60 frames (cut
+# from 80 for the time limit; its IMU initializes near frame 49).
+N_STREAM = 60
 
 
 class _NoSummary:
@@ -1753,7 +1794,7 @@ def _rerun_local_map(frame: int):
         trk._track_local_map_match = orig_lm
 
 
-def phase16_runner(dev, card: str) -> dict:
+def phase16_runner(dev, card: str, lap: str | None = None) -> dict:
     """Phase 16: `python -m orbslam3_tpu_torch.run_sequence` at its defaults
     (asynchronous mapping, Kmax 512, Pmax 65536, the 97k-word vocabulary,
     place recognition and the Atlas) on phase 10's lap written to disk, first
@@ -1761,34 +1802,46 @@ def phase16_runner(dev, card: str) -> dict:
     the local-map match of frame RERUN16_FRAME runs again through the kernels
     and through the plain versions), then with `--sync-mapping` as a
     subprocess, the command as a user types it. Gates and prints in the
-    module docstring. Returns the launches and B1's row at the 65536-key
-    local-map call."""
-    import tempfile
-
+    module docstring. The sequence is written at `lap` when given (phase 21
+    replays it), else in a temporary directory. Returns the launches and
+    B1's row at the 65536-key local-map call."""
     root = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory(prefix="_chip_smoke_seq_", dir=root) as seq:
-        return _phase16_in(seq, root, card)
+    with tempfile.TemporaryDirectory(prefix="_chip_smoke_seq_", dir=root) as tmp:
+        return _phase16_in(lap or os.path.join(tmp, "lap"), tmp, root, card)
 
 
-def _phase16_in(seq: str, root: str, card: str) -> dict:
+def _lap_sequence(seq: str, what: str) -> None:
+    """Phase 10's lap with its IMU in the EuRoC layout at `seq`
+    (`entry.write_euroc_sequence(seq, SEQ16_FRAMES, 0, t_loop=SEQ16_T_LOOP,
+    imu=True)`), written unless an earlier phase of the run wrote it there;
+    its digest must be the CPU's."""
     from orbslam3_tpu_torch import entry as E
-    from orbslam3_tpu_torch import kernel_bench as KB
-    from orbslam3_tpu_torch import run_sequence
     from orbslam3_tpu_torch.io import datasets
-    from orbslam3_tpu_torch.ops import _build, cuda_fast, cuda_match
 
     t0 = time.perf_counter()
-    E.write_euroc_sequence(seq, SEQ16_FRAMES, 0, t_loop=SEQ16_T_LOOP, imu=True)
+    wrote = not os.path.exists(os.path.join(seq, "settings.yaml"))
+    if wrote:
+        E.write_euroc_sequence(seq, SEQ16_FRAMES, 0, t_loop=SEQ16_T_LOOP, imu=True)
     t1 = time.perf_counter()
     digest = datasets.sequence_digest(seq)
-    print(f"phase 16 sequence: {SEQ16_FRAMES} frames of the {SEQ16_T_LOOP:g} s lap in the EuRoC "
-          f"layout, written in {t1 - t0:.1f} s; sha256 of its pixels and CSV text {digest} "
-          f"({time.perf_counter() - t1:.1f} s)", flush=True)
-    check(digest == SEQ16_DIGEST, f"phase 16: the sequence's digest {digest} is not the CPU's "
+    print(f"{what} sequence: {SEQ16_FRAMES} frames of the {SEQ16_T_LOOP:g} s lap with its 200 Hz "
+          f"IMU in the EuRoC layout, " + (f"written in {t1 - t0:.1f} s" if wrote else
+                                           "as an earlier phase wrote it")
+          + f"; sha256 of its pixels and CSV text {digest} ({time.perf_counter() - t1:.1f} s)",
+          flush=True)
+    check(digest == SEQ16_DIGEST, f"{what}: the sequence's digest {digest} is not the CPU's "
           f"{SEQ16_DIGEST}")
+
+
+def _phase16_in(seq: str, tmp: str, root: str, card: str) -> dict:
+    from orbslam3_tpu_torch import kernel_bench as KB
+    from orbslam3_tpu_torch import run_sequence
+    from orbslam3_tpu_torch.ops import _build, cuda_fast, cuda_match
+
+    _lap_sequence(seq, "phase 16")
     settings = os.path.join(seq, "settings.yaml")
 
-    out_a, kf_a = os.path.join(seq, "async.txt"), os.path.join(seq, "async_kf.txt")
+    out_a, kf_a = os.path.join(tmp, "async.txt"), os.path.join(tmp, "async_kf.txt")
     cuda_fast.LAUNCHES = 0
     cuda_match.LAUNCHES = 0
     with _rerun_local_map(RERUN16_FRAME) as rerun, _b1_calls([], keep_args=set()) as calls, \
@@ -1839,10 +1892,10 @@ def _phase16_in(seq: str, root: str, card: str) -> dict:
     del res
     torch.cuda.empty_cache()  # the subprocess's run gets the card's memory back
 
-    out_s, kf_s = os.path.join(seq, "sync.txt"), os.path.join(seq, "sync_kf.txt")
+    out_s, kf_s = os.path.join(tmp, "sync.txt"), os.path.join(tmp, "sync_kf.txt")
     cmd = [sys.executable, "-m", "orbslam3_tpu_torch.run_sequence", settings, seq, "--dataset",
-           "euroc", "--mode", "mono", "--sync-mapping", "--out", out_s, "--kf-out", kf_s,
-           "--timing"]
+           "euroc", "--mode", "mono", "--sync-mapping", "--max-frames", str(SYNC16_FRAMES),
+           "--out", out_s, "--kf-out", kf_s, "--timing"]
     t2 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=900)
     lines = proc.stdout.splitlines()
@@ -1852,8 +1905,8 @@ def _phase16_in(seq: str, root: str, card: str) -> dict:
     check(proc.returncode == 0, f"phase 16: the --sync-mapping run exited {proc.returncode}: "
           f"{proc.stderr[-2000:]}")
     summ_s = json.loads(next(x for x in lines if x.startswith("summary "))[len("summary "):])
-    print(f"phase 16 sync: `python -m orbslam3_tpu_torch.run_sequence ... --sync-mapping` took "
-          f"{time.perf_counter() - t2:.1f} s as a subprocess")
+    print(f"phase 16 sync: `python -m orbslam3_tpu_torch.run_sequence ... --sync-mapping "
+          f"--max-frames {SYNC16_FRAMES}` took {time.perf_counter() - t2:.1f} s as a subprocess")
     _runner_lines(summ_s, "phase 16 sync", JAX_RUNNER["sync"])
     _trajectory_files(out_s, kf_s, summ_s, "phase 16 sync")
     return dict(launches=launches, row=row, err=err)
@@ -2085,12 +2138,12 @@ def _phase17_in(seq: str, card: str) -> dict:
 # entry sensor of the direct drive, frames, write_euroc_sequence's keywords,
 # the frame whose local-map match runs again, kernels vs plain).
 RUNNER_MODES_19A = (
-    ("EuRoC stereo (config 2)", "euroc", "euroc", "stereo", "stereo", 60,
-     dict(stereo=True), 40),
+    ("EuRoC stereo (config 2)", "euroc", "euroc", "stereo", "stereo", 30,
+     dict(stereo=True), 20),
     ("TUM-VI stereo-inertial fisheye (config 4)", "euroc", "tumvi", "stereo-vi",
-     "stereo_vi_fisheye", 70, dict(fisheye=True, imu=True), 60),
-    ("TUM RGB-D", "tumrgbd", "tumrgbd", "rgbd", "rgbd", 30, dict(depth=True), 20),
-    ("KITTI mono (config 1)", "kitti", "kitti", "mono", "mono", 30, {}, 20),
+     "stereo_vi_fisheye", 60, dict(fisheye=True, imu=True), 50),
+    ("TUM RGB-D", "tumrgbd", "tumrgbd", "rgbd", "rgbd", 20, dict(depth=True), 15),
+    ("KITTI mono (config 1)", "kitti", "kitti", "mono", "mono", 20, {}, 15),
 )
 RUNNER_KMAX, RUNNER_PMAX = 256, 16384  # configs 1-4's, as in phases 6-14
 # Phase 19b: config 3 through the runner at its defaults (asynchronous
@@ -2451,7 +2504,7 @@ def _vi_runner_lines(summ: dict, rows: list, stages: dict, stage_syncs: dict, ca
         line += (f"; with --sync-mapping --no-loop (PERF.md): median {sync_ms['median']}, p95 "
                  f"{sync_ms['p95']}, max {sync_ms['max']}")
     print(line + f" [{card}]")
-    print(f"{what} ms of the frames whose tick completed an IMU stage: " + "; ".join(
+    print(f"{what} ms of the frames whose tick completed an IMU stage or a map event: " + "; ".join(
         f"{name} frame {k} {ms[k]:.2f} ms ({(summ['syncs'] or [None] * len(ms))[k]} syncs)"
         for name, k in stages.items()) + f" [{card}]")
 
@@ -3023,7 +3076,7 @@ def phase20_inertial_multimap(dev, card: str) -> dict:
     graphed.run = run_graph
     Tracker._imu_predict = predicted
     try:
-        with _b1_calls([], keep_args=False) as calls:
+        with _b1_calls([], keep_args=False) as calls, _graph_watch([]) as graphs:
             rep = E.replay(dev, "mono_vi", MMVI_FRAMES, vocabulary=VOC_100K, t_loop=MM_T_LOOP,
                            multimap=True, blind=MMVI_BLIND, on_frame=on_frame,
                            n_track=MMVI_TRACK)
@@ -3090,6 +3143,9 @@ def phase20_inertial_multimap(dev, card: str) -> dict:
           and rep.ate <= gates["sim3"] and abs(rep.scale - 1) <= gates["scale"],
           f"phase 20: SE3 ATE {rep.ate_se3}, Sim3 ATE {rep.ate}, scale {rep.scale} outside "
           f"{gates}")
+    for g in graphs:  # the graph watch's reads are not the frame's
+        if g["frame"] is not None:
+            extra_ms[g["frame"]] = extra_ms.get(g["frame"], 0.0) + g["took"]
     ms = [m - extra_ms.get(k, 0.0) for k, m in enumerate(rep.ms)]
     by_kind = _mmvi_kinds(rep, mg["frame"], ms, captures)
     _check_tracked_syncs(by_kind, {"tracked before IMU init": Tracker.HOST_SYNCS_PER_FRAME,
@@ -3199,9 +3255,330 @@ def phase20_inertial_multimap(dev, card: str) -> dict:
           f"after map 1's IMU initialization median {med(list(after.values())):.6f} m, the "
           f"largest (frame, m) {[(k, round(e, 4)) for k, e in worst]}; loop closures at frames "
           f"{[lp['frame'] for lp in rep.loops]}")
+    for g in graphs:
+        print(f"phase 20 essential graph at frame {g['frame']} (dof4 {g['dof4']}, turned about "
+              f"the world's z axis, fault C22): largest keyframe rotation change {g['turn']:.6f} "
+              f"rad ({np.degrees(g['turn']):.4f} deg), largest |R_new z - R_old z| "
+              f"{g['gravity']:.2e}")
     print(f"phase 20 kernels vs plain prefix: {line}")
     print(f"phase 20 launches on the main path {launches}; B1 by site {sites}")
     return dict(rep=rep, launches=launches, sites=sites)
+
+
+# Phase 21: config 3 through the runner at its defaults (asynchronous mapping,
+# place recognition with the 97k-word vocabulary, the Atlas; Kmax 256, Pmax
+# 16384) on phase 10's 8 s lap (the sequence phase 16 writes, with its IMU),
+# which closes an inertial loop. The JAX runner on the same files on a CPU
+# (`python tests/jax_runner_lap.py --seq DIR --frames 260 --t-loop 8 --mode
+# mono-vi --kmax 256 --pmax 16384 --c13`, 1338 s on 8 shared cores): the map
+# initialized at frame 1, the IMU in the tick of frame 48 with 10 keyframes,
+# VIBA1 at 107 with 21, no VIBA2; the loop closed in frame 175's tick, keyframe
+# 32 onto 2 with 33 keyframes, Sim3 scale 1; its GBA (dense path) finished in
+# frame 179's tick, none aborted; every frame OK after the initialization, 49
+# keyframes; SE3 ATE 0.055742 m, Sim3 0.036147 m, scale 1.017502. Its graph is
+# the unrepaired 4-DoF one (fault C22) and its loop leaves the velocities
+# (C20): the IMU prediction on the frame after the loop's tick 0.075186 m and
+# after the GBA's finish 0.026673 m from the tracked centre, against a median
+# of 1.23e-05 m over the other frames after the IMU initialization. So the
+# phase gates outcomes, not poses.
+N21 = SEQ16_FRAMES
+JAX_VI_LAP = dict(imu_init_frame=48, imu_init_kfs=10, viba1_frame=107, viba1_kfs=21,
+                  loop=dict(frame=175, kf=32, loop_kf=2, n_kf=33, scale=1.0, gba_finish=179),
+                  ate_se3=0.055742, ate_sim3=0.036147, scale=1.017502,
+                  c20=dict(after={"loop 1": 0.075186, "GBA 1": 0.026673}, median=1.23e-05))
+# The parent checkout (a516a17, before the C20 and C22 repairs of the loop) on
+# the same files, on the card: the frame after the loop's tick and after the
+# GBA's finish, m (`tests/c20_runner.py --seq DIR --frames 260 --t-loop 8
+# --repo PARENT`; PERF.md).
+PARENT_C20 = {"loop 1": 0.001719, "GBA 1": 0.027099}
+YAW_RESIDUAL_MIN = 1e-3  # rad: a loop edge residual above it must at least halve
+GRAVITY_TOL = 1e-4  # |R_new z - R_old z| per corrected keyframe
+
+
+@contextlib.contextmanager
+def _graph_watch(into: list):
+    """Within the block, every `solve_pose_graph` call appends dict(frame,
+    dof4, turn: the largest rotation change (rad) over the free vertices,
+    gravity: the largest |R_new z - R_old z| over them, edge: the last edge
+    (i, j), residual_before / residual_after: the angle (rad) of that edge's
+    M^-1 S_j S_i^-1 rotation at the graph's input and output, and took: the
+    ms of those reads, which are not counted as the run's host syncs)."""
+    from orbslam3_tpu_torch import spans
+    from orbslam3_tpu_torch.optim import pose_graph as pg
+
+    solve = pg.solve_pose_graph
+
+    def angle(R):
+        return float(np.arccos(np.clip((np.trace(R) - 1) / 2, -1.0, 1.0)))
+
+    def watched(g, *a, **kw):
+        out = solve(g, *a, **kw)
+        with _comparing() as took:
+            R0 = g.R.cpu().double().numpy()
+            R1 = out[0].cpu().double().numpy()
+            free = ~g.fixed.cpu().numpy()
+            i, j = int(g.edge_i[-1]), int(g.edge_j[-1])
+            Rm = g.edge_R[-1].cpu().double().numpy()
+        z = np.asarray([0.0, 0.0, 1.0])
+        into.append(dict(
+            frame=None if spans._active is None else spans._active.frame,
+            dof4=bool(kw.get("dof4", False)),
+            turn=max((angle(R1[k] @ R0[k].T) for k in np.flatnonzero(free)), default=0.0),
+            gravity=float(np.abs(R1[free] @ z - R0[free] @ z).max()) if free.any() else 0.0,
+            edge=(i, j), residual_before=angle(Rm.T @ R0[j] @ R0[i].T),
+            residual_after=angle(Rm.T @ R1[j] @ R1[i].T), took=took[0]))
+        return out
+
+    pg.solve_pose_graph = watched
+    try:
+        yield into
+    finally:
+        pg.solve_pose_graph = solve
+
+
+def _correct_again(lc, cap: dict, device) -> dict:
+    """The loop correction captured by phase 21 (`cap`: the map before it,
+    the loop edges so far, the closing pair and its Sim3) run again on a copy
+    of the map on `device` by a closer like `lc` (no GBA, no mapper). The
+    state after the graph and the point correction, and after SearchAndFuse."""
+    from orbslam3_tpu_torch.pipeline.loop_closing import LoopCloser
+
+    store = _store_to(cap["store"], device)
+
+    def to(x):
+        return None if x is None else x.to(device)
+
+    c = LoopCloser(lc.model, to(lc.params), store, None, to(lc.sigma2_table), run_gba=False,
+                   inertial=lc.inertial, img_wh=to(lc.img_wh), scale_table=to(lc.scale_table),
+                   bf=lc.bf)
+    c.loop_edges = list(cap["loop_edges"])
+    stages = {}
+    fuse = c._search_and_fuse
+
+    def snapshot(*a, **kw):
+        stages["graph + points"] = _clone(store.state)
+        return fuse(*a, **kw)
+
+    c._search_and_fuse = snapshot
+    c._correct_loop(*cap["args"])
+    stages["search and fuse"] = store.state
+    return stages
+
+
+LOOP_FLOATS = ("kf_R", "kf_t", "kf_vel", "mp_pos")
+
+
+def _same_correction(a: dict, b: dict, what: str, points_tol: float) -> dict:
+    """Gate two states of `_correct_again` (or the lap's) stage by stage:
+    `kf_mp` and point validity equal, poses and velocities within 1e-4,
+    points within `points_tol`. Returns {stage: {field: difference}}."""
+    out = {}
+    for stage, xa in a.items():
+        xb = b[stage]
+        kf, mp = xa.kf_valid.cpu(), xa.mp_valid.cpu()
+        check(torch.equal(xa.kf_mp.cpu(), xb.kf_mp.cpu())
+              and torch.equal(xa.mp_valid.cpu(), xb.mp_valid.cpu()),
+              f"{what}: kf_mp rows or point validity differ after {stage}")
+        out[stage] = {f: float((getattr(xa, f).cpu()[mp if f == "mp_pos" else kf]
+                                - getattr(xb, f).cpu()[mp if f == "mp_pos" else kf])
+                               .abs().max()) for f in LOOP_FLOATS}
+    end = out["search and fuse"]
+    dW = max(v for f, v in end.items() if f != "mp_pos")
+    check(dW <= 1e-4 and end["mp_pos"] <= points_tol, f"{what}: poses and velocities within "
+          f"{dW}, points within {end['mp_pos']} (tolerance {points_tol}); by stage {out}")
+    return out
+
+
+def phase21_inertial_loop(dev, card: str, lap: str | None = None) -> dict:
+    """Phase 21: config 3 through the runner at its defaults on phase 10's 8 s
+    lap (at `lap` when phase 16 wrote it there), which closes an inertial
+    loop; gates and lines in the module docstring. Returns the launches of
+    the runner's run."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="_chip_smoke_seq_21_", dir=root) as tmp:
+        return _phase21_in(dev, card, lap or os.path.join(tmp, "lap"), tmp)
+
+
+def _phase21_in(dev, card: str, seq: str, tmp: str) -> dict:
+    from orbslam3_tpu_torch import entry as E
+    from orbslam3_tpu_torch.ate import ate_rmse, ate_scale
+    from orbslam3_tpu_torch.io import datasets
+    from orbslam3_tpu_torch.ops import _build
+    from orbslam3_tpu_torch.pipeline import loop_closing as lc_mod
+    from orbslam3_tpu_torch.pipeline.tracking import Tracker
+
+    jx = JAX_VI_LAP
+    _lap_sequence(seq, "phase 21")
+    closures, found, extra_ms = [], {}, {}
+    correct = lc_mod.LoopCloser._correct_loop
+
+    def watched(self, kf_id, loop_kf, R21, t21, s21):
+        from orbslam3_tpu_torch import spans
+
+        k = spans._active.frame
+        closures.append(dict(frame=k, kf=int(kf_id), loop_kf=int(loop_kf),
+                             n_kf=int(self.store.n_kf), scale=float(s21)))
+        if "cap" not in found:  # the closing pair again, and the correction's inputs
+            runs = {}
+            with _comparing() as took:
+                for mode in ("kernels", "plain"):
+                    with _build.force_plain() if mode == "plain" else contextlib.nullcontext():
+                        out = self._verify_sim3_impl(kf_id, loop_kf)
+                    runs[mode] = (out, dict(self.last_verify))
+                found["cap"] = dict(store=_store_to(self.store, "cpu"),
+                                    loop_edges=list(self.loop_edges),
+                                    args=(kf_id, loop_kf, R21, t21, s21), frame=k)
+            found["verify"] = runs
+            extra_ms[k] = extra_ms.get(k, 0.0) + took[0]
+        out = correct(self, kf_id, loop_kf, R21, t21, s21)
+        if "lap" not in found:
+            with _comparing() as took:
+                found["lap"] = _clone(self.store.state)
+            extra_ms[k] = extra_ms.get(k, 0.0) + took[0]
+        return out
+
+    out, kf_out = os.path.join(tmp, "lap_vi.txt"), os.path.join(tmp, "lap_vi_kf.txt")
+    argv = [os.path.join(seq, "settings.yaml"), seq, "--dataset", "euroc", "--mode", "mono-vi",
+            "--out", out, "--kf-out", kf_out, "--kmax", str(RUNNER_KMAX), "--pmax",
+            str(RUNNER_PMAX)]
+    lc_mod.LoopCloser._correct_loop = watched
+    try:
+        with _stage_syncs({}) as stage_syncs, _graph_watch([]) as graphs:
+            res, rows, launches, sites, _, calls = _run_runner(argv)
+    finally:
+        lc_mod.LoopCloser._correct_loop = correct
+    for g in graphs:
+        if g["frame"] is not None:
+            extra_ms[g["frame"]] = extra_ms.get(g["frame"], 0.0) + g["took"]
+    for k, m in extra_ms.items():  # the re-runs and reads above are not the frame's
+        res["frame_ms"][k] -= m
+    slam, summ = res["system"], {k: v for k, v in res.items() if k not in ("system", "spans")}
+    states = [r.state for r in rows]
+    first_ok = states.index("OK") if "OK" in states else None
+    stages = E.imu_stage_frames(rows)
+    events = E.map_event_frames(rows)
+    init, viba1 = stages.get("imu_init"), stages.get("viba1")
+    init_kfs = rows[init].n_kf if init is not None else None
+    viba1_kfs = rows[viba1].n_kf if viba1 is not None else None
+    gt = datasets.load_groundtruth_euroc(seq)
+    ts, pos = slam.get_trajectory()
+    ate_se3 = ate_rmse(ts, pos, gt[0], gt[1], with_scale=False)
+    ate_sim3 = ate_rmse(ts, pos, gt[0], gt[1], with_scale=True)
+    scale = ate_scale(ts, pos, gt[0], gt[1])
+    loop_graphs = [g for g in graphs if g["dof4"]]
+    after = [k for k in range(init + 1, N21) if states[k] == "OK"] if init is not None else []
+    share = sum(rows[k].pi_taken for k in after) / max(len(after), 1)
+    lp = closures[0] if closures else None
+    after_loop = ([k for k in range(lp["frame"] + 1, N21) if states[k] == "OK"]
+                  if lp is not None else [])
+    share_loop = sum(rows[k].pi_taken for k in after_loop) / max(len(after_loop), 1)
+    gba_done = [k for name, k in events.items() if name.startswith("GBA")]
+    print(f"phase 21 outcome (the runner at its defaults: {summ['mapping']} mapping, place "
+          f"recognition, the Atlas): map initialized at frame {first_ok}, IMU at frame {init} with "
+          f"{init_kfs} keyframes (JAX runner {jx['imu_init_frame']}, {jx['imu_init_kfs']}), VIBA1 "
+          f"at frame {viba1} with {viba1_kfs} (JAX {jx['viba1_frame']}, {jx['viba1_kfs']}); loops "
+          f"{[(c['frame'], c['kf'], c['loop_kf'], c['n_kf'], c['scale']) for c in closures]} "
+          f"(frame, keyframe, loop keyframe, keyframes, Sim3 scale; JAX {jx['loop']}); GBA "
+          f"finished at frames {gba_done} ({summ['gba_finished']} finished, {summ['gba_aborted']} "
+          f"aborted, {summ['gba_path']} path); {summ['n_kf']} keyframes; SE3 ATE {ate_se3:.6f} m "
+          f"(JAX {jx['ate_se3']}), Sim3 ATE {ate_sim3:.6f} m (JAX {jx['ate_sim3']}), scale "
+          f"{scale:.5f} (JAX {jx['scale']}); pose-inertial result on {share:.4f} of {len(after)} "
+          f"frames after the IMU initialization, {share_loop:.4f} of {len(after_loop)} after the "
+          f"loop's tick; states { {x: states.count(x) for x in sorted(set(states))} }", flush=True)
+    for g in graphs:
+        print(f"phase 21 essential graph at frame {g['frame']} (dof4 {g['dof4']}): loop edge "
+              f"{g['edge']} rotation residual {g['residual_before']:.6f} -> "
+              f"{g['residual_after']:.6f} rad, largest keyframe rotation change {g['turn']:.6f} "
+              f"rad ({np.degrees(g['turn']):.4f} deg), largest |R_new z - R_old z| "
+              f"{g['gravity']:.2e}")
+    check(summ["mapping"] == "asynchronous" and summ["mapper_idle"],
+          f"phase 21: mapping {summ['mapping']}, idle after shutdown {summ['mapper_idle']}")
+    check(first_ok is not None and all(x == "OK" for x in states[first_ok:]),
+          "phase 21: a frame not OK after the map's initialization")
+    check(init_kfs is not None and abs(init_kfs - jx["imu_init_kfs"]) <= 2,
+          f"phase 21: IMU initialized with {init_kfs} keyframes, JAX {jx['imu_init_kfs']}")
+    check(viba1_kfs is not None and abs(viba1_kfs - jx["viba1_kfs"]) <= 2,
+          f"phase 21: VIBA1 with {viba1_kfs} keyframes, JAX {jx['viba1_kfs']}")
+    check(lp is not None and abs(lp["n_kf"] - jx["loop"]["n_kf"]) <= 2,
+          f"phase 21: first loop {lp}, JAX's with {jx['loop']['n_kf']} keyframes")
+    check(all(c["scale"] == 1.0 for c in closures), f"phase 21: a Sim3 scale not 1: {closures}")
+    check(len(loop_graphs) >= len(closures), f"phase 21: {len(loop_graphs)} 4-DoF graphs for "
+          f"{len(closures)} loops: {graphs}")
+    for g in loop_graphs:
+        check(g["gravity"] <= GRAVITY_TOL, f"phase 21: a corrected keyframe's R z moved "
+              f"{g['gravity']} (gate {GRAVITY_TOL})")
+        check(g["residual_before"] <= YAW_RESIDUAL_MIN
+              or g["residual_after"] <= g["residual_before"] / 2,
+              f"phase 21: the loop edge's rotation residual {g['residual_before']} -> "
+              f"{g['residual_after']} rad did not halve (fault C22)")
+    check(gba_done and gba_done[0] > lp["frame"], f"phase 21: no GBA finished after the loop: "
+          f"{events}")
+    check(after and share >= 0.8 and after_loop and share_loop >= 0.8,
+          f"phase 21: pose-inertial result on {share:.4f} after the IMU initialization, "
+          f"{share_loop:.4f} after the loop's tick")
+    gate = max(2 * jx["ate_se3"], 0.01)
+    check(np.isfinite(pos).all() and ate_se3 <= gate, f"phase 21: SE3 ATE {ate_se3} above {gate}")
+    _vi_runner_lines(summ, rows, {**stages, **events}, stage_syncs, calls,
+                     Tracker.HOST_SYNCS_PER_FRAME, Tracker.HOST_SYNCS_PER_INERTIAL_FRAME,
+                     "phase 21", card, None)
+    c20 = _c20_line(rows, "phase 21", jx)
+    e_loop = c20["after"].get("loop 1")
+    print(f"phase 21 C20 on the frame after the loop's tick: {e_loop} m, after the GBA's finish "
+          f"{c20['after'].get('GBA 1')} m (the unrepaired JAX runner {jx['c20']['after']}; the "
+          f"parent checkout {PARENT_C20} on the same files); gate: under {C20_FACTOR:g} x the "
+          f"median {c20['median']} or {C20_FLOOR} m")
+    check(e_loop is not None and not c20["shows"],
+          f"phase 21: the IMU prediction after {c20['shows']} (fault C20): {c20['after']}")
+    spans_ = res["spans"]
+    for name in ("loop: verify Sim3", "loop: essential graph", "loop: correct points",
+                 "loop: search and fuse", "gba/chunk"):
+        v = spans_.get(name, [])
+        check(v, f"phase 21: no span {name!r}")
+        top = [(f, round(h, 2), None if d is None else round(d, 2))
+               for f, h, d in sorted(v, key=lambda x: -x[1])[:6]]
+        print(f"phase 21 {name}: {len(v)} calls, host ms median "
+              f"{statistics.median([h for _, h, _ in v]):.2f}; the longest (frame, host ms, "
+              f"device ms) {top} [{card}]")
+
+    # The closing pair's verification through the kernels and the plain versions (exact), and
+    # the correction again on the CPU at its threads and at one from the captured inputs.
+    (S_k, st_k), (S_p, st_p) = found["verify"]["kernels"], found["verify"]["plain"]
+    check(S_k is not None and S_p is not None and st_k == st_p
+          and all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(S_k, S_p)),
+          f"phase 21 verify at the closing pair, kernels vs plain: {st_k} vs {st_p}, {S_k} vs "
+          f"{S_p}")
+    cap = found["cap"]
+    lc = slam.loop_closer
+    n_threads = torch.get_num_threads()
+    runs_c, secs = {}, {}
+    for threads in (max(n_threads, 2), 1):
+        torch.set_num_threads(threads)
+        t2 = time.perf_counter()
+        runs_c[threads] = _correct_again(lc, cap, torch.device("cpu"))
+        secs[threads] = time.perf_counter() - t2
+    torch.set_num_threads(n_threads)
+    run_c, run_c1 = runs_c.values()
+    st_cc = _same_correction(run_c, run_c1, "phase 21 correction, CPU vs CPU", points_tol=1.0)
+    spread = st_cc["search and fuse"]["mp_pos"]
+    st_kc = _same_correction({"search and fuse": found["lap"]},
+                             {"search and fuse": run_c["search and fuse"]},
+                             "phase 21 correction, card vs CPU", points_tol=max(1e-4, 2 * spread))
+    end = st_kc["search and fuse"]
+    many = max(n_threads, 2)
+    print(f"phase 21 kernels vs plain at the closing pair (keyframe {cap['args'][0]} onto "
+          f"{cap['args'][1]}, frame {cap['frame']}): gate counts equal {st_k}, the Sim3 equal "
+          f"(scale {float(S_k[2])}); the correction again on the CPU ({secs[many]:.1f} s at "
+          f"{many} threads, {secs[1]:.1f} s at 1) from its inputs: kf_mp equal, "
+          f"poses within {max(end['kf_R'], end['kf_t']):.1e}, velocities within "
+          f"{end['kf_vel']:.1e}, points within {end['mp_pos']:.1e} (the two CPU runs' points "
+          f"{spread:.1e}, so the gate is {max(1e-4, 2 * spread):.1e}; by stage "
+          f"{[(k, round(v['mp_pos'], 7)) for k, v in st_cc.items()]})")
+    check(launches["fast_nms"] == N21 and sites.get("local map", 0) > 0
+          and sites.get("loop verify match", 0) > 0, f"phase 21: launches {launches}, B1 by site "
+          f"{sites}")
+    print(f"phase 21 launches on the main path {launches}; B1 by site {sites}; B2 once a frame")
+    print(f"phase 21 kernels vs plain: {_plain_prefix(argv, rows, init + PREFIX19, 'phase 21')}")
+    return launches
 
 
 def check(ok, what: str) -> None:
@@ -3214,7 +3591,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--save-inputs", metavar="FILE",
                     help="write phase 7's kernel inputs to FILE (torch.save)")
-    ap.add_argument("--only", choices=["15", "16", "17", "18", "19", "20"],
+    ap.add_argument("--only", choices=["15", "16", "17", "18", "19", "20", "21"],
                     help="build, then run this phase alone (its B1 rows in the record)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3249,7 +3626,7 @@ def run(opts) -> int:
     print(_build.resource_report(), end="")
     walls["build"] = time.perf_counter()
     card = smi.stdout.strip().splitlines()[0]
-    if opts.only in ("15", "16", "17", "18", "19", "20"):
+    if opts.only in ("15", "16", "17", "18", "19", "20", "21"):
         err, rows = 0.0, []
         if opts.only == "15":
             err, rows, launches = phase15_rows(phase15_multimap(dev), card)
@@ -3268,6 +3645,8 @@ def run(opts) -> int:
             launches = phase17_stream_viewer(dev, card)["launches"]
         elif opts.only == "20":
             launches = phase20_inertial_multimap(dev, card)["launches"]
+        elif opts.only == "21":
+            launches = phase21_inertial_loop(dev, card)
         else:
             launches = phase19_runner_modes(dev, card)
         walls[f"phase {opts.only}"] = time.perf_counter()
@@ -3870,7 +4249,11 @@ def run(opts) -> int:
     b1_rows.extend(rows15)
     walls["phase 15"] = time.perf_counter()
     # --- Phase 16: the runner at its defaults; phase 17: the stream server ---
-    p16 = phase16_runner(dev, card)
+    # Phases 16 and 21 replay the same files (phase 10's lap with its IMU).
+    lap_tmp = tempfile.TemporaryDirectory(prefix="_chip_smoke_seq_lap_",
+                                          dir=os.path.dirname(os.path.abspath(__file__)))
+    lap = os.path.join(lap_tmp.name, "lap")
+    p16 = phase16_runner(dev, card, lap)
     err_b1 = max(err_b1, p16["err"])
     b1_rows.append(p16["row"])
     walls["phase 16"] = time.perf_counter()
@@ -3887,6 +4270,10 @@ def run(opts) -> int:
     # --- Phase 20: the inertial Atlas: an inertial merge ------------------------
     p20 = phase20_inertial_multimap(dev, card)
     walls["phase 20"] = time.perf_counter()
+    # --- Phase 21: config 3's inertial loop at the runner's defaults ------------
+    p21 = phase21_inertial_loop(dev, card, lap)
+    lap_tmp.cleanup()
+    walls["phase 21"] = time.perf_counter()
 
     if opts.save_inputs:
         per_replay = {**per_site, **p10["sites"]}
@@ -3900,7 +4287,7 @@ def run(opts) -> int:
                                               p11["launches"], p12["rgbd"], p12["raw"],
                                               p13["launches"], p14["launches"], launches15,
                                               p16["launches"], p17["launches"],
-                                              p18["launches"], p19, p20["launches"]))
+                                              p18["launches"], p19, p20["launches"], p21))
     lm = next(r for r in b1_rows if r["call"] == "local map")  # the kernel's headline call
     record = {"kernels": [
         {"name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",

@@ -1058,6 +1058,8 @@ class FrameRecord(NamedTuple):
     refined: bool = False  # a scale refinement moved the map in this call
     pred: np.ndarray | None = None  # the camera centre of the frame's IMU prediction
     centre: np.ndarray | None = None  # the tracked camera centre, before the call's tick
+    loop: bool = False  # a loop correction completed in this call
+    gba_done: bool = False  # a background global BA finished in this call
 
     def pred_err(self) -> float | None:
         """|IMU prediction - tracked camera centre| (m), where the frame had both."""
@@ -1082,21 +1084,34 @@ def imu_stage_frames(rows: list) -> dict:
     return out
 
 
+def map_event_frames(rows: list) -> dict:
+    """{event: the frame whose call completed it} of `record_frames` rows:
+    each loop correction ("loop 1", ...) and each background global BA's
+    finish ("GBA 1", ...)."""
+    out = {f"loop {i + 1}": k for i, k in enumerate(k for k, r in enumerate(rows) if r.loop)}
+    out.update({f"GBA {i + 1}": k
+                for i, k in enumerate(k for k, r in enumerate(rows) if r.gba_done)})
+    return out
+
+
 def imu_prediction_errors(rows: list) -> dict:
     """Fault C20's numbers from `record_frames` rows: `stages`
-    (`imu_stage_frames`); `after`, per stage, the distance (m) between the
-    IMU prediction and the tracked camera centre on the frame after the call
-    that completed it, the first frame to start from it (None past the last
-    frame); and over the other frames after the IMU initialization that have
-    both, their `median`, their count `n` and the three `largest` (frame, m)."""
+    (`imu_stage_frames`) and `events` (`map_event_frames`); `after`, per
+    stage and event, the distance (m) between the IMU prediction and the
+    tracked camera centre on the frame after the call that completed it, the
+    first frame to start from it (None past the last frame); and over the
+    other frames after the IMU initialization that have both, their
+    `median`, their count `n` and the three `largest` (frame, m)."""
     stages = imu_stage_frames(rows)
-    after = {k + 1 for k in stages.values()}
+    events = map_event_frames(rows)
+    marks = {**stages, **events}
+    after = {k + 1 for k in marks.values()}
     init = stages.get("imu_init")
     rest = {k: r.pred_err() for k, r in enumerate(rows) if init is not None and k > init
             and k not in after and r.pred_err() is not None}
-    return dict(stages=stages,
+    return dict(stages=stages, events=events,
                 after={name: rows[k + 1].pred_err() if k + 1 < len(rows) else None
-                       for name, k in stages.items()},
+                       for name, k in marks.items()},
                 median=float(np.median(list(rest.values()))) if rest else None, n=len(rest),
                 largest=sorted(rest.items(), key=lambda x: -x[1])[:3])
 
@@ -1110,18 +1125,24 @@ def record_frames():
     keeps the frame's IMU prediction (the host copy `Tracker._imu_predict`
     fetched), the tracked camera centre before the frame's tick of background
     work (`System._tick_gba`) may move the map, and whether a scale
-    refinement was applied."""
+    refinement was applied. It notes whether the call completed a loop
+    correction or a background global BA."""
     from orbslam3_tpu_torch.pipeline import inertial_support as isup
     from orbslam3_tpu_torch.pipeline.tracking import Tracker
     from orbslam3_tpu_torch.system import System
 
     rows, originals, seen = [], {}, {}
 
+    def gba_finished(slam):
+        g = None if slam.loop_closer is None else slam.loop_closer.gba_async
+        return 0 if g is None else g.n_finished
+
     def recording(name):
         fn = originals[System, name] = getattr(System, name)
 
         def track(self, *args, **kw):
             seen.clear()
+            loops, gbas = self.n_loops_closed, gba_finished(self)
             out = fn(self, *args, **kw)
             ini = self.mapper.imu_init
             rows.append(FrameRecord(self.tracking_state.name, self.n_keyframes,
@@ -1130,7 +1151,8 @@ def record_frames():
                                     bool(ini is not None and ini.viba1_done),
                                     bool(ini is not None and ini.viba2_done),
                                     bool(self.tracker.pi_taken), bool(seen.get("refined")),
-                                    seen.get("pred"), seen.get("centre")))
+                                    seen.get("pred"), seen.get("centre"),
+                                    self.n_loops_closed > loops, gba_finished(self) > gbas))
             return out
 
         return track

@@ -16,12 +16,14 @@ scale of every Sim3 step and corrects with the 4-DoF essential graph:
   pairs, and the tight projection gate;
 * temporal consistency (`_confirm`): the same region on `consecutive`
   keyframes in a row;
-* correction (`_correct_loop`): the 7-DoF essential graph
-  (`optim/pose_graph.py`) over the temporal chain, the covisibility >= 30
-  edges and every loop edge so far, the points re-expressed through their
-  first keyframe, then `_search_and_fuse` (`fuse_into_kf`, B1 over chunks
-  of 4096 loop-side points into each current-side keyframe) and the global
-  BA, in the background (`pipeline/gba.py::AsyncGBA`) or at once.
+* correction (`_correct_loop`): the 7-DoF essential graph, or the inertial
+  closer's 4-DoF one (`optim/pose_graph.py`), over the temporal chain, the
+  covisibility >= 30 edges and every loop edge so far, the points
+  re-expressed through their first keyframe (and, inertial, each keyframe's
+  velocity turned with its rotation), then `_search_and_fuse`
+  (`fuse_into_kf`, B1 over chunks of 4096 loop-side points into each
+  current-side keyframe) and the global BA, in the background
+  (`pipeline/gba.py::AsyncGBA`) or at once.
 
 Like the reference, the host reads the device at every step of a keyframe
 that reaches verification (match counts, RANSAC outcome, the point cloud,
@@ -36,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from orbslam3_tpu_torch import spans
 from orbslam3_tpu_torch.atlas import store as st
 from orbslam3_tpu_torch.atlas.kfdb import KeyFrameDB
 from orbslam3_tpu_torch.ops import cameras as cam
@@ -97,7 +100,8 @@ class LoopCloser:
         for c in _np(cand_ids):
             if c < 0 or c == kf_id or abs(int(c) - kf_id) < 10:  # too close in time
                 continue
-            verdict = self._verify_sim3(kf_id, int(c))
+            with spans.span("loop: verify Sim3"):
+                verdict = self._verify_sim3(kf_id, int(c))
             if verdict is None:
                 continue
             R21, t21, s21 = verdict
@@ -296,9 +300,13 @@ class LoopCloser:
 
     # ------------------------------------------------------------------
     def _correct_loop(self, kf_id: int, loop_kf: int, R21, t21, s21):
-        """`CorrectLoop` (`LoopClosing.cc:1093`): the 7-DoF essential graph,
-        the points through their first keyframe, SearchAndFuse, then the
-        global BA."""
+        """`CorrectLoop` (`LoopClosing.cc:1093`): the essential graph (7-DoF,
+        or 4-DoF when inertial), the points through their first keyframe,
+        SearchAndFuse, then the global BA. Inertial, each keyframe's
+        velocity, a world vector, turns with its orientation correction,
+        v' = R_new^T R_old v (`CorrectLoop`'s "correct velocity according to
+        orientation correction", in its loop over the corrected keyframes,
+        `LoopClosing.cc:1175-1204`; fault C20)."""
         store = self.store
         s = store.state
         nkf = store.n_kf
@@ -358,21 +366,27 @@ class LoopCloser:
             R=s.kf_R, t=s.kf_t, s=torch.ones(K, dtype=torch.float32, device=self.device),
             fixed=T(fixed), edge_i=T(ei), edge_j=T(ej), edge_R=T(eR), edge_t=T(et), edge_s=T(es),
             edge_valid=T(np.ones(E, bool)), edge_weight=T(np.asarray(ew, np.float32)))
-        R_new, t_new, s_new = pg.solve_pose_graph(graph, iters=12, dof4=self.inertial)
+        with spans.span("loop: essential graph"):
+            R_new, t_new, s_new = pg.solve_pose_graph(graph, iters=12, dof4=self.inertial)
 
         # Points through their first keyframe; scale folded into SE3 (Tcw =
         # [R | t / s], `CorrectLoop` :1158).
-        ref = torch.clamp(s.mp_first_kf, 0, K - 1).to(torch.int64)
-        newp = pg.correct_points(s.mp_pos, s.kf_R[ref], s.kf_t[ref],
-                                 torch.ones(s.Pmax, dtype=torch.float32, device=self.device),
-                                 R_new[ref], t_new[ref], s_new[ref])
-        newp = torch.where(s.mp_valid[:, None], newp, s.mp_pos)
-        store.state = s._replace(kf_R=R_new, kf_t=t_new / s_new[:, None], mp_pos=newp)
-        store.bump()
+        with spans.span("loop: correct points"):
+            ref = torch.clamp(s.mp_first_kf, 0, K - 1).to(torch.int64)
+            newp = pg.correct_points(s.mp_pos, s.kf_R[ref], s.kf_t[ref],
+                                     torch.ones(s.Pmax, dtype=torch.float32, device=self.device),
+                                     R_new[ref], t_new[ref], s_new[ref])
+            newp = torch.where(s.mp_valid[:, None], newp, s.mp_pos)
+            upd = dict(kf_R=R_new, kf_t=t_new / s_new[:, None], mp_pos=newp)
+            if self.inertial:
+                upd["kf_vel"] = torch.einsum("kji,kjl,kl->ki", R_new, s.kf_R, s.kf_vel)
+            store.state = s._replace(**upd)
+            store.bump()
         if self.on_correction is not None:
             self.on_correction("after", kf_id, loop_kf)
 
-        self._search_and_fuse(kf_id, loop_kf, covis)
+        with spans.span("loop: search and fuse"):
+            self._search_and_fuse(kf_id, loop_kf, covis)
 
         if self.run_gba:
             if self.gba_async is not None:

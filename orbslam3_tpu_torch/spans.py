@@ -1,7 +1,7 @@
 """Timed spans around the stages of a mapping pass (`mapping/*`, the JAX
 package's names), the inertial calls of the tracker and the mapper, a
-two-camera rig's calls (its match, its pose solves with right rows) and the
-Atlas's merge.
+two-camera rig's calls (its match, its pose solves with right rows), the
+Atlas's merge and the loop closer's verification and correction.
 
 `with span(name):` at a call site records, while a `Recorder` is active,
 the host clock and, on CUDA, two events around the call. With no recorder

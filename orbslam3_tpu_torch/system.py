@@ -342,7 +342,9 @@ class System:
         running background GBA (its transient GBA thread). Where the stage
         completed an IMU stage (the initialization, VIBA1, VIBA2, a scale
         refinement), the last frame's pose and velocity are re-predicted from
-        its keyframe's new state (`Tracker.update_frame_imu`, fault C20);
+        its keyframe's new state (`Tracker.update_frame_imu`, fault C20), and
+        so it is after a loop correction of an IMU-initialized map (its
+        keyframes' poses and velocities turned, `LoopCloser._correct_loop`);
         where else the stage, or the loop closing or merge after it, moved the
         map, the last frame follows it (`Tracker.follow_map`, fault C17)."""
         am = self.async_mapper
@@ -351,7 +353,8 @@ class System:
             loops, store, tr._map_transformed = self.n_loops_closed, self.store, False
             stages = self.mapper.n_imu_stages
             am.tick()
-            if self.mapper.n_imu_stages > stages and self.store is store and tr.imu_ready:
+            staged = self.mapper.n_imu_stages > stages or self.n_loops_closed > loops
+            if staged and self.store is store and tr.imu_ready:
                 tr.update_frame_imu()
             elif self.n_loops_closed > loops or tr._map_transformed or self.store is not store:
                 tr.follow_map()

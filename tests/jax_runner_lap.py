@@ -22,6 +22,9 @@ keyframe count, the GBA runs finished and aborted and the path
 (`eval/ate.py`, as the runner computes and prints it to 4 decimals). One
 JSON line ends the output. chip_smoke's phase-16 constants come from this script.
 
+`--max-frames N` passes to the runner: it tracks the first N frames of the
+sequence (a cut of a phase's depth on the same files).
+
 `--mode mono-vi` replays the same files with the IMU (`--t-loop` then
 defaults to the script's 60 s lap, the sequence of phases 13 and 19b). It
 also watches the mapper: the frame and keyframe count at which the IMU was
@@ -46,6 +49,14 @@ the two on the first frame after each frame whose call completed an IMU
 stage (the IMU alignment, VIBA1, VIBA2, an applied scale refinement; under
 async mapping the stage runs in that call's tick, after its tracking), and
 the median over the other tracked frames after the IMU initialization.
+
+Per loop closed (`loops`): the frame whose call closed it, the current and
+loop keyframes and the keyframe count at the correction, the verified
+Sim3's scale, the frame whose call finished the GBA that loop started
+(None when a later loop aborted it or the run ended first), and fault
+C20's distances on the frame after the loop's tick and on the frame after
+that finish. Those frames count among the stages, so the median leaves
+them out too.
 Not a test: nothing collects it.
 """
 
@@ -71,8 +82,10 @@ sys.path.insert(0, REPO)
 
 from orbslam3_tpu.eval.ate import associate, ate_rmse, umeyama  # noqa: E402
 from orbslam3_tpu.optim import ba as jba  # noqa: E402
+from orbslam3_tpu.pipeline import gba as jgba  # noqa: E402
 from orbslam3_tpu.pipeline import inertial_support as jisup  # noqa: E402
 from orbslam3_tpu.pipeline.inertial_support import ImuInitializer  # noqa: E402
+from orbslam3_tpu.pipeline.loop_closing import LoopCloser  # noqa: E402
 from orbslam3_tpu.system import System  # noqa: E402
 from orbslam3_tpu_torch import entry as E  # noqa: E402
 from orbslam3_tpu_torch.io import datasets  # noqa: E402
@@ -122,6 +135,8 @@ def main(argv=None):
     ap.add_argument("--mode", choices=["mono", "mono-vi", "stereo-vi"], default="mono")
     ap.add_argument("--sync-mapping", action="store_true")
     ap.add_argument("--no-loop", action="store_true")
+    ap.add_argument("--max-frames", type=int, default=0,
+                    help="the runner's --max-frames: track the sequence's first N frames")
     ap.add_argument("--kmax", type=int, default=None)
     ap.add_argument("--pmax", type=int, default=None)
     ap.add_argument("--c13", action="store_true", help="repair fault C13 in the JAX Tracker")
@@ -140,12 +155,25 @@ def main(argv=None):
     digest = datasets.sequence_digest(a.seq)
     print(f"sequence {a.seq}: sha256 {digest} ({time.time() - t0:.1f} s)", flush=True)
 
-    watch = dict(frame=-1, slam=None, loops=[], states=[], refine=[], n_kf=[])
+    watch = dict(frame=-1, slam=None, loops=[], states=[], refine=[], n_kf=[],
+                 corrections=[], finishes=[])
     vi = dict(imu_init_frame=None, imu_init_kfs=None, viba1_frame=None, viba2_frame=None)
     preds, tracked, pred_err = {}, {}, {}
     refine = ImuInitializer.refine_scale
     body_to_cam = jisup.body_to_cam
     tick = System._tick_gba
+    correct_loop = LoopCloser._correct_loop
+    finish = jgba.AsyncGBA._finish
+
+    def corrected(self, kf_id, loop_kf, R21, t21, s21):
+        watch["corrections"].append(dict(frame=watch["frame"], kf=int(kf_id),
+                                         loop_kf=int(loop_kf), n_kf=int(self.store.n_kf),
+                                         scale=float(s21)))
+        return correct_loop(self, kf_id, loop_kf, R21, t21, s21)
+
+    def finished(self, store):
+        watch["finishes"].append(watch["frame"])
+        return finish(self, store)
 
     def ticked(self):  # the tracked camera centre, before the tick may move the map
         last = self.tracker.last_frame
@@ -206,6 +234,8 @@ def main(argv=None):
     ImuInitializer.refine_scale = watched_refine
     jisup.body_to_cam = predicted
     System._tick_gba = ticked
+    LoopCloser._correct_loop = corrected
+    jgba.AsyncGBA._finish = finished
     spec = importlib.util.spec_from_file_location(
         "run_sequence", os.path.join(REPO, "scripts", "run_sequence.py"))
     runner = importlib.util.module_from_spec(spec)
@@ -222,7 +252,8 @@ def main(argv=None):
         argv_run.append("--sync-mapping")
     if a.no_loop:
         argv_run.append("--no-loop")
-    for flag, v in (("--kmax", a.kmax), ("--pmax", a.pmax)):
+    for flag, v in (("--kmax", a.kmax), ("--pmax", a.pmax),
+                    ("--max-frames", a.max_frames or None)):
         if v is not None:
             argv_run += [flag, str(v)]
     buf = io.StringIO()
@@ -242,15 +273,28 @@ def main(argv=None):
                   viba2=vi["viba2_frame"])
     stages.update({f"refinement {i + 1}": r["frame"]
                    for i, r in enumerate(x for x in watch["refine"] if x["ok"])})
+    loops = []
+    corr = watch["corrections"]
+    for i, c in enumerate(corr):
+        nxt = corr[i + 1]["frame"] if i + 1 < len(corr) else None
+        fin = next((f for f in watch["finishes"] if f >= c["frame"]
+                    and (nxt is None or f < nxt)), None)
+        loops.append(dict(c, gba_finish=fin, c20_after_tick=pred_err.get(c["frame"] + 1),
+                          c20_after_finish=None if fin is None else pred_err.get(fin + 1)))
+        stages[f"loop {i + 1}"] = c["frame"]
+        if fin is not None:
+            stages[f"gba finish {i + 1}"] = fin
     first_ok = next((k for k, s in enumerate(watch["states"]) if s == "OK"), None)
     ia, ib = associate(ts, gt[0])
-    out = dict(frames=a.frames, t_loop=a.t_loop, mode=a.mode, sync_mapping=a.sync_mapping,
+    out = dict(frames=a.frames, max_frames=a.max_frames, t_loop=a.t_loop, mode=a.mode,
+               sync_mapping=a.sync_mapping,
                no_loop=a.no_loop, c13=a.c13, digest=digest,
                ate=ate_full, ate_printed=float(ate.group(1)) if ate else None,
                ate_se3=ate_rmse(ts, pos, gt[0], gt[1], with_scale=False),
                scale=float(umeyama(pos[ia], gt[1][ib], with_scale=True)[0]),
                **vi, refine=watch["refine"], n_kf_per_frame=watch["n_kf"],
-               c20=c20_errors(pred_err, stages, vi["imu_init_frame"]),
+               c20=c20_errors(pred_err, stages, vi["imu_init_frame"]), loops=loops,
+               gba_finish_frames=watch["finishes"],
                pred_err=[pred_err.get(k) for k in range(len(watch["states"]))],
                states=watch["states"],
                loop_frames=watch["loops"],

@@ -165,7 +165,7 @@ def _merge_setup(sysm, target, source, pres, port: bool):
                                           timestamp=5.0)
 
 
-def test_do_merge_of_two_inertial_maps_matches_jax():
+def test_do_merge_of_two_inertial_maps_matches_jax(monkeypatch):
     """`_do_merge` of an IMU-initialized source map into a stored target
     (`_weld_pair`'s two halves of a 24-keyframe body chain, its world Sim3)
     on an IMU_MONOCULAR System in both packages: the migrated keyframes'
@@ -175,11 +175,16 @@ def test_do_merge_of_two_inertial_maps_matches_jax():
     entry derived again; then the weld fuse, the weld's local inertial BA
     over 16 keyframes, the 4-DoF essential graph and the post-merge GBA:
     every pose, velocity, bias and point within 1e-4 of JAX's, `kf_mp` and
-    the trajectory's keys equal."""
+    the trajectory's keys equal. The JAX side's 4-DoF graph has fault C22
+    repaired as the port's has (`test_torch_inertial_loop.repair_c22`)."""
+    from test_torch_inertial_loop import repair_c22
+
+    repair_c22(monkeypatch)
     jsys, psys = _systems("IMU_MONOCULAR", Kmax=32, Pmax=1024)
     target, source, (R, t, s), pres, _ = _weld_pair()
     stores = dict(port=(to_port(target), to_port(source)), jax=(target, source))
     pre_t = _np(stores["port"][0].state.kf_t).copy()
+    pre_R = _np(stores["port"][0].state.kf_R).copy()
     out = {}
     for name, sysm in (("jax", jsys), ("port", psys)):  # JAX's merge writes into `target`
         port = name == "port"
@@ -221,6 +226,8 @@ def test_do_merge_of_two_inertial_maps_matches_jax():
     kf, mp = j["state"]["kf_valid"], j["state"]["mp_valid"]
     moved = np.abs(j["state"]["kf_t"][:12] - pre_t[:12]).max()
     assert moved > 1e-3, moved  # the weld and the GBA moved the map
+    turned = np.abs(p["state"]["kf_R"][:12] - pre_R[:12]).max()
+    assert turned > 1e-3, turned  # and turned its keyframes
     for f in FLOATS:
         sel = mp if f == "mp_pos" else kf
         np.testing.assert_allclose(p["state"][f][sel], j["state"][f][sel], rtol=0, atol=1e-4,

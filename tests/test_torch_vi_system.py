@@ -312,15 +312,21 @@ def test_imu_monocular_takes_the_card_unless_asked_for_the_cpu(monkeypatch):
     assert slam.tracker.imu_calib.cov.device.type == "cpu"
 
 
-def test_inertial_loop_closer_matches_reference():
+def test_inertial_loop_closer_matches_reference(monkeypatch):
     """`LoopCloser(inertial=True)` on the drift map of `tests/loop_scene.py`
     (8% scale, 0.06 rad, 0.19 m of drift along a 24-keyframe circle): the
     verification with the scale fixed accepts the same pair with s = 1 in
     both packages; from its Sim3, the 4-DoF essential graph, the point
     correction and SearchAndFuse give poses and points within 1e-4 and equal
-    keyframe rows."""
+    keyframe rows. The JAX side runs its graph with fault C22 repaired as
+    the port's is (`test_torch_inertial_loop.repair_c22`: turned about the
+    world's z axis; unrepaired, the graph turned no keyframe of this
+    circle, whose cameras look sideways)."""
     import loop_scene as LS
+    from test_torch_inertial_loop import repair_c22
     from test_torch_loop import _state_np, closers, jax_store, port_store
+
+    repair_c22(monkeypatch)
 
     arrays, info = LS.make_loop_map()
     cur, loop = info["cur_kf"], info["loop_kf"]
@@ -342,3 +348,4 @@ def test_inertial_loop_closer_matches_reference():
     np.testing.assert_array_equal(b["kf_mp"], a["kf_mp"])
     K = info["n_kf"]
     assert np.abs(b["kf_t"][:K] - arrays["kf_t"][:K]).max() > 1e-3  # the graph moved them
+    assert np.abs(b["kf_R"][:K] - arrays["kf_R"][:K]).max() > 1e-2  # and turned them (C22)
