@@ -1219,6 +1219,8 @@ def phase13_mono_inertial(dev) -> dict:
         for kind, v in sorted(by_kind.items())))
     calls = rep.inertial_ms
     for name, v in sorted(calls.items()):
+        if name.startswith("count/"):  # a counter: (frame, n, None)
+            continue
         dev_ms = [d for _, _, d in v]
         shown = v if len(v) <= 20 else v[:3] + v[-3:]  # every call of the rarer ones
         print(f"phase 13 {name}: {len(v)} calls, device ms (CUDA events) median "

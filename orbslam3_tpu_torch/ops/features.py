@@ -31,6 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from orbslam3_tpu_torch import spans
+
 EDGE_THRESHOLD = 19  # border where no keypoints live
 PATCH_RADIUS = 15  # IC-angle patch radius
 CELL = 32  # selection cell size
@@ -353,35 +355,41 @@ def extract_from_atlas(atlas: torch.Tensor, H: int, W: int, params: OrbParams) -
     offs, sizes, HA, WA = _atlas_layout(H, W, params)
     tab = _tables(H, W, params, atlas.device)
 
-    score, pass_ini = cuda_fast.fast_score_nms(atlas, params.min_th, params.ini_th)
-    score = torch.where(tab.inside, score, torch.zeros_like(score))
+    with spans.span("extract/fast_nms"):
+        score, pass_ini = cuda_fast.fast_score_nms(atlas, params.min_th, params.ini_th)
+        score = torch.where(tab.inside, score, torch.zeros_like(score))
 
-    xs, ys, resps, valids = [], [], [], []
-    for lvl, ((h, w), o) in enumerate(zip(sizes, offs)):
-        hs = (h + CELL - 1) // CELL * CELL  # gap rows are zero-score
-        x, y, resp, valid = _select_level(score[o : o + hs], pass_ini[o : o + hs], budgets[lvl])
-        xs.append(x)
-        ys.append(y + float(o))  # atlas coords
-        resps.append(resp)
-        valids.append(valid)
-    xa, ya = torch.cat(xs), torch.cat(ys)
+    with spans.span("extract/select"):
+        xs, ys, resps, valids = [], [], [], []
+        for lvl, ((h, w), o) in enumerate(zip(sizes, offs)):
+            hs = (h + CELL - 1) // CELL * CELL  # gap rows are zero-score
+            x, y, resp, valid = _select_level(score[o : o + hs], pass_ini[o : o + hs],
+                                              budgets[lvl])
+            xs.append(x)
+            ys.append(y + float(o))  # atlas coords
+            resps.append(resp)
+            valids.append(valid)
+        xa, ya = torch.cat(xs), torch.cat(ys)
 
-    patch = _extract_patches(atlas, xa.to(torch.int64), ya.to(torch.int64), _PATCH, _PCTR)
-    m10 = torch.einsum("npq,pq->n", patch, tab.wx)
-    m01 = torch.einsum("npq,pq->n", patch, tab.wy)
-    ang = torch.atan2(m01, m10)
-    desc = _brief_from_patches(_blur_patches(patch), ang, tab)
+    with spans.span("extract/describe"):
+        patch = _extract_patches(atlas, xa.to(torch.int64), ya.to(torch.int64), _PATCH, _PCTR)
+        m10 = torch.einsum("npq,pq->n", patch, tab.wx)
+        m01 = torch.einsum("npq,pq->n", patch, tab.wy)
+        ang = torch.atan2(m01, m10)
+        desc = _brief_from_patches(_blur_patches(patch), ang, tab)
 
-    uv0 = torch.stack([xa, ya - tab.slot_off], dim=-1) * tab.slot_scale[:, None]
-    return Features(uv=uv0, response=torch.cat(resps), octave=tab.octave,
-                    angle=ang, desc=desc, valid=torch.cat(valids))
+        uv0 = torch.stack([xa, ya - tab.slot_off], dim=-1) * tab.slot_scale[:, None]
+        return Features(uv=uv0, response=torch.cat(resps), octave=tab.octave,
+                        angle=ang, desc=desc, valid=torch.cat(valids))
 
 
 def extract(image: torch.Tensor, params: OrbParams = OrbParams()) -> Features:
     """ORB features of a grayscale float32 image (H, W), values 0..255, on
     the image's device."""
     H, W = image.shape
-    return extract_from_atlas(build_atlas(image, params), H, W, params)
+    with spans.span("extract/atlas"):
+        atlas = build_atlas(image, params)
+    return extract_from_atlas(atlas, H, W, params)
 
 
 def scale_factors(params: OrbParams) -> np.ndarray:

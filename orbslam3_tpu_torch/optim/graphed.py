@@ -20,10 +20,12 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from orbslam3_tpu_torch import spans
+
 # (fn, static, signature of the tensors) -> _Captured, for the process's
 # life: one graph per solver and System configuration.
 _GRAPHS: Dict[tuple, "_Captured"] = {}
-CAPTURES = 0  # graphs captured in this process
+CAPTURES = 0  # graphs captured in this process; each also `spans.count("graph_capture")`
 REPLAYS = 0  # replays of a captured graph
 
 
@@ -76,5 +78,6 @@ def run(fn: Callable, static: tuple, tensors: Tuple[torch.Tensor, ...]):
     if g is None:
         g = _GRAPHS[key] = _Captured(fn, static, tensors)
         CAPTURES += 1
+        spans.count("graph_capture")
     REPLAYS += 1
     return g(tensors)

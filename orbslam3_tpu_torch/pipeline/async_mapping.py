@@ -24,6 +24,8 @@ from __future__ import annotations
 from collections import deque
 from typing import Callable, List, Optional
 
+from orbslam3_tpu_torch import spans
+
 
 class AsyncMapper:
     def __init__(self, mapper, downstream: Optional[List[Callable]] = None):
@@ -71,32 +73,36 @@ class AsyncMapper:
     def tick(self):
         """Advance the in-flight pass by ONE stage (or start the next
         queued pass). Each stage's device work is launched asynchronously;
-        the host returns while the device executes."""
-        if self._cur is None:
-            if not self.queue:
-                return
-            self._cur = (self.queue.popleft(), 0)
-        # Normally one stage per tick; with an interrupt pending, drain the
-        # pass's remaining stages NOW (its BA stage no-ops under
-        # interrupt_ba) so the mapper frees up within one tick — otherwise
-        # `InterruptBA` would leave Tracking's mono insert path starved for
-        # the rest of the pass, which the reference's threaded mapper never
-        # does (`LocalMapping.cc:InterruptBA` aborts the solve immediately).
-        while True:
-            kf_id, stage_idx = self._cur
-            stages = self.mapper.STAGES
-            stages[stage_idx](self.mapper, kf_id)
-            stage_idx += 1
-            if stage_idx >= len(stages):
-                self._cur = None
-                self.mapper.interrupt_ba = False
-                self.n_completed += 1
-                for d in self.downstream:
-                    d(kf_id)
-                return
-            self._cur = (kf_id, stage_idx)
-            if not self.mapper.interrupt_ba:
-                return
+        the host returns while the device executes. A span `mapping stage`
+        times the tick; `count/mapping_queue` records the queue's length at
+        each tick that runs a stage."""
+        with spans.span("mapping stage"):
+            if self._cur is None:
+                if not self.queue:
+                    return
+                self._cur = (self.queue.popleft(), 0)
+            spans.count("mapping_queue", self.queue_len())
+            # Normally one stage per tick; with an interrupt pending, drain the
+            # pass's remaining stages NOW (its BA stage no-ops under
+            # interrupt_ba) so the mapper frees up within one tick — otherwise
+            # `InterruptBA` would leave Tracking's mono insert path starved for
+            # the rest of the pass, which the reference's threaded mapper never
+            # does (`LocalMapping.cc:InterruptBA` aborts the solve immediately).
+            while True:
+                kf_id, stage_idx = self._cur
+                stages = self.mapper.STAGES
+                stages[stage_idx](self.mapper, kf_id)
+                stage_idx += 1
+                if stage_idx >= len(stages):
+                    self._cur = None
+                    self.mapper.interrupt_ba = False
+                    self.n_completed += 1
+                    for d in self.downstream:
+                        d(kf_id)
+                    return
+                self._cur = (kf_id, stage_idx)
+                if not self.mapper.interrupt_ba:
+                    return
 
     def flush(self):
         """Drain every queued pass (System::Shutdown / end of replay —

@@ -142,27 +142,28 @@ class AsyncGBA:
         and its result was folded into `store`, the map it was started on:
         whatever makes another map active (`System._attach_store`,
         `MultiMapManager._do_merge`) aborts the solve first."""
-        if not self.running:
-            return False
-        n = min(self.chunk, self.iters - self._it)
-        with spans.span("gba/chunk"):
+        with spans.span("GBA chunk"):
+            if not self.running:
+                return False
+            n = min(self.chunk, self.iters - self._it)
+            with spans.span("gba/chunk"):
+                if self._prob_l is not None:
+                    res = self.dist.run_ba(self.model, self.params, self._prob_l, bf=self.bf,
+                                           iters=n)
+                    self._prob_l = self._prob_l._replace(cam_R=res.cam_R, cam_t=res.cam_t,
+                                                         points=res.points)
+                    self.n_dist_solves += 1
+                else:
+                    self._state, _ = gba_step(self.model, self.params, self._state, self._fixed,
+                                              self.sigma2_table, self.bf, n)
+            self._it += n
+            self.n_chunks += 1
+            if self._it < self.iters:
+                return False
             if self._prob_l is not None:
-                res = self.dist.run_ba(self.model, self.params, self._prob_l, bf=self.bf,
-                                       iters=n)
-                self._prob_l = self._prob_l._replace(cam_R=res.cam_R, cam_t=res.cam_t,
-                                                     points=res.points)
-                self.n_dist_solves += 1
-            else:
-                self._state, _ = gba_step(self.model, self.params, self._state, self._fixed,
-                                          self.sigma2_table, self.bf, n)
-        self._it += n
-        self.n_chunks += 1
-        if self._it < self.iters:
-            return False
-        if self._prob_l is not None:
-            self._fold_dist_result()
-        self._finish(store)
-        return True
+                self._fold_dist_result()
+            self._finish(store)
+            return True
 
     def _fold_dist_result(self):
         """The distributed solve's cameras and gathered points written into

@@ -89,33 +89,37 @@ class LoopCloser:
     # ------------------------------------------------------------------
     def process_keyframe(self, kf_id: int) -> bool:
         """Returns True if a loop was closed at this keyframe."""
-        s = self.store.state
-        self.kfdb.add(kf_id, s.kf_desc[kf_id], s.kf_feat_valid[kf_id])
-        if self.store.n_kf < self.min_kfs:  # `LoopClosing.cc:331`
-            return False
-        if kf_id - self.last_loop_kf < 10:  # cool-down after a closure
-            return False
-        covis_np = self.store.covisibility_np()
-        cand_ids, _ = self.kfdb.query(kf_id, self.store.tensor(covis_np))
-        for c in _np(cand_ids):
-            if c < 0 or c == kf_id or abs(int(c) - kf_id) < 10:  # too close in time
-                continue
-            with spans.span("loop: verify Sim3"):
-                verdict = self._verify_sim3(kf_id, int(c))
-            if verdict is None:
-                continue
-            R21, t21, s21 = verdict
-            if self._confirm(kf_id, int(c), covis_np):
-                self._correct_loop(kf_id, int(c), R21, t21, s21)
+        with spans.span("loop closing"):
+            s = self.store.state
+            with spans.span("place/add"):
+                self.kfdb.add(kf_id, s.kf_desc[kf_id], s.kf_feat_valid[kf_id])
+            if self.store.n_kf < self.min_kfs:  # `LoopClosing.cc:331`
+                return False
+            if kf_id - self.last_loop_kf < 10:  # cool-down after a closure
+                return False
+            with spans.span("place/query"):  # the JAX package's `loop/covis+query`
+                covis_np = self.store.covisibility_np()
+                cand_ids, _ = self.kfdb.query(kf_id, self.store.tensor(covis_np))
+                cands = _np(cand_ids)
+            for c in cands:
+                if c < 0 or c == kf_id or abs(int(c) - kf_id) < 10:  # too close in time
+                    continue
+                with spans.span("loop: verify Sim3"):
+                    verdict = self._verify_sim3(kf_id, int(c))
+                if verdict is None:
+                    continue
+                R21, t21, s21 = verdict
+                if self._confirm(kf_id, int(c), covis_np):
+                    self._correct_loop(kf_id, int(c), R21, t21, s21)
+                    self._pending = None
+                    self.last_loop_kf = kf_id
+                    self.n_loops_closed += 1
+                    return True
+                return False  # armed or extended the pending region
+            # A pending region that missed a beat is dropped (`LoopClosing.cc:456-470`).
+            if self._pending is not None and kf_id - self._pending[2] >= 2:
                 self._pending = None
-                self.last_loop_kf = kf_id
-                self.n_loops_closed += 1
-                return True
-            return False  # armed or extended the pending region
-        # A pending region that missed a beat is dropped (`LoopClosing.cc:456-470`).
-        if self._pending is not None and kf_id - self._pending[2] >= 2:
-            self._pending = None
-        return False
+            return False
 
     def _confirm(self, kf_id: int, cand: int, covis_np) -> bool:
         """Temporal consistency (`LoopClosing.cc:367`): the verified pair
@@ -142,113 +146,119 @@ class LoopCloser:
     def _verify_sim3_impl(self, kf_id: int, cand: int):
         s = self.store.state
         T = self.store.tensor
-        mp1 = _np(s.kf_mp[kf_id])
-        mp2 = _np(s.kf_mp[cand])
-        # 1) descriptor matches between the two keyframes' point-bearing features
-        has1 = T(mp1 >= 0) & s.kf_feat_valid[kf_id]
-        has2 = T(mp2 >= 0) & s.kf_feat_valid[cand]
-        m = matching.match_nn(s.kf_desc[kf_id], s.kf_desc[cand], has1, has2,
-                              max_dist=matching.TH_LOW, ratio=0.75, cross_check=True)
-        idx2 = _np(m.idx)
-        valid = _np(m.valid)
-        stats = self.last_verify = dict(matches=int(valid.sum()))
-        if stats["matches"] < self.min_bow_matches:
-            return None
-
-        # 2) Sim3 RANSAC on the matched points in each keyframe's camera frame
-        mp_pos = _np(s.mp_pos)
-        i2 = np.clip(idx2, 0, None)
-        pts1_w = mp_pos[np.clip(mp1, 0, None)]
-        pts2_w = mp_pos[np.clip(mp2[i2], 0, None)]
-        R1, t1 = _np(s.kf_R[kf_id]), _np(s.kf_t[kf_id])
-        R2, t2 = _np(s.kf_R[cand]), _np(s.kf_t[cand])
-        X1 = (R1 @ pts1_w.T).T + t1
-        X2 = (R2 @ pts2_w.T).T + t2
-        s2t = _np(self.sigma2_table)
-        oct1 = _np(s.kf_octave[kf_id])
-        oct2_all = _np(s.kf_octave[cand])
-        oct2 = oct2_all[i2]
-        s2_1 = s2t[np.clip(oct1, 0, len(s2t) - 1)]
-        s2_2 = s2t[np.clip(oct2, 0, len(s2t) - 1)]
-        uv1_all = _np(s.kf_uv[kf_id])
-        uv2_all = _np(s.kf_uv[cand])
-        uv2 = uv2_all[i2]
-
         def f32(x):
             return T(np.asarray(x, np.float32))
 
         def proj(X):
             return cam.project(self.model, self.params, X)
 
-        gen = torch.Generator(device=self.device).manual_seed(int(kf_id))
-        ok, R12, t12, s12, _ = ransac.sim3_ransac(
-            f32(X1), f32(X2), T(valid), f32(9.21 * s2_1), f32(9.21 * s2_2), proj, proj,
-            f32(uv1_all), f32(uv2), fix_scale=self.inertial, generator=gen,
-            min_inliers=self.min_sim3_inliers)
-        if not bool(ok):
+        with spans.span("loop/verify/match"):
+            mp1 = _np(s.kf_mp[kf_id])
+            mp2 = _np(s.kf_mp[cand])
+            # 1) descriptor matches between the two keyframes' point-bearing features
+            has1 = T(mp1 >= 0) & s.kf_feat_valid[kf_id]
+            has2 = T(mp2 >= 0) & s.kf_feat_valid[cand]
+            m = matching.match_nn(s.kf_desc[kf_id], s.kf_desc[cand], has1, has2,
+                                  max_dist=matching.TH_LOW, ratio=0.75, cross_check=True)
+            idx2 = _np(m.idx)
+            valid = _np(m.valid)
+            stats = self.last_verify = dict(matches=int(valid.sum()))
+        if stats["matches"] < self.min_bow_matches:
+            return None
+
+        # 2) Sim3 RANSAC on the matched points in each keyframe's camera frame
+        with spans.span("loop/verify/ransac"):
+            mp_pos = _np(s.mp_pos)
+            i2 = np.clip(idx2, 0, None)
+            pts1_w = mp_pos[np.clip(mp1, 0, None)]
+            pts2_w = mp_pos[np.clip(mp2[i2], 0, None)]
+            R1, t1 = _np(s.kf_R[kf_id]), _np(s.kf_t[kf_id])
+            R2, t2 = _np(s.kf_R[cand]), _np(s.kf_t[cand])
+            X1 = (R1 @ pts1_w.T).T + t1
+            X2 = (R2 @ pts2_w.T).T + t2
+            s2t = _np(self.sigma2_table)
+            oct1 = _np(s.kf_octave[kf_id])
+            oct2_all = _np(s.kf_octave[cand])
+            oct2 = oct2_all[i2]
+            s2_1 = s2t[np.clip(oct1, 0, len(s2t) - 1)]
+            s2_2 = s2t[np.clip(oct2, 0, len(s2t) - 1)]
+            uv1_all = _np(s.kf_uv[kf_id])
+            uv2_all = _np(s.kf_uv[cand])
+            uv2 = uv2_all[i2]
+
+            gen = torch.Generator(device=self.device).manual_seed(int(kf_id))
+            ok, R12, t12, s12, _ = ransac.sim3_ransac(
+                f32(X1), f32(X2), T(valid), f32(9.21 * s2_1), f32(9.21 * s2_2), proj, proj,
+                f32(uv1_all), f32(uv2), fix_scale=self.inertial, generator=gen,
+                min_inliers=self.min_sim3_inliers)
+            ok = bool(ok)
+        if not ok:
             return None
 
         # 3) Gauss-Newton refinement on the matched pairs (`OptimizeSim3`)
-        ref = sim3_mod.optimize_sim3(self.model, self.params, R12, t12, s12, f32(X1), f32(X2),
-                                     f32(uv1_all), f32(uv2), f32(s2_1), f32(s2_2), T(valid),
-                                     fix_scale=self.inertial)
-        stats["sim3_inliers"] = int(ref.n_inliers)
+        with spans.span("loop/verify/refine"):
+            ref = sim3_mod.optimize_sim3(self.model, self.params, R12, t12, s12, f32(X1),
+                                         f32(X2), f32(uv1_all), f32(uv2), f32(s2_1), f32(s2_2),
+                                         T(valid), fix_scale=self.inertial)
+            stats["sim3_inliers"] = int(ref.n_inliers)
         if stats["sim3_inliers"] < self.min_sim3_inliers:
             return None
 
-        # 4) second round (`LoopClosing.cc:763-840`): the candidate window's
-        # points projected through the Sim3, the refinement on the augmented
-        # pairs, the tight gate with the refined transform.
-        n_feat = s.kf_desc.shape[1]
-        min_proj = max(self.min_sim3_inliers, int(round(50 * n_feat / 1000.0)))
-        min_proj_opt = int(round(80 * n_feat / 1000.0))
-        cloud = self._cov_window_points(cand, exclude=kf_id)
-        mm, _, _ = self._sim3_projection_matches(kf_id, cloud, R2, t2, _np(ref.R), _np(ref.t),
-                                                 float(ref.s), radius=8.0,
-                                                 max_dist=matching.TH_HIGH)
-        midx = _np(mm.idx)
-        mval = _np(mm.valid)
-        stats["proj_matches"] = int(mval.sum())
-        if stats["proj_matches"] < min_proj:  # nProjMatches (`:806`)
-            return None
+        with spans.span("loop/verify/project"):
+            # 4) second round (`LoopClosing.cc:763-840`): the candidate window's
+            # points projected through the Sim3, the refinement on the augmented
+            # pairs, the tight gate with the refined transform.
+            n_feat = s.kf_desc.shape[1]
+            min_proj = max(self.min_sim3_inliers, int(round(50 * n_feat / 1000.0)))
+            min_proj_opt = int(round(80 * n_feat / 1000.0))
+            cloud = self._cov_window_points(cand, exclude=kf_id)
+            mm, _, _ = self._sim3_projection_matches(kf_id, cloud, R2, t2, _np(ref.R),
+                                                     _np(ref.t), float(ref.s), radius=8.0,
+                                                     max_dist=matching.TH_HIGH)
+            midx = _np(mm.idx)
+            mval = _np(mm.valid)
+            stats["proj_matches"] = int(mval.sum())
+            if stats["proj_matches"] < min_proj:  # nProjMatches (`:806`)
+                return None
 
-        # Pairs indexed by keyframe-1 feature: the forward residual (cloud
-        # point -> keyframe-1 pixel) always, the backward one only where the
-        # candidate observes the point (`OptimizeSim3` bAllPoints semantics).
-        Nf = n_feat
-        a_X2 = np.zeros((Nf, 3), np.float32)
-        a_uv2 = np.zeros((Nf, 2), np.float32)
-        a_s2_2 = np.zeros(Nf, np.float32)
-        a_valid = np.zeros(Nf, bool)
-        feat_of = np.clip(midx, 0, Nf - 1)
-        X2_cloud = (R2 @ mp_pos[np.clip(cloud, 0, None)].T).T + t2
-        a_X2[feat_of[mval]] = X2_cloud[mval]
-        a_valid[feat_of[mval]] = True
-        slot_of_point = np.full(mp_pos.shape[0], -1, np.int64)
-        slot_of_point[mp2[mp2 >= 0]] = np.flatnonzero(mp2 >= 0)
-        cl_slot = slot_of_point[np.clip(cloud, 0, None)]
-        has_bk = mval & (cl_slot >= 0)
-        a_uv2[feat_of[has_bk]] = uv2_all[cl_slot[has_bk]]
-        a_s2_2[feat_of[has_bk]] = s2t[np.clip(oct2_all[cl_slot[has_bk]], 0, len(s2t) - 1)]
-        own1 = mp1 >= 0
-        X1_own = np.zeros((Nf, 3), np.float32)
-        X1_own[own1] = (R1 @ mp_pos[mp1[own1]].T).T + t1
-        a_s2_2 = np.where(own1, a_s2_2, 0.0).astype(np.float32)
-        a_s2_1 = s2_1.astype(np.float32)
+            # Pairs indexed by keyframe-1 feature: the forward residual (cloud
+            # point -> keyframe-1 pixel) always, the backward one only where the
+            # candidate observes the point (`OptimizeSim3` bAllPoints semantics).
+            Nf = n_feat
+            a_X2 = np.zeros((Nf, 3), np.float32)
+            a_uv2 = np.zeros((Nf, 2), np.float32)
+            a_s2_2 = np.zeros(Nf, np.float32)
+            a_valid = np.zeros(Nf, bool)
+            feat_of = np.clip(midx, 0, Nf - 1)
+            X2_cloud = (R2 @ mp_pos[np.clip(cloud, 0, None)].T).T + t2
+            a_X2[feat_of[mval]] = X2_cloud[mval]
+            a_valid[feat_of[mval]] = True
+            slot_of_point = np.full(mp_pos.shape[0], -1, np.int64)
+            slot_of_point[mp2[mp2 >= 0]] = np.flatnonzero(mp2 >= 0)
+            cl_slot = slot_of_point[np.clip(cloud, 0, None)]
+            has_bk = mval & (cl_slot >= 0)
+            a_uv2[feat_of[has_bk]] = uv2_all[cl_slot[has_bk]]
+            a_s2_2[feat_of[has_bk]] = s2t[np.clip(oct2_all[cl_slot[has_bk]], 0, len(s2t) - 1)]
+            own1 = mp1 >= 0
+            X1_own = np.zeros((Nf, 3), np.float32)
+            X1_own[own1] = (R1 @ mp_pos[mp1[own1]].T).T + t1
+            a_s2_2 = np.where(own1, a_s2_2, 0.0).astype(np.float32)
+            a_s2_1 = s2_1.astype(np.float32)
 
-        ref2 = sim3_mod.optimize_sim3(self.model, self.params, ref.R, ref.t, ref.s, f32(X1_own),
-                                      f32(a_X2), f32(uv1_all), f32(a_uv2), f32(a_s2_1),
-                                      f32(a_s2_2), T(a_valid), fix_scale=self.inertial)
-        stats["sim3_inliers_2"] = int(ref2.n_inliers)
-        if stats["sim3_inliers_2"] < self.min_sim3_inliers:
-            return None
-        R_r, t_r, s_r = _np(ref2.R), _np(ref2.t), float(ref2.s)
-        mm2, _, _ = self._sim3_projection_matches(kf_id, cloud, R2, t2, R_r, t_r, s_r,
-                                                  radius=5.0, max_dist=matching.TH_HIGH)
-        stats["tight_matches"] = int(_np(mm2.valid).sum())
-        if stats["tight_matches"] < min_proj_opt:  # nProjOptMatches (`:826-832`)
-            return None
-        return R_r, t_r, s_r
+            ref2 = sim3_mod.optimize_sim3(self.model, self.params, ref.R, ref.t, ref.s,
+                                          f32(X1_own), f32(a_X2), f32(uv1_all), f32(a_uv2),
+                                          f32(a_s2_1), f32(a_s2_2), T(a_valid),
+                                          fix_scale=self.inertial)
+            stats["sim3_inliers_2"] = int(ref2.n_inliers)
+            if stats["sim3_inliers_2"] < self.min_sim3_inliers:
+                return None
+            R_r, t_r, s_r = _np(ref2.R), _np(ref2.t), float(ref2.s)
+            mm2, _, _ = self._sim3_projection_matches(kf_id, cloud, R2, t2, R_r, t_r, s_r,
+                                                      radius=5.0, max_dist=matching.TH_HIGH)
+            stats["tight_matches"] = int(_np(mm2.valid).sum())
+            if stats["tight_matches"] < min_proj_opt:  # nProjOptMatches (`:826-832`)
+                return None
+            return R_r, t_r, s_r
 
     def _cov_window_points(self, cand: int, n_cov: int = 5, cap: int = 4096,
                            exclude: int = -1) -> np.ndarray:

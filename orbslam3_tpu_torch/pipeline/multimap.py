@@ -102,29 +102,31 @@ class MultiMapManager:
     def on_new_keyframe(self, kf_id: int):
         """Index the keyframe in the active map's database, then try to merge
         the active map into a stored one."""
-        act = self.system.store
-        s = act.state
-        self._kfdb(act).add(kf_id, s.kf_desc[kf_id], s.kf_feat_valid[kf_id])
-        if self.atlas.n_maps > 1 and act.n_kf >= 5:
-            with spans.span("try merge"):
-                self._try_merge(kf_id)
+        with spans.span("atlas"):
+            act = self.system.store
+            s = act.state
+            self._kfdb(act).add(kf_id, s.kf_desc[kf_id], s.kf_feat_valid[kf_id])
+            if self.atlas.n_maps > 1 and act.n_kf >= 5:
+                with spans.span("try merge"):
+                    self._try_merge(kf_id)
 
     def on_frame_done(self):
         """The hard-LOST policy (`Tracking.cc:1239-1257`): after five LOST
         frames in a row a map of more than `min_kfs_to_store` keyframes is
         stored and a fresh one starts; a smaller one is reset (the streak
         gives relocalization its last tries first)."""
-        tr = self.system.tracker
-        if tr.state == TrackState.LOST and not tr.only_tracking:
-            self.lost_streak += 1
-        else:
-            self.lost_streak = 0
-        if self.lost_streak >= 5:
-            if self.system.store.n_kf > self.min_kfs_to_store:
-                self._create_map()
+        with spans.span("atlas"):
+            tr = self.system.tracker
+            if tr.state == TrackState.LOST and not tr.only_tracking:
+                self.lost_streak += 1
             else:
-                self.system.reset_active_map()
-            self.lost_streak = 0
+                self.lost_streak = 0
+            if self.lost_streak >= 5:
+                if self.system.store.n_kf > self.min_kfs_to_store:
+                    self._create_map()
+                else:
+                    self.system.reset_active_map()
+                self.lost_streak = 0
 
     # ------------------------------------------------------------------
     def _create_map(self):

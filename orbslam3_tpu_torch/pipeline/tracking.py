@@ -250,87 +250,91 @@ def _track_step(model, params, state: st.MapState, f_cur: feat.Features,
     Returns (bundle dict of device tensors, (mp_found, mp_visible))."""
     dev = f_cur.uv.device
     Nf = f_cur.uv.shape[0]
-    ur_arr = ur if ur is not None else torch.full((Nf,), -1.0, device=dev)
 
-    # --- Stage 1a: motion model -----------------------------------------
-    assoc_a, n_a = _track_last_frame(
-        model, params, R_pred, t_pred, last_mp, state.mp_pos, state.mp_valid,
-        state.mp_desc, f_cur, 15.0, scale_table, last_octave,
-    )
-    res_a = _pose_opt_from_assoc(model, params, R_pred, t_pred, assoc_a, f_cur,
-                                 state.mp_pos, state.mp_valid, sigma2_table, ur=ur_arr, bf=bf,
-                                 rig=rig)
-    ok_a = have_pred & (n_a >= 20) & (res_a.n_inliers >= 10)
-
-    # --- Stage 1b: reference keyframe fallback (host sync #1) ------------
-    rk = torch.clamp(ref_kf, min=0)
-    if bool(ok_a):
-        assoc_b = torch.full((Nf,), -1, dtype=torch.int32, device=dev)
-        n_b = torch.zeros((), dtype=torch.int32, device=dev)
-        R_b, t_b = R_last, t_last
-        inl_b = torch.zeros(Nf, dtype=torch.bool, device=dev)
-        ok_b = torch.zeros((), dtype=torch.bool, device=dev)
-    else:
-        assoc_b, n_b = _track_reference_kf(
-            st.row(state.kf_desc, rk), st.row(state.kf_feat_valid, rk), st.row(state.kf_mp, rk),
-            state.mp_valid, f_cur,
+    # --- Stage 1a: motion model, and its host read (host sync #1) --------
+    with spans.span("track/motion_model"):
+        ur_arr = ur if ur is not None else torch.full((Nf,), -1.0, device=dev)
+        assoc_a, n_a = _track_last_frame(
+            model, params, R_pred, t_pred, last_mp, state.mp_pos, state.mp_valid,
+            state.mp_desc, f_cur, 15.0, scale_table, last_octave,
         )
-        res_b = _pose_opt_from_assoc(model, params, R_last, t_last, assoc_b, f_cur,
-                                     state.mp_pos, state.mp_valid, sigma2_table,
-                                     ur=ur_arr, bf=bf, rig=rig)
-        ok_b = (ref_kf >= 0) & (n_b >= 15) & (res_b.n_inliers >= 10)
-        R_b, t_b, inl_b = res_b.R, res_b.t, res_b.inlier
+        res_a = _pose_opt_from_assoc(model, params, R_pred, t_pred, assoc_a, f_cur,
+                                     state.mp_pos, state.mp_valid, sigma2_table, ur=ur_arr,
+                                     bf=bf, rig=rig)
+        ok_a = have_pred & (n_a >= 20) & (res_a.n_inliers >= 10)
+        rk = torch.clamp(ref_kf, min=0)
+        motion_ok = bool(ok_a)
+        if motion_ok:
+            assoc_b = torch.full((Nf,), -1, dtype=torch.int32, device=dev)
+            n_b = torch.zeros((), dtype=torch.int32, device=dev)
+            R_b, t_b = R_last, t_last
+            inl_b = torch.zeros(Nf, dtype=torch.bool, device=dev)
+            ok_b = torch.zeros((), dtype=torch.bool, device=dev)
 
-    use_a = ok_a
-    R1 = torch.where(use_a, res_a.R, R_b)
-    t1 = torch.where(use_a, res_a.t, t_b)
-    minus1 = torch.full_like(assoc_a, -1)
-    assoc1 = torch.where(use_a, torch.where(res_a.inlier, assoc_a, minus1),
-                         torch.where(inl_b, assoc_b, minus1))
-    ok1 = ok_a | ok_b
+    # --- Stage 1b: reference keyframe fallback --------------------------
+    if not motion_ok:
+        with spans.span("track/ref_kf"):
+            assoc_b, n_b = _track_reference_kf(
+                st.row(state.kf_desc, rk), st.row(state.kf_feat_valid, rk),
+                st.row(state.kf_mp, rk), state.mp_valid, f_cur,
+            )
+            res_b = _pose_opt_from_assoc(model, params, R_last, t_last, assoc_b, f_cur,
+                                         state.mp_pos, state.mp_valid, sigma2_table,
+                                         ur=ur_arr, bf=bf, rig=rig)
+            ok_b = (ref_kf >= 0) & (n_b >= 15) & (res_b.n_inliers >= 10)
+            R_b, t_b, inl_b = res_b.R, res_b.t, res_b.inlier
 
-    # --- Local keyframe selection (device top-k) ------------------------
-    ptset = st.flag(state.Pmax, torch.clamp(assoc1, min=0), assoc1 >= 0)
-    kf_mp = state.kf_mp
-    shares = (ptset[torch.clamp(kf_mp, min=0).to(torch.int64)] & (kf_mp >= 0)).to(
-        torch.int32).sum(1, dtype=torch.int32) * state.kf_valid.to(torch.int32)
-    top_shares, top_kfs = _top_k_lowest_index(shares, N_LOCAL_KFS)
-    top_kfs = torch.where(top_shares > 0, top_kfs, -1).to(torch.int32)
-    fallback = torch.cat([rk.reshape(1).to(torch.int32),
-                          torch.full((N_LOCAL_KFS - 1,), -1, dtype=torch.int32, device=dev)])
-    local_pad = torch.where(torch.any(top_kfs >= 0), top_kfs, fallback)
+    with spans.span("track/local_map"):
+        use_a = ok_a
+        R1 = torch.where(use_a, res_a.R, R_b)
+        t1 = torch.where(use_a, res_a.t, t_b)
+        minus1 = torch.full_like(assoc_a, -1)
+        assoc1 = torch.where(use_a, torch.where(res_a.inlier, assoc_a, minus1),
+                             torch.where(inl_b, assoc_b, minus1))
+        ok1 = ok_a | ok_b
 
-    # --- Stage 2: local map ---------------------------------------------
-    local_mask = _local_point_mask(state, local_pad)
-    assoc2, visible = _track_local_map_match(model, params, R1, t1, state, local_mask, f_cur,
-                                             assoc1, img_wh, n_levels=n_levels)
-    res2 = _pose_opt_from_assoc(model, params, R1, t1, assoc2, f_cur, state.mp_pos,
-                                state.mp_valid, sigma2_table, ur=ur_arr, bf=bf, rig=rig)
-    assoc_final = torch.where(res2.inlier, assoc2, torch.full_like(assoc2, -1))
+        # --- Local keyframe selection (device top-k) --------------------
+        ptset = st.flag(state.Pmax, torch.clamp(assoc1, min=0), assoc1 >= 0)
+        kf_mp = state.kf_mp
+        shares = (ptset[torch.clamp(kf_mp, min=0).to(torch.int64)] & (kf_mp >= 0)).to(
+            torch.int32).sum(1, dtype=torch.int32) * state.kf_valid.to(torch.int32)
+        top_shares, top_kfs = _top_k_lowest_index(shares, N_LOCAL_KFS)
+        top_kfs = torch.where(top_shares > 0, top_kfs, -1).to(torch.int32)
+        fallback = torch.cat([rk.reshape(1).to(torch.int32),
+                              torch.full((N_LOCAL_KFS - 1,), -1, dtype=torch.int32, device=dev)])
+        local_pad = torch.where(torch.any(top_kfs >= 0), top_kfs, fallback)
 
-    # --- found/visible stats (stay on device) ---------------------------
-    mp_found, mp_visible = st.bump_found_visible_arrays(state, visible, assoc_final)
+        # --- Stage 2: local map -----------------------------------------
+        local_mask = _local_point_mask(state, local_pad)
+        assoc2, visible = _track_local_map_match(model, params, R1, t1, state, local_mask, f_cur,
+                                                 assoc1, img_wh, n_levels=n_levels)
+        res2 = _pose_opt_from_assoc(model, params, R1, t1, assoc2, f_cur, state.mp_pos,
+                                    state.mp_valid, sigma2_table, ur=ur_arr, bf=bf, rig=rig)
+        assoc_final = torch.where(res2.inlier, assoc2, torch.full_like(assoc2, -1))
 
-    # Reference-KF tracked count for NeedNewKeyFrame (points with >= min_obs
-    # observations).
-    new_ref = torch.where(local_pad[0] >= 0, local_pad[0], rk.to(torch.int32))
-    if obs_count is None:
-        obs_count = compute_obs_count(state)
-    row = st.row(state.kf_mp, new_ref)
-    row_ok = (row >= 0) & st.row(state.kf_feat_valid, new_ref)
-    ref_matches = torch.sum(
-        row_ok & (obs_count[torch.clamp(row, min=0).to(torch.int64)] >= min_obs)
-    ).to(torch.int32)
+        # --- found/visible stats (stay on device) -----------------------
+        mp_found, mp_visible = st.bump_found_visible_arrays(state, visible, assoc_final)
 
-    # The new reference keyframe's pose rides in the bundle: the tracker
-    # logs the frame relative to it without a host read of its own.
-    bundle = dict(
-        ok1=ok1, used_a=use_a, n_a=n_a, n_b=n_b,
-        R=res2.R, t=res2.t, assoc=assoc_final,
-        n_inl=res2.n_inliers, top_kfs=top_kfs, ref_matches=ref_matches,
-        ref_kf=new_ref, ref_R=st.row(state.kf_R, new_ref), ref_t=st.row(state.kf_t, new_ref),
-    )
-    return bundle, (mp_found, mp_visible)
+        # Reference-KF tracked count for NeedNewKeyFrame (points with >= min_obs
+        # observations).
+        new_ref = torch.where(local_pad[0] >= 0, local_pad[0], rk.to(torch.int32))
+        if obs_count is None:
+            obs_count = compute_obs_count(state)
+        row = st.row(state.kf_mp, new_ref)
+        row_ok = (row >= 0) & st.row(state.kf_feat_valid, new_ref)
+        ref_matches = torch.sum(
+            row_ok & (obs_count[torch.clamp(row, min=0).to(torch.int64)] >= min_obs)
+        ).to(torch.int32)
+
+        # The new reference keyframe's pose rides in the bundle: the tracker
+        # logs the frame relative to it without a host read of its own.
+        bundle = dict(
+            ok1=ok1, used_a=use_a, n_a=n_a, n_b=n_b,
+            R=res2.R, t=res2.t, assoc=assoc_final,
+            n_inl=res2.n_inliers, top_kfs=top_kfs, ref_matches=ref_matches,
+            ref_kf=new_ref, ref_R=st.row(state.kf_R, new_ref), ref_t=st.row(state.kf_t, new_ref),
+        )
+        return bundle, (mp_found, mp_visible)
 
 
 def fetch_bundle(bundle: dict) -> dict:
@@ -523,7 +527,8 @@ class Tracker:
 
     def _extract(self, img) -> feat.Features:
         """Features of an image, left in flight on the device."""
-        return feat.extract(self._image(img), self.orb)
+        with spans.span("extract"):
+            return feat.extract(self._image(img), self.orb)
 
     def _kf_pose(self, kf: int):
         """Host copy of keyframe `kf`'s pose: from the last bundle when it
@@ -731,47 +736,48 @@ class Tracker:
                                uv_r: Optional[torch.Tensor] = None,
                                sig2_r: Optional[torch.Tensor] = None,
                                has_r: Optional[torch.Tensor] = None) -> fr.FrameData:
-        # Timestamp anomalies (`Tracking::Track`, Tracking.cc:987-1031): a
-        # frame older than the last one resets the active map; an inertial
-        # gap of more than 1 s reports "gap_init" (IMU initialized) or
-        # "gap_uninit". The frame then goes on as the first of a new map.
-        if self.anomaly_cb is not None and self.last_frame is not None:
-            dt = timestamp - self.last_frame.timestamp
-            if dt < 0:
-                self.anomaly_cb("reorder")
-            elif dt > 1.0 and self.imu_calib is not None:
-                self.anomaly_cb("gap_init" if self.imu_ready else "gap_uninit")
-        cur = fr.FrameData(features=f, timestamp=timestamp, frame_id=self.frame_id,
-                           R=np.eye(3, dtype=np.float32), t=np.zeros(3, np.float32),
-                           mp_assoc=np.full(f.n, -1, np.int32), ur=ur, depth=depth,
-                           uv_r=uv_r, sig2_r=sig2_r, has_r=has_r)
-        self.frame_id += 1
-        self.pi_taken = False
-        # IMU preintegration over the frame gap (`PreintegrateIMU`), merged
-        # into the window since the last keyframe. No host read.
-        if self.imu_calib is not None and self.last_frame is not None:
-            with spans.span("preintegration"):
-                self.pre_frame = isup.preintegrate_window(
-                    self.imu_queue, self.last_frame.timestamp, timestamp, self.bias_g,
-                    self.bias_a, self.imu_calib)
-            if self.pre_frame is not None:
-                self.pre_from_kf = (self.pre_frame if self.pre_from_kf is None else
-                                    imu_ops.merge(self.pre_from_kf, self.pre_frame,
-                                                  self.imu_calib))
-        publish_anyway = False
-        if self.state in (TrackState.NO_IMAGES_YET, TrackState.NOT_INITIALIZED):
-            if cur.ur is not None:
-                self._initialize_stereo(cur)
+        with spans.span("track"):
+            # Timestamp anomalies (`Tracking::Track`, Tracking.cc:987-1031): a
+            # frame older than the last one resets the active map; an inertial
+            # gap of more than 1 s reports "gap_init" (IMU initialized) or
+            # "gap_uninit". The frame then goes on as the first of a new map.
+            if self.anomaly_cb is not None and self.last_frame is not None:
+                dt = timestamp - self.last_frame.timestamp
+                if dt < 0:
+                    self.anomaly_cb("reorder")
+                elif dt > 1.0 and self.imu_calib is not None:
+                    self.anomaly_cb("gap_init" if self.imu_ready else "gap_uninit")
+            cur = fr.FrameData(features=f, timestamp=timestamp, frame_id=self.frame_id,
+                               R=np.eye(3, dtype=np.float32), t=np.zeros(3, np.float32),
+                               mp_assoc=np.full(f.n, -1, np.int32), ur=ur, depth=depth,
+                               uv_r=uv_r, sig2_r=sig2_r, has_r=has_r)
+            self.frame_id += 1
+            self.pi_taken = False
+            # IMU preintegration over the frame gap (`PreintegrateIMU`), merged
+            # into the window since the last keyframe. No host read.
+            if self.imu_calib is not None and self.last_frame is not None:
+                with spans.span("preintegration"):
+                    self.pre_frame = isup.preintegrate_window(
+                        self.imu_queue, self.last_frame.timestamp, timestamp, self.bias_g,
+                        self.bias_a, self.imu_calib)
+                if self.pre_frame is not None:
+                    self.pre_from_kf = (self.pre_frame if self.pre_from_kf is None else
+                                        imu_ops.merge(self.pre_from_kf, self.pre_frame,
+                                                      self.imu_calib))
+            publish_anyway = False
+            if self.state in (TrackState.NO_IMAGES_YET, TrackState.NOT_INITIALIZED):
+                if cur.ur is not None:
+                    self._initialize_stereo(cur)
+                else:
+                    self._initialize_mono(cur)
             else:
-                self._initialize_mono(cur)
-        else:
-            ok, publish_anyway = self._track_state_machine(cur)
-            if ok:
-                self.state = TrackState.OK
-        if self.state == TrackState.OK or publish_anyway:
-            self._record_pose(cur.timestamp, cur.R, cur.t)
-        self.last_frame = cur
-        return cur
+                ok, publish_anyway = self._track_state_machine(cur)
+                if ok:
+                    self.state = TrackState.OK
+            if self.state == TrackState.OK or publish_anyway:
+                self._record_pose(cur.timestamp, cur.R, cur.t)
+            self.last_frame = cur
+            return cur
 
     def _track_state_machine(self, cur: fr.FrameData):
         """One tracked frame through the reference's state machine
@@ -803,7 +809,9 @@ class Tracker:
                 self.state = TrackState.LOST  # the 5 s cap
                 return False, False
             return False, published
-        if self._relocalize(cur):
+        with spans.span("track/relocalize"):
+            relocalized = self._relocalize(cur)
+        if relocalized:
             self.velocity = None
             self.last_reloc_frame_id = cur.frame_id
             if self._track(cur, have_pose=True):
@@ -980,49 +988,53 @@ class Tracker:
         `have_pose=True` (after relocalization) tracks from `cur`'s pose."""
         s = self.store.state
         last = self.last_frame
-        R_pred = t_pred = None
-        if have_pose:
-            pass
-        elif self.imu_ready and self.pre_frame is not None and last is not None:
-            # The IMU prediction replaces the constant-velocity model.
-            R_pred, t_pred, self.body_vel = self._imu_predict(last)
-        elif self.velocity is not None and last is not None:
-            Rv, tv = self.velocity  # constant-velocity motion model
-            R_pred = Rv @ last.R
-            t_pred = Rv @ last.t + tv
-        have_pred = R_pred is not None and last is not None
-        if not have_pred:
-            R_pred = np.eye(3, dtype=np.float32)
-            t_pred = np.zeros(3, np.float32)
-        if have_pose:
-            R_last, t_last = cur.R, cur.t
-        elif last is not None:
-            R_last, t_last = last.R, last.t
-        else:
-            R_last, t_last = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
-        Nf = cur.features.n
-        last_mp = last.mp_assoc if last is not None else np.full(Nf, -1, np.int32)
-        last_oct = (last.features.octave if last is not None
-                    else torch.zeros(Nf, dtype=torch.int32, device=self.device))
+        with spans.span("track/inputs"):
+            R_pred = t_pred = None
+            if have_pose:
+                pass
+            elif self.imu_ready and self.pre_frame is not None and last is not None:
+                # The IMU prediction replaces the constant-velocity model.
+                R_pred, t_pred, self.body_vel = self._imu_predict(last)
+            elif self.velocity is not None and last is not None:
+                Rv, tv = self.velocity  # constant-velocity motion model
+                R_pred = Rv @ last.R
+                t_pred = Rv @ last.t + tv
+            have_pred = R_pred is not None and last is not None
+            if not have_pred:
+                R_pred = np.eye(3, dtype=np.float32)
+                t_pred = np.zeros(3, np.float32)
+            if have_pose:
+                R_last, t_last = cur.R, cur.t
+            elif last is not None:
+                R_last, t_last = last.R, last.t
+            else:
+                R_last, t_last = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+            Nf = cur.features.n
+            last_mp = last.mp_assoc if last is not None else np.full(Nf, -1, np.int32)
+            last_oct = (last.features.octave if last is not None
+                        else torch.zeros(Nf, dtype=torch.int32, device=self.device))
 
-        def up(x, dtype):
-            return convert.tensor(np.asarray(x, dtype), self.device)
+            def up(x, dtype):
+                return convert.tensor(np.asarray(x, dtype), self.device)
 
-        c2 = self.camera2
-        rig = None
-        if c2 is not None and cur.uv_r is not None:
-            rig = (c2["params"], c2["R_rl"], c2["t_rl"], cur.uv_r, cur.sig2_r, cur.has_r)
+            c2 = self.camera2
+            rig = None
+            if c2 is not None and cur.uv_r is not None:
+                rig = (c2["params"], c2["R_rl"], c2["t_rl"], cur.uv_r, cur.sig2_r, cur.has_r)
+            pred = (up(R_pred, np.float32), up(t_pred, np.float32), up(have_pred, bool))
+            prev = (up(last_mp, np.int32), last_oct, up(self.ref_kf, np.int32),
+                    up(R_last, np.float32), up(t_last, np.float32))
+            min_obs = up(3 if self.store.n_kf > 2 else 2, np.int32)
+            ur = up(cur.ur, np.float32) if cur.ur is not None else None
+            obs_count = self._obs_count_cached()
 
         bundle, (fnd, vis) = _track_step(
-            self.model, self.params, s, cur.features, up(R_pred, np.float32),
-            up(t_pred, np.float32), up(have_pred, bool), up(last_mp, np.int32), last_oct,
-            up(self.ref_kf, np.int32), up(R_last, np.float32), up(t_last, np.float32),
-            self.scale_table, self.sigma2_table, self.img_wh_t,
-            up(3 if self.store.n_kf > 2 else 2, np.int32),
-            ur=up(cur.ur, np.float32) if cur.ur is not None else None, bf=self.bf,
-            obs_count=self._obs_count_cached(), n_levels=self.orb.n_levels, rig=rig,
+            self.model, self.params, s, cur.features, *pred, *prev, self.scale_table,
+            self.sigma2_table, self.img_wh_t, min_obs, ur=ur, bf=self.bf, obs_count=obs_count,
+            n_levels=self.orb.n_levels, rig=rig,
         )
-        b = fetch_bundle(bundle)  # the frame's one round trip
+        with spans.span("track/fetch"):
+            b = fetch_bundle(bundle)  # the frame's one round trip
         if not bool(b["ok1"]):
             return False
         n_inl = int(b["n_inl"])
@@ -1044,9 +1056,10 @@ class Tracker:
             Rwc, twc = Rl.T, -Rl.T @ tl
             self.velocity = (cur.R @ Rwc, cur.R @ twc + cur.t)
 
-        if not self.only_tracking and self._need_new_keyframe(cur, n_inl,
-                                                              int(b["ref_matches"])):
-            self._create_keyframe(cur)
+        if not self.only_tracking:
+            with spans.span("track/keyframe"):
+                if self._need_new_keyframe(cur, n_inl, int(b["ref_matches"])):
+                    self._create_keyframe(cur)
         return True
 
     def _pose_inertial(self, cur: fr.FrameData, last, n_inl: int) -> int:

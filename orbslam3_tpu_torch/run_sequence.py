@@ -68,7 +68,8 @@ def _parser() -> argparse.ArgumentParser:
                          "assets/ORBvoc_synth_100k.bin")
     ap.add_argument("--train-vocab", action="store_true",
                     help="ignore the shipped vocabulary and train one on the sequence")
-    ap.add_argument("--timing", action="store_true", help="print the span report at the end")
+    ap.add_argument("--timing", action="store_true",
+                    help="print the span report at the end: spans, then counters")
     ap.add_argument("--viewer", type=int, default=None, metavar="PORT",
                     help="serve the live viewer on this port (0 = a free one)")
     ap.add_argument("--device", default=None,

@@ -60,6 +60,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from orbslam3_tpu_torch import spans
 from orbslam3_tpu_torch.atlas.store import MapStore
 from orbslam3_tpu_torch.device import require_cuda
 from orbslam3_tpu_torch.io import trajectory as traj_io
@@ -284,10 +285,11 @@ class System:
             self._require(Sensor.MONOCULAR)
         if imu_measurements and self.sensor != Sensor.IMU_MONOCULAR:
             raise ValueError(f"a {self.sensor.name} System takes no IMU samples")
-        for t, acc, gyro in imu_measurements or ():
-            self.tracker.grab_imu(t, acc, gyro)
-        out = self.tracker.process_frame(img, timestamp)
-        self._post_frame(img)
+        with spans.span("frame"):
+            for t, acc, gyro in imu_measurements or ():
+                self.tracker.grab_imu(t, acc, gyro)
+            out = self.tracker.process_frame(img, timestamp)
+            self._post_frame(img)
         return out
 
     def track_stereo(self, img_left, img_right, timestamp: float, imu_measurements=None):
@@ -300,23 +302,25 @@ class System:
             self._require(Sensor.STEREO)
         if imu_measurements and self.sensor != Sensor.IMU_STEREO:
             raise ValueError(f"a {self.sensor.name} System takes no IMU samples")
-        for t, acc, gyro in imu_measurements or ():
-            self.tracker.grab_imu(t, acc, gyro)
-        if self.rectifier is not None:
-            img_left, img_right = self.rectifier(img_left, img_right)
-        if self.tracker.camera2 is not None:
-            out = self.tracker.process_stereo_fisheye_frame(img_left, img_right, timestamp)
-        else:
-            out = self.tracker.process_stereo_frame(img_left, img_right, timestamp)
-        self._post_frame(img_left)
+        with spans.span("frame"):
+            for t, acc, gyro in imu_measurements or ():
+                self.tracker.grab_imu(t, acc, gyro)
+            if self.rectifier is not None:
+                img_left, img_right = self.rectifier(img_left, img_right)
+            if self.tracker.camera2 is not None:
+                out = self.tracker.process_stereo_fisheye_frame(img_left, img_right, timestamp)
+            else:
+                out = self.tracker.process_stereo_frame(img_left, img_right, timestamp)
+            self._post_frame(img_left)
         return out
 
     def track_rgbd(self, img, depth_map, timestamp: float):
         """`System::TrackRGBD`: a grey image and its registered depth map
         (H, W) in metres, <= 0 where there is none."""
         self._require(Sensor.RGBD)
-        out = self.tracker.process_rgbd_frame(img, depth_map, timestamp)
-        self._post_frame(img)
+        with spans.span("frame"):
+            out = self.tracker.process_rgbd_frame(img, depth_map, timestamp)
+            self._post_frame(img)
         return out
 
     def _require(self, sensor: Sensor):
@@ -347,20 +351,21 @@ class System:
         keyframes' poses and velocities turned, `LoopCloser._correct_loop`);
         where else the stage, or the loop closing or merge after it, moved the
         map, the last frame follows it (`Tracker.follow_map`, fault C17)."""
-        am = self.async_mapper
-        if am is not None and not am.idle():
-            tr = self.tracker
-            loops, store, tr._map_transformed = self.n_loops_closed, self.store, False
-            stages = self.mapper.n_imu_stages
-            am.tick()
-            staged = self.mapper.n_imu_stages > stages or self.n_loops_closed > loops
-            if staged and self.store is store and tr.imu_ready:
-                tr.update_frame_imu()
-            elif self.n_loops_closed > loops or tr._map_transformed or self.store is not store:
-                tr.follow_map()
-        lc = self.loop_closer
-        if lc is not None and lc.gba_async is not None and lc.gba_async.running:
-            lc.gba_async.tick(self.store)
+        with spans.span("after-frame tick"):
+            am = self.async_mapper
+            if am is not None and not am.idle():
+                tr = self.tracker
+                loops, store, tr._map_transformed = self.n_loops_closed, self.store, False
+                stages = self.mapper.n_imu_stages
+                am.tick()
+                staged = self.mapper.n_imu_stages > stages or self.n_loops_closed > loops
+                if staged and self.store is store and tr.imu_ready:
+                    tr.update_frame_imu()
+                elif self.n_loops_closed > loops or tr._map_transformed or self.store is not store:
+                    tr.follow_map()
+            lc = self.loop_closer
+            if lc is not None and lc.gba_async is not None and lc.gba_async.running:
+                lc.gba_async.tick(self.store)
 
     def _lost_recovery_fallback(self):
         """Hard-LOST policy without a multi-map atlas: a map of <= 10
